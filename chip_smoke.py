@@ -18,11 +18,31 @@ failure:
              kernel vs eager backend logits after the prefill of 4
              prompts and after each of 8 decode steps of the 4-slot
              batch, with equal greedy tokens.
-5. serve   — the main path: ``launch.serve`` with GPT2-L at full width and
-             depth in float16 on the planner's uneven 3:2:2:1 plan, 8
+5. serve   — the Galaxy path: ``launch.serve`` with GPT2-L at full width
+             and depth in float16 on the planner's uneven 3:2:2:1 plan, 8
              requests of 37-300 prompt tokens, 16 new tokens each,
-             ``max_batch=4``; every kernel must have launched, and the
-             first served token of a request must match the eager backend.
+             ``max_batch=4``; each of its three kernels must have launched,
+             and the first served token of a request must match the eager
+             backend.
+6. zoo kernels — the dense flash attention and the RG-LRU scan against
+             their plain versions at RecurrentGemma-9B's served prefill
+             shapes: attention (2, 16, 2100, 256) on one KV head, causal,
+             window 2048, float32 and bfloat16; scan (2, 2100, 4096)
+             float32 with a nonzero h0.  Timed beside their plain versions,
+             SDPA with the window mask (attention; the scan has no one
+             PyTorch call) and their bounds.
+7. zoo parity — RecurrentGemma-9B at full width cut to 5 layers (one
+             rec,rec,attn group + the 2 tail rec blocks) in float32:
+             kernel vs eager (plain) backend logits after a 2100-token
+             prefill (longer than the window) of 2 prompts and after each
+             of 8 decode steps.
+8. zoo serve — the zoo path: ``launch.serve --executor zoo`` with
+             RecurrentGemma-9B at full width and depth in bfloat16, 4
+             requests of 300 and 2 of 2100 prompt tokens, 16 new tokens
+             each, ``max_batch=4``: two waves, so exactly 24 flash and 52
+             scan launches (12 attention and 26 recurrent layers per
+             prefill; decode launches neither); the first served tokens of
+             the 300-token wave must match the eager backend.
 
 Where the serve time goes (``torch.profiler``) is measured apart, by
 ``python -m repro_torch.launch.trace_serve``.
@@ -33,6 +53,7 @@ non-zero without CUDA or without the package beside it.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,23 +66,29 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s of the
 # fp16 tensor cores and of fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"float16": 989e12, "bfloat16": 989e12, "float32": 67e12}
 
 # tolerances of kernel vs plain version (both accumulate in fp32): fp32 —
-# sums of up to K=1920 products taken in another order; fp16 — the final
-# fp16 rounding of O(1) outputs
-ATOL = {"float32": 1e-4, "float16": 1e-2}
+# sums of up to K=1920 products (attention: 2048 keys) taken in another
+# order; fp16/bf16 — the final rounding of O(1) outputs
+ATOL = {"float32": 1e-4, "float16": 1e-2, "bfloat16": 1e-2}
 
 REPLACES = {
     "tiled_gemm_valid": "src/repro/kernels/tiled_gemm.py:162",
     "ragged_flash_attention": "src/repro/kernels/flash_attention.py:212",
     "fused_connective": "src/repro/kernels/fused_connective.py:34",
+    "flash_attention": "src/repro/kernels/flash_attention.py:88",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:49",
 }
 SOURCES = {
     "tiled_gemm_valid": "src/repro_torch/kernels/csrc/tiled_gemm_valid.cu",
     "ragged_flash_attention": "src/repro_torch/kernels/csrc/ragged_flash_attention.cu",
     "fused_connective": "src/repro_torch/kernels/csrc/fused_connective.py",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
+GALAXY_KERNELS = ("tiled_gemm_valid", "ragged_flash_attention", "fused_connective")
+ZOO_KERNELS = ("flash_attention", "rglru_scan")
 
 
 def log(phase: str, msg: str) -> None:
@@ -117,9 +144,12 @@ class Record:
         self.d["max_abs_err"] = max(self.d["max_abs_err"], e)
 
     def timed(self, ms, plain_ms, library_ms, nbytes, flops, dtype) -> None:
+        """Add one shape's times; ``library_ms`` None: no one PyTorch call
+        computes the function."""
         self.d["ms"] += ms
         self.d["plain_ms"] += plain_ms
-        self.d["library_ms"] += library_ms
+        self.d["library_ms"] = (None if library_ms is None
+                                else self.d["library_ms"] + library_ms)
         self._t_bytes += nbytes / PEAK_BYTES
         self._t_ops += flops / PEAK_FLOPS[dtype]
         self.d["bound_ms"] = 1e3 * max(self._t_bytes, self._t_ops)
@@ -343,12 +373,16 @@ def phase_serve(torch, rec):
     expect = {"tiled_gemm_valid": n_req * 2304 + steps * 576,
               "ragged_flash_attention": n_req * 144,
               "fused_connective": n_req * 288}
-    for name, n in counts.items():
+    for name in GALAXY_KERNELS:
+        n = counts[name]
         if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+            raise AssertionError(f"{name} never launched on the Galaxy path")
         rec[name].d["launches"] = n
         note = "as expected" if n == expect[name] else f"expected {expect[name]}"
         log("serve", f"{name}: {n} launches ({note})")
+    for name in ZOO_KERNELS:
+        if counts[name]:
+            raise AssertionError(f"{name} launched {counts[name]} times on the Galaxy path")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
         f"{out['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * out['ttft_p50_s']:.1f} ms, "
@@ -392,6 +426,186 @@ def check_served_token(out, torch):
         f"logits max abs err {err:.3g}; first token {first} == served")
 
 
+def window_pairs(sq: int, sk: int, window: int) -> int:
+    """Visible (query, key) pairs of causal window attention, queries
+    right-aligned to the keys."""
+    return sum(min(p + 1, window) if window else p + 1 for p in range(sk - sq, sk))
+
+
+def phase_zoo_kernels(rec, torch):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, h, hkv, s, hd, window = 2, 16, 1, 2100, 256, 2048
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        # transposed views of the zoo's (B, S, H, hd) projections
+        q = torch.randn(b, s, h, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
+        k, v = (torch.randn(b, s, hkv, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
+                for _ in range(2))
+        out = flash_attention(q, k, v, causal=True, window=window)
+        plain = flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = check_close("flash_attention", out, plain, dtype, "served prefill")
+        log("kernels", f"flash_attention {dtype} q ({b},{h},{s},{hd}) kv ({b},{hkv},{s},{hd}) "
+            f"causal window={window} err={err:.3g}")
+        if dtype != "bfloat16":
+            continue
+        rec["flash_attention"].err(err)
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window), iters=10)
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=window),
+                           iters=5)
+        lib_ms = time_ms(lambda: sdpa(qc, kc, vc, attn_mask=mask, enable_gqa=True), iters=10)
+        esize = 2
+        nbytes = esize * (2 * b * h * s * hd + 2 * b * hkv * s * hd)
+        flops = 4.0 * window_pairs(s, s, window) * hd * h * b
+        rec["flash_attention"].timed(ms, plain_ms, lib_ms, nbytes, flops, dtype)
+        bms, by = bound(nbytes, flops, dtype)
+        log("kernels", f"flash_attention bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+    w = 4096
+    a = 0.5 + 0.499 * torch.rand(b, s, w, generator=g, device=dev)
+    bb = torch.randn(b, s, w, generator=g, device=dev)
+    h0 = torch.randn(b, w, generator=g, device=dev)
+    hs, hl = rglru_scan(a, bb, h0)
+    ps, pl = rglru_scan_plain(a, bb, h0)
+    torch.cuda.synchronize()
+    err = max(check_close("rglru_scan", hs, ps, "float32", "h_seq"),
+              check_close("rglru_scan", hl, pl, "float32", "h_last"))
+    rec["rglru_scan"].err(err)
+    log("kernels", f"rglru_scan float32 ({b},{s},{w}) nonzero h0: h_seq and h_last err={err:.3g}")
+    ms = time_ms(lambda: rglru_scan(a, bb, h0))
+    plain_ms = time_ms(lambda: rglru_scan_plain(a, bb, h0), iters=3)
+    nbytes = 4 * (3 * b * s * w + 2 * b * w)
+    flops = 2.0 * b * s * w
+    rec["rglru_scan"].timed(ms, plain_ms, None, nbytes, flops, "float32")
+    bms, by = bound(nbytes, flops, "float32")
+    log("kernels", f"rglru_scan fp32: {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
+        f"bound {bms:.4f} ms ({by})")
+
+
+def phase_zoo_parity(torch):
+    """RecurrentGemma-9B at full width, 5 layers, fp32: kernel vs eager
+    backend logits after a 2100-token prefill and 8 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    kern = TransformerExecutor(params, cfg, backend="kernel")
+    eager = TransformerExecutor(params, cfg, backend="eager")
+    b, s, steps = 2, 2100, 8
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    ops.reset_launch_counts()
+    lk, ck = kern.prefill(tokens, kern.make_cache(b, s + steps))
+    counts = ops.launch_counts()
+    if (counts["flash_attention"], counts["rglru_scan"]) != (1, 4):
+        raise AssertionError(f"5-layer prefill launches: {counts}")
+    le, ce = eager.prefill(tokens, eager.make_cache(b, s + steps))
+    # fp32 through 5 full-width layers: the paths differ only in the
+    # attention's and the scan's summation order
+    tol = 1e-4
+    err = (lk - le).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"zoo prefill logits kernel vs eager: max abs err {err} > {tol}")
+    derr, toks = 0.0, []
+    for step in range(steps):
+        tok = le.argmax(-1)
+        if not torch.equal(tok, lk.argmax(-1)):
+            raise AssertionError(f"zoo decode step {step}: greedy tokens differ")
+        toks.append(tok.tolist())
+        lk, ck = kern.decode(tok[:, None], ck, s + step)
+        le, ce = eager.decode(tok[:, None], ce, s + step)
+        e = (lk - le).abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"zoo decode step {step} logits kernel vs eager: "
+                                 f"max abs err {e} > {tol}")
+        derr = max(derr, e)
+    if ops.launch_counts() != counts:
+        raise AssertionError("a zoo decode step launched a prefill kernel")
+    log("parity", f"RecurrentGemma-9B width, 5 layers fp32, {b} x {s}-token prefill "
+        f"(window {cfg.window}): logits max abs err {err:.3g}; {steps} decode steps "
+        f"max abs err {derr:.3g} (tolerance {tol}); greedy tokens equal: {toks}")
+
+
+def phase_zoo_serve(torch, rec):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    torch.cuda.reset_peak_memory_stats()
+    lens, max_new = [300] * 4 + [2100] * 2, 16
+    ops.reset_launch_counts()
+    out = launch_serve.serve("recurrentgemma-9b", executor_kind="zoo", prompt_lens=lens,
+                             max_new=max_new, max_batch=4, device="cuda",
+                             dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    reqs = out["requests"]
+    log("serve", out["plan"])
+    if len(reqs) != len(lens) or any(len(r.output) != max_new for r in reqs):
+        raise AssertionError(f"unfinished zoo requests: {[len(r.output) for r in reqs]}")
+    cfg = out["executor"].cfg
+    waves = 2
+    expect = {name: 0 for name in counts}
+    expect["flash_attention"] = cfg.layer_kinds().count("attn") * waves
+    expect["rglru_scan"] = cfg.layer_kinds().count("rec") * waves
+    for name in ZOO_KERNELS:
+        rec[name].d["launches"] = counts[name]
+        log("serve", f"{name}: {counts[name]} launches (expected {expect[name]})")
+    if counts != expect:
+        raise AssertionError(f"zoo launch counts {counts} != {expect}")
+    steps = out["stats"]["decode_steps"]
+    log("serve", f"{len(reqs)} requests, prompts {[len(r.prompt) for r in reqs]}, "
+        f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
+        f"{out['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * out['ttft_p50_s']:.1f} ms, "
+        f"{steps} decode steps, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
+def check_zoo_served_tokens(out, torch):
+    """The 300-token wave again, kernel vs eager backend at full depth in
+    bf16: the kernel prefill reproduces the served first tokens, and each
+    is the eager backend's argmax up to the bf16 disagreement."""
+    import numpy as np
+
+    from repro_torch.serving.engine import TransformerExecutor
+
+    kern = out["executor"]
+    eager = TransformerExecutor(kern.params, kern.cfg, backend="eager")
+    reqs = [r for r in out["requests"] if len(r.prompt) == 300]
+    tokens = np.array([r.prompt for r in reqs])
+    served = torch.tensor([r.output[0] for r in reqs], device=kern.device)
+    lk, _ = kern.prefill(tokens, kern.make_cache(len(reqs), 316))
+    le, _ = eager.prefill(tokens, eager.make_cache(len(reqs), 316))
+    # bf16 through 38 layers: the attention's fp32 sums in another order
+    # flip the last bf16 bit of some outputs, and that propagates
+    tol = 1e-1
+    lk, le = lk.float(), le.float()
+    err = (lk - le).abs().max().item()
+    first = lk.argmax(-1)
+    gap = (le.max(-1).values - le.gather(1, first[:, None])[:, 0]).max().item()
+    if not np.isfinite(err) or err > tol or not torch.equal(first, served) or gap > tol:
+        raise AssertionError(f"zoo served token check: err {err}, served {served.tolist()}, "
+                             f"kernel argmax {first.tolist()}, eager argmax "
+                             f"{le.argmax(-1).tolist()} (gap {gap})")
+    log("serve", f"{len(reqs)} x 300 tokens, 38 layers bf16: kernel vs eager prefill logits "
+        f"max abs err {err:.3g}; first tokens {first.tolist()} == served")
+
+
 def main() -> int:
     import torch
 
@@ -427,11 +641,22 @@ def main() -> int:
     plan = build_plan(cfg, (3, 2, 2, 1))
     rec = {"tiled_gemm_valid": Record("tiled_gemm_valid", "cuda"),
            "ragged_flash_attention": Record("ragged_flash_attention", "cuda"),
-           "fused_connective": Record("fused_connective", "triton")}
+           "fused_connective": Record("fused_connective", "triton"),
+           "flash_attention": Record("flash_attention", "cuda"),
+           "rglru_scan": Record("rglru_scan", "cuda")}
     phase_kernels(rec, plan, torch)
     phase_parity(cfg, plan, torch)
     out = phase_serve(torch, rec)
     check_served_token(out, torch)
+    del out
+    torch.cuda.empty_cache()
+
+    phase_zoo_kernels(rec, torch)
+    torch.cuda.empty_cache()
+    phase_zoo_parity(torch)
+    torch.cuda.empty_cache()
+    out = phase_zoo_serve(torch, rec)
+    check_zoo_served_tokens(out, torch)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -11,13 +11,16 @@ def _paper_model(name: str, layers: int, heads: int, hidden: int) -> ModelConfig
     return ModelConfig(
         name=name,
         source="Galaxy paper Table IV",
+        family="dense",
         num_layers=layers,
         d_model=hidden,
         num_heads=heads,
         num_kv_heads=heads,
         d_ff=4 * hidden,           # paper §II-A: MLP expands h -> 4h -> h
         vocab_size=50304,
+        norm="layernorm",
         activation="gelu",
+        pos_embedding="sinusoidal",
         dtype="float16",           # paper runs fp16 (§II-B GPT2-L footprint)
     )
 

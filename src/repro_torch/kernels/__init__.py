@@ -1,3 +1,3 @@
-"""Hand-written Hopper kernels of the serving path (valid-length GEMM,
-ragged flash attention, fused connective), each beside its plain PyTorch
+"""Hand-written Hopper kernels (valid-length GEMM, ragged and dense flash
+attention, fused connective, RG-LRU scan), each beside its plain PyTorch
 version, and the backend dispatch of ``ops``."""

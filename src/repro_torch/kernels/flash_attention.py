@@ -1,4 +1,12 @@
-"""Ragged causal flash attention over a ``SeqLayout`` padded row order.
+"""Flash attention: dense (causal / sliding window, GQA) and ragged over a
+``SeqLayout`` padded row order.
+
+:func:`flash_attention` is the model zoo's one-shot prefill attention:
+queries right-aligned to the keys, causal and sliding-window masks, GQA
+and MQA by head index.  On a CUDA tensor it launches the hand-written
+kernel of ``csrc/flash_attention.cu``; on a CPU tensor it runs
+:func:`flash_attention_plain`.  It replaces the TPU kernel
+``src/repro/kernels/flash_attention.py:flash_attention``.
 
 :func:`ragged_flash_attention` is the prefill self-attention of the
 kernel backend: queries and keys sit in a padded ragged order
@@ -34,6 +42,85 @@ _SIGNATURES = {
         *[ctypes.c_longlong] * 12, ctypes.c_void_p,
     ]),
 }
+
+
+#: dtypes of the dense kernel (its C interface's dtype codes)
+_DENSE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dense kernel's largest head dim
+DENSE_HD_MAX = 256
+_DENSE_SIGNATURES = {
+    "flash_attention": (ctypes.c_int, [
+        ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8,
+        *[ctypes.c_longlong] * 12, ctypes.c_void_p,
+    ]),
+}
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+    """Plain PyTorch version of :func:`flash_attention`: fp32 scores,
+    softmax and PV over the whole masked score matrix, output in
+    ``q.dtype``."""
+    b, h, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.float().reshape(b, hkv, g, sq, hd)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / hd ** 0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return out.reshape(b, h, sq, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Dense flash attention with causal and sliding-window masks.
+
+    q: (B, H, Sq, hd); k, v: (B, Hkv, Sk, hd) with H % Hkv == 0 and
+    Sq <= Sk, any strides with a unit-stride head dim (the zoo passes
+    transposed views of its (B, S, H, hd) projections, so nothing is
+    copied).  Query row r sits at position r + Sk - Sq; a key at t is
+    visible to a query at p iff t <= p (causal) and t > p - window
+    (window > 0).  Returns (B, H, Sq, hd) in ``q.dtype`` whose memory is
+    laid out (B, Sq, H, hd).
+    """
+    b, h, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, sk, hd) or v.shape != k.shape or hkv == 0 or h % hkv:
+        raise ValueError(f"attention shapes differ: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if sq > sk:
+        raise ValueError(f"{sq} queries right-aligned to {sk} keys: need Sq <= Sk")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention kernel for {q.device}")
+    if q.dtype not in _DENSE_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel takes float32/bfloat16/float16, "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if hd > DENSE_HD_MAX:
+        raise ValueError(f"head_dim {hd} > {DENSE_HD_MAX} is not supported")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lib = build.load("flash_attention", _DENSE_SIGNATURES)
+    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
+    err = lib.flash_attention(
+        _DENSE_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, h, hkv, sq, sk, hd, int(bool(causal)), int(window),
+        *strides, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 
 
 def attention_block_map(positions, block_q: int = BLOCK_Q,

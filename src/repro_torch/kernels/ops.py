@@ -2,11 +2,17 @@
 
 :func:`gemm`, :func:`ragged_attention` and :func:`connective` are what the
 HMP executor (``core/hmp.py``) and the ring primitives (``core/ring.py``)
-call per device shard.  ``backend="eager"`` keeps the padded dense product
-with the valid counts applied as masks (the pad-and-mask oracle: every pad
-block still executes); ``backend="kernel"`` routes through the
-valid-length kernel, which skips whole pad tiles.  Both compute the same
-function of the valid regions whatever the pad regions hold.
+call per device shard.  For the GEMM, ``backend="eager"`` keeps the
+padded dense product with the valid counts applied as masks (the
+pad-and-mask oracle: every pad block still executes); ``backend="kernel"``
+routes through the valid-length kernel, which skips whole pad tiles.  Both
+compute the same function of the valid regions whatever the pad regions
+hold.
+
+:func:`flash_attention` and :func:`rglru_scan` are what the model zoo
+(``models/``) calls: ``backend="kernel"`` launches the kernel (its plain
+version on a CPU tensor), ``backend="eager"`` runs the plain version on
+any device.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Dict
 import torch
 
 from repro_torch.core.execplan import COMPUTE_BACKENDS
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rglru_scan as _scan
 from repro_torch.kernels.flash_attention import ragged_flash_attention
 from repro_torch.kernels.fused_connective import fused_connective
 from repro_torch.kernels.tiled_gemm import tiled_gemm_valid
@@ -24,6 +32,8 @@ KERNELS = {
     "tiled_gemm_valid": tiled_gemm_valid,
     "ragged_flash_attention": ragged_flash_attention,
     "fused_connective": fused_connective,
+    "flash_attention": _flash.flash_attention,
+    "rglru_scan": _scan.rglru_scan,
 }
 
 
@@ -35,6 +45,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in COMPUTE_BACKENDS:
+        raise ValueError(f"unknown compute backend {backend!r}; "
+                         f"one of {COMPUTE_BACKENDS}")
 
 
 def _mask(t: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -52,9 +68,7 @@ def gemm(x, w, *, backend: str = "eager", valid_m=None, valid_n=None,
     real contraction prefix.  ``count_blocks=True`` (kernel only) also
     returns the live-tile count.
     """
-    if backend not in COMPUTE_BACKENDS:
-        raise ValueError(f"unknown compute backend {backend!r}; "
-                         f"one of {COMPUTE_BACKENDS}")
+    _check_backend(backend)
     if backend == "eager":
         if count_blocks:
             raise ValueError("count_blocks is a kernel-backend measurement")
@@ -101,3 +115,22 @@ def connective(x, res, scale, bias):
     out = fused_connective(x.reshape(-1, d), res.reshape(-1, d), None, scale,
                            bias, rate=0.0)
     return out.reshape(*lead, d)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    backend: str = "kernel"):
+    """Dense attention, q (B, H, Sq, hd) against k/v (B, Hkv, Sk, hd), with
+    causal and sliding-window masks: the flash kernel, or its plain
+    version on ``backend="eager"``."""
+    _check_backend(backend)
+    fn = _flash.flash_attention if backend == "kernel" else _flash.flash_attention_plain
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(a, b, h0, *, backend: str = "kernel"):
+    """h_t = a_t * h_{t-1} + b_t along axis 1 of (B, S, w): the scan
+    kernel, or its plain version on ``backend="eager"``.  Returns
+    ``(h_seq, h_last)``."""
+    _check_backend(backend)
+    fn = _scan.rglru_scan if backend == "kernel" else _scan.rglru_scan_plain
+    return fn(a, b, h0)

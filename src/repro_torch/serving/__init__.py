@@ -1,2 +1,2 @@
-"""Continuous-batching serving over a paged KV pool, through the Galaxy
-HMP executor."""
+"""Serving: continuous batching over a paged KV pool (Galaxy HMP executor)
+and waves over dense caches (the model zoo's ``TransformerExecutor``)."""

@@ -52,7 +52,7 @@ def test_no_source_imports_jax_or_reference():
                 assert not _is_forbidden(name), f"{path}: imports {name}"
 
 
-@pytest.mark.parametrize("entry", ["serve", "main", "trace_main"])
+@pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main"])
 def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
     """Without CUDA, the serving entry points raise unless device='cpu'."""
     from repro_torch import resolve_device
@@ -64,6 +64,9 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
             serve.serve()
         elif entry == "main":
             serve.main(["--requests", "1"])
+        elif entry == "zoo_main":
+            serve.main(["--executor", "zoo", "--model", "recurrentgemma-9b",
+                        "--reduce", "--requests", "1"])
         else:
             trace_serve.main(["--requests", "1"])
     assert resolve_device("cpu").type == "cpu"

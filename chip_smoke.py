@@ -43,6 +43,35 @@ failure:
              scan launches (12 attention and 26 recurrent layers per
              prefill; decode launches neither); the first served tokens of
              the 300-token wave must match the eager backend.
+9. dense kernels — the dense ``tiled_gemm`` against its plain version at
+             the reference's test shapes (128x256x128, 256x512x384,
+             512x128x256) and one odd shape in float32, bfloat16 and
+             float16; its own path, ``ops.tiled_gemm``, driven once at a
+             served width, StableLM-12B's MLP up-projection on a 512-row
+             chunk, (512 x 5120) @ (5120 x 13824) bf16, and timed there
+             beside its plain version, ``torch.matmul`` and its bound.
+             The flash kernel at StableLM-12B's prefill chunk: 256
+             queries at offset 1024 (Sq < Sk), 32 heads on 8 KV heads of
+             dim 160, strided views of the gathered page view, fp32 and
+             bf16, timed beside its plain version, SDPA and its bound.
+10. dense parity — StableLM-12B at full width cut to 4 layers in float32,
+             backend kernel and eager: the paged protocol's one-shot
+             ``prefill_paged``, ``prefill_chunk`` in chunks of 64 at page-
+             aligned offsets over a 300-token prompt, and a prefix-hit
+             suffix prefill over 16 shared pages, each against the dense
+             prefill's logits of the same rows; then 8 ``decode_paged``
+             steps of the two slots against dense decode.
+11. dense serve — the default serve path of the reference on the dense
+             zoo: ``launch.serve --executor zoo`` with StableLM-12B at full
+             width and depth in bfloat16, 8 requests of one shared
+             1024-token system prompt plus their own 64-512 tokens, 16 new
+             tokens each, ``max_batch=4``, page 16, prefix cache on,
+             prefill chunks of 256: every request finishes, the prefix
+             cache hits, computed + cached prompt tokens equal the prompt
+             total, ``pool.check()`` passes, and the flash kernel launched
+             exactly 40 times per prefill call (one-shot or chunk); no
+             other kernel launched.  The first served token of a prefix-hit
+             request must match a dense eager prefill of its prompt.
 
 Where the serve time goes (``torch.profiler``) is measured apart, by
 ``python -m repro_torch.launch.trace_serve``.
@@ -79,6 +108,7 @@ REPLACES = {
     "fused_connective": "src/repro/kernels/fused_connective.py:34",
     "flash_attention": "src/repro/kernels/flash_attention.py:88",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:49",
+    "tiled_gemm": "src/repro/kernels/tiled_gemm.py:77",
 }
 SOURCES = {
     "tiled_gemm_valid": "src/repro_torch/kernels/csrc/tiled_gemm_valid.cu",
@@ -86,9 +116,14 @@ SOURCES = {
     "fused_connective": "src/repro_torch/kernels/csrc/fused_connective.py",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "tiled_gemm": "src/repro_torch/kernels/csrc/tiled_gemm.cu",
 }
 GALAXY_KERNELS = ("tiled_gemm_valid", "ragged_flash_attention", "fused_connective")
 ZOO_KERNELS = ("flash_attention", "rglru_scan")
+# a unit in the last place of each dtype's output, relative: the dense
+# GEMM's kernel and plain version round fp32 sums taken in another order,
+# and at O(1) outputs one may round up where the other rounds down
+ULP = {"float32": 1e-5, "float16": 2.0 ** -10, "bfloat16": 2.0 ** -7}
 
 
 def log(phase: str, msg: str) -> None:
@@ -380,7 +415,7 @@ def phase_serve(torch, rec):
         rec[name].d["launches"] = n
         note = "as expected" if n == expect[name] else f"expected {expect[name]}"
         log("serve", f"{name}: {n} launches ({note})")
-    for name in ZOO_KERNELS:
+    for name in ZOO_KERNELS + ("tiled_gemm",):
         if counts[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the Galaxy path")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]}, "
@@ -606,6 +641,297 @@ def check_zoo_served_tokens(out, torch):
         f"max abs err {err:.3g}; first tokens {first.tolist()} == served")
 
 
+def phase_dense_kernels(rec, torch):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.tiled_gemm import tiled_gemm, tiled_gemm_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    # (m, k, n): the reference's test sweep, then one shape no tile divides
+    shapes = [(128, 256, 128), (256, 512, 384), (512, 128, 256), (201, 333, 157)]
+    for dtype in ("float32", "bfloat16", "float16"):
+        tdt = getattr(torch, dtype)
+        for m, k, n in shapes:
+            x = torch.randn(m, k, generator=g, device=dev).to(tdt)
+            w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(tdt)
+            # the reference's test tiles its sweep in 128-blocks; the odd
+            # shape takes the default blocks, each clipped to its axis
+            blocks = ({"block_m": 128, "block_n": 128, "block_k": 128}
+                      if m % 128 == k % 128 == n % 128 == 0 else {})
+            out = tiled_gemm(x, w, **blocks)
+            plain = tiled_gemm_plain(x, w)
+            torch.cuda.synchronize()
+            diff = (out.float() - plain.float()).abs()
+            lim = ATOL[dtype] + ULP[dtype] * plain.float().abs()
+            err = diff.max().item()
+            if out.shape != (m, n) or out.dtype != tdt or not bool((diff <= lim).all()):
+                raise AssertionError(f"tiled_gemm ({m}x{k})@({k}x{n}) {dtype}: max abs err "
+                                     f"{err} beyond {ATOL[dtype]} + {ULP[dtype]} |ref|")
+            rec["tiled_gemm"].err(err)
+            log("kernels", f"tiled_gemm {dtype} ({m}x{k})@({k}x{n}) err={err:.3g}")
+
+    # its path: the public op, once, at a served width
+    m, k, n = 512, 5120, 13824
+    x = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    out = ops.tiled_gemm(x, w)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts != {name: int(name == "tiled_gemm") for name in counts}:
+        raise AssertionError(f"ops.tiled_gemm launches: {counts}")
+    rec["tiled_gemm"].d["launches"] = counts["tiled_gemm"]
+    plain = tiled_gemm_plain(x, w)
+    diff = (out.float() - plain.float()).abs()
+    err = diff.max().item()
+    if not bool((diff <= ATOL["bfloat16"] + ULP["bfloat16"] * plain.float().abs()).all()):
+        raise AssertionError(f"tiled_gemm served width: max abs err {err}")
+    rec["tiled_gemm"].err(err)
+    ms = time_ms(lambda: tiled_gemm(x, w), iters=10)
+    plain_ms = time_ms(lambda: tiled_gemm_plain(x, w), iters=5)
+    lib_ms = time_ms(lambda: torch.matmul(x, w), iters=30)
+    nbytes = 2 * (m * k + k * n + m * n)
+    flops = 2.0 * m * k * n
+    rec["tiled_gemm"].timed(ms, plain_ms, lib_ms, nbytes, flops, "bfloat16")
+    bms, by = bound(nbytes, flops, "bfloat16")
+    log("kernels", f"tiled_gemm bf16 ({m}x{k})@({k}x{n}) via ops.tiled_gemm: 1 launch, "
+        f"err={err:.3g}; {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    del x, w, out, plain
+
+    # the flash kernel at a StableLM-12B prefill chunk: 256 queries at
+    # offset 1024 over a gathered view of 97 pages of 16
+    b, h, hkv, sq, hd, off, view = 1, 32, 8, 256, 160, 1024, 97 * 16
+    sk = off + sq
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        q = torch.randn(b, sq, h, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
+        kc, vc = (torch.randn(b, view, hkv, hd, generator=g, device=dev).to(tdt)
+                  for _ in range(2))
+        k, v = kc[:, :sk].transpose(1, 2), vc[:, :sk].transpose(1, 2)
+        out = flash_attention(q, k, v, causal=True)
+        plain = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = check_close("flash_attention", out, plain, dtype, "dense chunk")
+        log("kernels", f"flash_attention {dtype} q ({b},{h},{sq},{hd}) kv ({b},{hkv},{sk},{hd}) "
+            f"causal, queries at {off}.. err={err:.3g}")
+        if dtype != "bfloat16":
+            continue
+        rec["flash_attention"].err(err)
+        qp = torch.arange(off, sk, device=dev)
+        mask = torch.arange(sk, device=dev)[None, :] <= qp[:, None]
+        qc, kcc, vcc = (t.contiguous() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True), iters=10)
+        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=10)
+        lib_ms = time_ms(lambda: sdpa(qc, kcc, vcc, attn_mask=mask, enable_gqa=True), iters=10)
+        nbytes = 2 * (2 * b * h * sq * hd + 2 * b * hkv * sk * hd)
+        flops = 4.0 * window_pairs(sq, sk, 0) * hd * h * b
+        rec["flash_attention"].timed(ms, plain_ms, lib_ms, nbytes, flops, dtype)
+        bms, by = bound(nbytes, flops, dtype)
+        log("kernels", f"flash_attention bf16 dense chunk: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+def phase_dense_parity(torch):
+    """StableLM-12B at full width, 4 layers, fp32: the paged protocol
+    (one-shot, chunks of 64, a prefix-hit suffix, 8 decode steps of two
+    slots) against the dense path, on both backends."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import apply_model
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("stablelm-12b"), num_layers=4,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+    s, page, chunk, shared, steps = 300, 16, 64, 256, 8
+    s_pad = -(-s // page) * page
+    width = (s_pad + steps + page - 1) // page + 1
+    gen = torch.Generator(device=dev).manual_seed(9)
+    a = torch.randint(0, cfg.vocab_size, (1, s_pad), device=dev, generator=gen)
+    bt = torch.cat([a[:, :shared], torch.randint(0, cfg.vocab_size, (1, s_pad - shared),
+                                                  device=dev, generator=gen)], 1)
+    eager = TransformerExecutor(params, cfg, backend="eager")
+    # the dense path: logits of every prompt row, and the decode reference
+    dense = {}
+    for name, t in (("a", a), ("b", bt)):
+        dense[name], _ = apply_model(params, cfg, tokens=t[:, :s], mode="prefill",
+                                     cache=eager.make_cache(1, s), backend="eager")
+    lref, cref = eager.prefill(torch.cat([a[:, :s], bt[:, :s]]),
+                               eager.make_cache(2, s + steps))
+    tol = 1e-4  # fp32 through 4 layers: GEMMs of other row counts, and the
+    # attention's sums, in another order
+
+    def close(what, got, want):
+        e = (got.float() - want.float()).abs().max().item()
+        if not e <= tol:
+            raise AssertionError(f"dense parity {what}: max abs err {e} > {tol}")
+        return e
+
+    errs = {}
+    for backend in ("kernel", "eager"):
+        ex = TransformerExecutor(params, cfg, backend=backend)
+        pool = ex.make_pool(1 + 3 * width, page)
+        rows = [list(range(1 + i * width, 1 + (i + 1) * width)) for i in range(3)]
+        ops.reset_launch_counts()
+        # one-shot prefill of a into rows[0]
+        lo, pool = ex.prefill_paged(a, pool, rows[0], length=s)
+        e = close(f"{backend} one-shot", lo, dense["a"][:, s - 1])
+        # a again in chunks of 64 into rows[1]; every real row compared
+        n_chunks = 0
+        for off in range(0, s_pad, chunk):
+            size = min(chunk, s_pad - off)
+            lc, pool = ex.prefill_chunk(a[:, off:off + size], pool, rows[1], offset=off,
+                                        length=s)
+            real = min(size, s - off)
+            e = max(e, close(f"{backend} chunk at {off}", lc[:, :real],
+                             dense["a"][:, off:off + real]))
+            n_chunks += 1
+        # the chunked pages hold the one-shot pages' K/V
+        for key, leaves in pool["groups"].items():
+            for nm, leaf in leaves.items():
+                e = max(e, close(f"{backend} {key}.{nm} pages", leaf[:, rows[1]],
+                                 leaf[:, rows[0]]))
+        # b shares a's first 16 pages: only its suffix is computed
+        rows[2][:shared // page] = rows[0][:shared // page]
+        lh, pool = ex.prefill_chunk(bt[:, shared:], pool, rows[2], offset=shared, length=s)
+        e = max(e, close(f"{backend} prefix-hit suffix", lh[:, :s - shared],
+                         dense["b"][:, shared:s]))
+        counts = ops.launch_counts()
+        want = 4 * (2 + n_chunks) if backend == "kernel" else 0
+        if counts["flash_attention"] != want or sum(counts.values()) != want:
+            raise AssertionError(f"dense parity {backend} prefill launches {counts}, "
+                                 f"expected {want} flash")
+        # 8 decode steps of the two slots (a one-shot, b prefix-hit)
+        table = torch.tensor([rows[0], rows[2]], device=dev)
+        lg, lr = torch.cat([lo, lh[:, s - shared - 1]]), lref
+        cr = copy.deepcopy(cref)  # dense decode writes its cache in place
+        de = close(f"{backend} decode inputs", lg, lr)
+        for step in range(steps):
+            tok = lr.argmax(-1)
+            pos = torch.full((2,), s + step, device=dev)
+            lg, pool = ex.decode_paged(tok[:, None], pool, table, pos)
+            lr, cr = eager.decode(tok[:, None], cr, s + step)
+            de = max(de, close(f"{backend} decode step {step}", lg, lr))
+        if ops.launch_counts() != counts:
+            raise AssertionError("a paged decode step launched a kernel")
+        errs[backend] = (e, de)
+    log("parity", f"StableLM-12B width, 4 layers fp32, {s}-token prompts, page {page}: "
+        f"one-shot, {chunk}-token chunks and a {shared}-token prefix hit vs dense prefill "
+        f"max abs err kernel {errs['kernel'][0]:.3g} / eager {errs['eager'][0]:.3g}; "
+        f"{steps} paged decode steps vs dense decode kernel {errs['kernel'][1]:.3g} / "
+        f"eager {errs['eager'][1]:.3g} (tolerance {tol})")
+
+
+def phase_dense_serve(torch, rec):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    torch.cuda.reset_peak_memory_stats()
+    n_req, max_new, shared = 8, 16, 1024
+    ops.reset_launch_counts()
+    out = launch_serve.serve("stablelm-12b", executor_kind="zoo", requests=n_req,
+                             prompt_len=(64, 512), shared_prefix=shared, max_new=max_new,
+                             max_batch=4, page_size=16, prefix_cache=True,
+                             prefill_chunk=256, device="cuda", dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    reqs, st = out["requests"], out["stats"]
+    log("serve", out["plan"])
+    if len(reqs) != n_req or any(len(r.output) != max_new for r in reqs):
+        raise AssertionError(f"unfinished dense requests: {[len(r.output) for r in reqs]}")
+    total = sum(len(r.prompt) for r in reqs)
+    if st["prefix_hits"] < 1 or st["prefill_chunks"] < 1:
+        raise AssertionError(f"dense serve took no prefix hit or no chunk: {st}")
+    if st["prefill_tokens"] + st["cached_prefix_tokens"] != total:
+        raise AssertionError(f"computed {st['prefill_tokens']} + cached "
+                             f"{st['cached_prefix_tokens']} != {total} prompt tokens")
+    out["pool"].check()
+    layers = out["executor"].cfg.num_layers
+    expect = {name: 0 for name in counts}
+    expect["flash_attention"] = layers * (st["prefill_oneshots"] + st["prefill_chunks"])
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    log("serve", f"flash_attention: {counts['flash_attention']} launches (expected "
+        f"{expect['flash_attention']} = {layers} x ({st['prefill_oneshots']} one-shot + "
+        f"{st['prefill_chunks']} chunks)); tiled_gemm: {counts['tiled_gemm']}")
+    if counts != expect:
+        raise AssertionError(f"dense launch counts {counts} != {expect}")
+    log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]} ({total} "
+        f"tokens: {st['prefill_tokens']} computed, {st['cached_prefix_tokens']} cached in "
+        f"{st['prefix_hits']} hits, peak {st['peak_shared_pages']} shared pages), "
+        f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
+        f"{out['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * out['ttft_p50_s']:.1f} ms, "
+        f"{st['decode_steps']} decode steps, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; prefix tree "
+        f"{out['prefix_stats']}")
+    return out
+
+
+def measure_decode_gather(out, torch):
+    """The page gather of a decode step (every slot's whole block-table
+    row copied into a dense view, as the reference does) against the whole
+    step, at the served pool's geometry: the gather's device time (events),
+    the step's device time (profiler) and its wall time (host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.kvcache import cache_bytes
+
+    ex, pool = out["executor"], out["pool"]
+    dev = ex.device
+    n, w, page = pool.num_slots, pool.pages_per_slot, pool.page_size
+    storage = ex.make_pool(pool.num_pages, page)
+    bt = torch.arange(1, 1 + n * w, device=dev).view(n, w)
+    pos = torch.full((n,), w * page - 64, device=dev)
+    tok = torch.zeros((n, 1), dtype=torch.long, device=dev)
+    gather_ms = time_ms(lambda: ex.gather_pages(storage, bt), iters=10)
+    gathered = cache_bytes(ex.cfg, n, w * page)  # the dense view it writes
+    for _ in range(2):
+        ex.decode_paged(tok, storage, bt, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.decode_paged(tok, storage, bt, pos)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ex.decode_paged(tok, storage, bt, pos)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    log("serve", f"decode step of {n} slots x {w} pages of {page}: page gather "
+        f"{gather_ms:.4f} ms on the device ({gathered / 1e9:.2f} GB copied), step "
+        f"{busy_ms:.2f} ms device busy, {wall_ms:.2f} ms wall: the gather is "
+        f"{100 * gather_ms / busy_ms:.1f} % of the step's device time and "
+        f"{100 * gather_ms / wall_ms:.1f} % of its wall time")
+
+
+def check_dense_served_token(out, torch):
+    """The last request (admitted after the system prompt entered the
+    tree, so a prefix hit) against a dense eager prefill of its whole
+    prompt at full depth in bf16: its served first token is that
+    prefill's argmax up to the bf16 disagreement."""
+    from repro_torch.serving.engine import TransformerExecutor
+
+    kern = out["executor"]
+    eager = TransformerExecutor(kern.params, kern.cfg, backend="eager")
+    req = out["requests"][-1]
+    s = len(req.prompt)
+    le, _ = eager.prefill([req.prompt], eager.make_cache(1, s))
+    le = le.float()[0]
+    gap = (le.max() - le[req.output[0]]).item()
+    tol = 1e-1  # bf16 through 40 layers, chunked and paged vs one dense pass
+    if not torch.isfinite(le).all() or gap > tol:
+        raise AssertionError(f"dense served token {req.output[0]}: eager argmax "
+                             f"{int(le.argmax())}, gap {gap}")
+    log("serve", f"request {req.uid} ({s} tokens, {kern.cfg.num_layers} layers "
+        f"{kern.cfg.dtype}): served first token "
+        f"{req.output[0]}, dense eager argmax {int(le.argmax())} (logit gap {gap:.3g})")
+
+
 def main() -> int:
     import torch
 
@@ -643,7 +969,8 @@ def main() -> int:
            "ragged_flash_attention": Record("ragged_flash_attention", "cuda"),
            "fused_connective": Record("fused_connective", "triton"),
            "flash_attention": Record("flash_attention", "cuda"),
-           "rglru_scan": Record("rglru_scan", "cuda")}
+           "rglru_scan": Record("rglru_scan", "cuda"),
+           "tiled_gemm": Record("tiled_gemm", "cuda")}
     phase_kernels(rec, plan, torch)
     phase_parity(cfg, plan, torch)
     out = phase_serve(torch, rec)
@@ -657,6 +984,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     out = phase_zoo_serve(torch, rec)
     check_zoo_served_tokens(out, torch)
+    del out  # RecurrentGemma's 16 GiB go before StableLM is drawn
+    torch.cuda.empty_cache()
+
+    phase_dense_kernels(rec, torch)
+    torch.cuda.empty_cache()
+    phase_dense_parity(torch)
+    torch.cuda.empty_cache()
+    out = phase_dense_serve(torch, rec)
+    check_dense_served_token(out, torch)
+    measure_decode_gather(out, torch)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

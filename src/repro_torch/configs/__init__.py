@@ -1,13 +1,19 @@
 """Model configurations the port serves: the Galaxy paper's Table IV models
-(Galaxy HMP path) and the model zoo's RecurrentGemma-9B."""
+(Galaxy HMP path) and the model zoo's architectures (RecurrentGemma-9B in
+waves; the dense GQA stacks through the paged continuous scheduler)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+from repro_torch.configs.codeqwen1_5_7b import CONFIG as CODEQWEN1_5_7B
 from repro_torch.configs.paper_models import PAPER_MODELS
+from repro_torch.configs.qwen1_5_0_5b import CONFIG as QWEN1_5_0_5B
+from repro_torch.configs.qwen1_5_110b import CONFIG as QWEN1_5_110B
 from repro_torch.configs.recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
+from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 
 #: the zoo architectures the port serves, by their public ids
-ZOO_MODELS = {"recurrentgemma-9b": RECURRENTGEMMA_9B}
+ZOO_MODELS = {c.name: c for c in (RECURRENTGEMMA_9B, QWEN1_5_0_5B, CODEQWEN1_5_7B,
+                                  STABLELM_12B, QWEN1_5_110B)}
 
 
 def get_config(name: str) -> ModelConfig:

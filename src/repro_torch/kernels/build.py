@@ -30,7 +30,7 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("tiled_gemm_valid", "ragged_flash_attention", "flash_attention",
-           "rglru_scan")
+           "rglru_scan", "tiled_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -10,9 +10,11 @@ compute the same function of the valid regions whatever the pad regions
 hold.
 
 :func:`flash_attention` and :func:`rglru_scan` are what the model zoo
-(``models/``) calls: ``backend="kernel"`` launches the kernel (its plain
-version on a CPU tensor), ``backend="eager"`` runs the plain version on
-any device.
+(``models/``) calls, and :func:`tiled_gemm` is the dense GEMM op that no
+model calls (the zoo's projections stay ``torch.matmul``, as they are
+einsums outside any kernel in the reference): ``backend="kernel"``
+launches the kernel (its plain version on a CPU tensor),
+``backend="eager"`` runs the plain version on any device.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _scan
 from repro_torch.kernels.flash_attention import ragged_flash_attention
 from repro_torch.kernels.fused_connective import fused_connective
+from repro_torch.kernels import tiled_gemm as _gemm
 from repro_torch.kernels.tiled_gemm import tiled_gemm_valid
 
 #: the kernel wrappers whose launches a run can count
@@ -34,6 +37,7 @@ KERNELS = {
     "fused_connective": fused_connective,
     "flash_attention": _flash.flash_attention,
     "rglru_scan": _scan.rglru_scan,
+    "tiled_gemm": _gemm.tiled_gemm,
 }
 
 
@@ -134,3 +138,16 @@ def rglru_scan(a, b, h0, *, backend: str = "kernel"):
     _check_backend(backend)
     fn = _scan.rglru_scan if backend == "kernel" else _scan.rglru_scan_plain
     return fn(a, b, h0)
+
+
+def tiled_gemm(x, w, *, block_m: int = 256, block_n: int = 256, block_k: int = 512,
+               backend: str = "kernel"):
+    """Dense (M, K) @ (K, N) with an fp32 accumulator: the dense GEMM
+    kernel, or its plain version on ``backend="eager"``.  Both check the
+    reference's tiling contract (``block_*`` clipped to their axis must
+    divide it)."""
+    _check_backend(backend)
+    if backend == "kernel":
+        return _gemm.tiled_gemm(x, w, block_m=block_m, block_n=block_n, block_k=block_k)
+    _gemm.check_tiling(x, w, block_m=block_m, block_n=block_n, block_k=block_k)
+    return _gemm.tiled_gemm_plain(x, w)

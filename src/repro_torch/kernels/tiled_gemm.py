@@ -1,4 +1,14 @@
-"""Valid-length tiled GEMM: the compute primitive of every ring tile.
+"""Tiled GEMMs: the dense blocked GEMM and the valid-length GEMM of every
+ring tile.
+
+:func:`tiled_gemm` computes a dense ``(M, K) @ (K, N)`` with an fp32
+accumulator, in the operands' dtype.  It keeps the reference's contract
+(block sizes clipped to their axis must divide it), but the block sizes
+only decide which shapes are accepted: the CUDA kernel of
+``csrc/tiled_gemm.cu`` picks its own tiles.  On a CPU tensor it runs
+:func:`tiled_gemm_plain`.  It replaces the TPU kernel
+``src/repro/kernels/tiled_gemm.py:tiled_gemm``; as there, no serving path
+calls it (its entry point is ``ops.tiled_gemm``).
 
 :func:`tiled_gemm_valid` computes ``(M, K) @ (K, N)`` with an fp32
 accumulator where only a valid prefix of each ``seg_m``-row M segment, of
@@ -29,6 +39,82 @@ _SIGNATURES = {
         ctypes.c_void_p, *[ctypes.c_int] * 11, ctypes.c_void_p,
     ]),
 }
+
+
+#: dtypes of the dense kernel (its C interface's dtype codes)
+_DENSE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DENSE_SIGNATURES = {
+    "tiled_gemm": (ctypes.c_int, [
+        ctypes.c_int, *[ctypes.c_void_p] * 3, *[ctypes.c_int] * 6, ctypes.c_void_p,
+    ]),
+}
+
+
+def check_tiling(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 256,
+                 block_n: int = 256, block_k: int = 512):
+    """The reference's checks of a dense GEMM: 2-D operands with a shared
+    contraction, and block sizes (clipped to their axis) that divide it.
+    Returns ``(m, n, k)``."""
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"expected 2-D operands, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    m, k = x.shape
+    k2, n = w.shape
+    if k != k2:
+        raise ValueError(
+            f"GEMM contraction mismatch: x is ({m}x{k}) but w is ({k2}x{n})"
+        )
+    block_m, block_n, block_k = min(block_m, m), min(block_n, n), min(block_k, k)
+    if m % block_m or n % block_n or k % block_k:
+        raise ValueError(
+            f"GEMM ({m}x{k}) @ ({k}x{n}) does not tile into blocks "
+            f"(block_m={block_m}, block_n={block_n}, block_k={block_k}): "
+            "every block size must divide its axis — pick divisors or use "
+            "kernels.tiled_gemm.divisor_block"
+        )
+    return m, n, k
+
+
+def tiled_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tiled_gemm`: the fp32 product, cast
+    back to ``x.dtype``."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def tiled_gemm(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 256,
+               block_n: int = 256, block_k: int = 512) -> torch.Tensor:
+    """Dense (M, K) @ (K, N) -> (M, N) in ``x.dtype``, fp32 accumulation.
+
+    ``block_*`` are the reference kernel's tile sizes: each is clipped to
+    its axis and must divide it, or this raises ``ValueError``, as the
+    reference does.  They do not set the CUDA kernel's tiles."""
+    m, n, k = check_tiling(x, w, block_m=block_m, block_n=block_n, block_k=block_k)
+    if x.dtype != w.dtype or x.device != w.device:
+        raise ValueError(f"operands differ: {x.dtype}@{x.device} vs "
+                         f"{w.dtype}@{w.device}")
+    if x.device.type == "cpu":
+        return tiled_gemm_plain(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"no tiled_gemm kernel for {x.device}")
+    if x.dtype not in _DENSE_DTYPES:
+        raise ValueError(f"tiled_gemm kernel takes float32/bfloat16/float16, "
+                         f"got {x.dtype}")
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    if w.stride(1) != 1:
+        w = w.contiguous()
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = build.load("tiled_gemm", _DENSE_SIGNATURES)
+    err = lib.tiled_gemm(
+        _DENSE_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        m, n, k, x.stride(0), w.stride(0), out.stride(0),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "tiled_gemm")
+    tiled_gemm.launches += 1
+    return out
+
+
+tiled_gemm.launches = 0
 
 
 def divisor_block(extent: int, preferred: int) -> int:

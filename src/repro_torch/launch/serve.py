@@ -1,11 +1,14 @@
 """Serve a paper model through a heterogeneity-aware Galaxy plan, or a
-model of the zoo through the wave scheduler.
+model of the zoo through the continuous scheduler or waves.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --model gpt2-l \\
       --capacities 3,2,2,1 --requests 8 --prompt-len 37-300 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
       --model recurrentgemma-9b --prompt-lens 300,300,300,300,2100,2100 \\
       --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
+      --model stablelm-12b --requests 8 --prompt-len 64-512 \\
+      --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 ``--executor galaxy`` (the default): profiler -> planner (Alg. 1) ->
 ``ExecPlan.from_plan`` -> Galaxy HMP executor on a single-process ring of
@@ -18,9 +21,18 @@ from ``--seed``; prompts are random token ids with lengths drawn from
 
 ``--executor zoo``: the model zoo (``models/``) at the model's full width
 and depth, weights drawn on the device from ``--seed``, behind
-``TransformerExecutor``; recurrent and windowed caches are not pages, so
-the engine serves it in waves of same-length prompts.  ``--reduce``
-serves the model's small variant (``configs.reduced``), for CPU runs.
+``TransformerExecutor``.  ``--scheduler auto`` (the default) serves the
+full-causal attention stacks (qwen1.5, codeqwen1.5, stablelm) by
+continuous batching over the paged pool and RecurrentGemma in waves of
+same-length prompts (recurrent and windowed caches are not pages).
+``--prefix-cache on`` shares page-aligned prompt prefixes through the
+radix-tree prefix cache and ``--prefill-chunk N`` interleaves N-token
+prefill chunks with decode steps (continuous scheduler only).  With the
+prefix cache on, every request's prompt is a shared system prompt of
+``--shared-prefix`` random tokens (default: half the longest drawn
+prompt, the reference's split) ahead of its own drawn tail.  ``--reduce``
+serves the model's small variant (``configs.reduced``), for CPU runs.  A
+model whose weights do not fit one card (qwen1.5-110b) is refused.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
@@ -47,6 +59,11 @@ from repro_torch.serving.engine import Request, ServingEngine, TransformerExecut
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
 
 EXECUTORS = ("galaxy", "zoo")
+SCHEDULERS = ("auto", "continuous", "wave")
+
+#: device memory of the one card the port serves on (H100 80GB): a model
+#: whose weights alone exceed it waits for serving across cards
+CARD_BYTES = 80e9
 
 #: the planning sequence length of the profiler (rows the SP axis splits)
 PLAN_SEQ = 256
@@ -96,23 +113,38 @@ def build_zoo_executor(cfg: ModelConfig, *, device: torch.device,
 
 
 def make_requests(cfg: ModelConfig, n: int, prompt_len: Tuple[int, int],
-                  max_new: int, seed: int, lens: Optional[Sequence[int]] = None):
+                  max_new: int, seed: int, lens: Optional[Sequence[int]] = None,
+                  shared_prefix: int = 0):
     """Requests of random token ids: one per length in ``lens``, or ``n``
-    with lengths drawn uniformly from ``prompt_len`` (inclusive)."""
+    with lengths drawn uniformly from ``prompt_len`` (inclusive), each
+    behind one shared system prompt of ``shared_prefix`` random tokens
+    (drawn last, so the tails do not depend on it)."""
     rng = np.random.default_rng(seed)
     if lens is None:
         lens = rng.integers(prompt_len[0], prompt_len[1] + 1, size=n)
-    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=int(s)).tolist(),
-                    max_new_tokens=max_new) for i, s in enumerate(lens)]
+    tails = [rng.integers(0, cfg.vocab_size, size=int(s)).tolist() for s in lens]
+    shared = rng.integers(0, cfg.vocab_size, size=shared_prefix).tolist()
+    return [Request(uid=i, prompt=shared + tail, max_new_tokens=max_new)
+            for i, tail in enumerate(tails)]
 
 
-def describe_zoo(cfg: ModelConfig) -> str:
+def describe_zoo(cfg: ModelConfig, scheduler: str) -> str:
     pattern = ",".join(cfg.block_pattern)
     return (f"{cfg.name}: {cfg.num_layers} layers ({cfg.num_groups} x [{pattern}] + "
             f"{len(cfg.tail_pattern)} tail), d {cfg.d_model}, {cfg.num_heads} heads on "
             f"{cfg.num_kv_heads} kv x {cfg.head_dim}, window {cfg.window}, lru "
             f"{cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
-            f"wave scheduler")
+            f"{scheduler} scheduler")
+
+
+def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
+    """Refuse a model whose weights alone exceed one card's memory."""
+    dt = dtype or cfg.param_dtype
+    need = cfg.param_count() * getattr(torch, dt).itemsize
+    if need > CARD_BYTES:
+        raise ValueError(
+            f"{cfg.name} needs {need / 1e9:.1f} GB of {dt} weights, more than one "
+            f"card's {CARD_BYTES / 1e9:.0f} GB: it waits for serving across cards")
 
 
 def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
@@ -121,13 +153,18 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           prompt_lens: Optional[Sequence[int]] = None,
           max_new: int = 16, max_batch: int = 4, device=None,
           dtype: Optional[str] = None, seed: int = 0, reduce: bool = False,
+          scheduler: str = "auto", page_size: int = 16, prefix_cache: bool = False,
+          prefill_chunk: Optional[int] = None, shared_prefix: Optional[int] = None,
           executor: Optional[Union[GalaxyHMPExecutor, TransformerExecutor]] = None) -> Dict:
     """Build (or take) the executor, serve random prompts and return the
-    finished requests, throughput and latency figures, and the executor
-    (whose weights a later call may reuse as ``executor=``).
+    finished requests, throughput and latency figures, the engine's stats
+    and prefix-cache stats, its pool, and the executor (whose weights a
+    later call may reuse as ``executor=``).
 
     ``prompt_lens`` gives one prompt length per request; without it,
-    ``requests`` lengths are drawn from ``prompt_len``.  ``dtype``
+    ``requests`` lengths are drawn from ``prompt_len``.  ``shared_prefix``
+    tokens of one system prompt go ahead of every prompt (default: half
+    the longest drawn prompt when ``prefix_cache``, else none).  ``dtype``
     defaults to the model's serving dtype; ``reduce`` serves the model's
     small variant."""
     dev = resolve_device(device)
@@ -137,9 +174,13 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     if model not in known:
         raise ValueError(f"the {executor_kind} executor serves {sorted(known)}, "
                          f"not {model!r}")
+    if scheduler not in SCHEDULERS:
+        raise ValueError(f"unknown scheduler {scheduler!r}; one of {SCHEDULERS}")
     cfg = get_config(model)
     if reduce:
         cfg = reduced(cfg)
+    elif executor is None:
+        check_fits_one_card(cfg, dtype)
     if executor is None:
         if executor_kind == "galaxy":
             plan = build_plan(cfg, capacities)
@@ -148,10 +189,15 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
                                       seed=seed)
         else:
             executor = build_zoo_executor(cfg, device=dev, dtype=dtype, seed=seed)
-    reqs = make_requests(cfg, requests, prompt_len, max_new, seed, lens=prompt_lens)
     max_prompt = prompt_len[1] if prompt_lens is None else max(prompt_lens)
+    if shared_prefix is None:
+        shared_prefix = max_prompt // 2 if prefix_cache else 0
+    reqs = make_requests(cfg, requests, prompt_len, max_new, seed, lens=prompt_lens,
+                         shared_prefix=shared_prefix)
     engine = ServingEngine(executor=executor, max_batch=max_batch,
-                           max_len=max_prompt + max_new, record_times=True)
+                           max_len=shared_prefix + max_prompt + max_new,
+                           record_times=True, scheduler=scheduler, page_size=page_size,
+                           prefix_cache=prefix_cache, prefill_chunk=prefill_chunk)
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -161,15 +207,20 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     seconds = time.perf_counter() - t0
     new_tokens = sum(len(r.output) for r in done)
     ttft = [r.token_times[0] - r.submit_time for r in done if r.token_times]
+    resolved = scheduler
+    if resolved == "auto":
+        resolved = "continuous" if executor.supports_paged else "wave"
     return {
         "plan": (executor.plan.describe() if executor_kind == "galaxy"
-                 else describe_zoo(executor.cfg)),
+                 else describe_zoo(executor.cfg, resolved)),
         "requests": sorted(done, key=lambda r: r.uid),
         "seconds": seconds,
         "new_tokens": new_tokens,
         "tokens_per_s": new_tokens / seconds,
         "ttft_p50_s": float(np.median(ttft)) if ttft else float("nan"),
         "stats": dict(engine.stats),
+        "prefix_stats": engine.prefix_stats,
+        "pool": engine.pool,
         "executor": executor,
     }
 
@@ -183,11 +234,39 @@ def parse_prompt_lens(text: str):
     return [int(n) for n in text.split(",")]
 
 
+def add_scheduling_args(ap: argparse.ArgumentParser) -> None:
+    """The engine's scheduling flags, with the reference's meaning."""
+    ap.add_argument("--scheduler", choices=SCHEDULERS, default="auto",
+                    help="auto = continuous batching when the executor has the "
+                         "paged protocol, else waves")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV pool page size (continuous batching)")
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
+                    help="shared-prefix KV cache: requests with a common "
+                         "page-aligned prompt prefix map it to the same "
+                         "refcounted pool pages and prefill only the uncached "
+                         "suffix (continuous scheduler only)")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="N",
+                    help="chunked prefill: interleave N-token prefill chunks "
+                         "with decode steps (continuous scheduler only)")
+    ap.add_argument("--shared-prefix", type=int, default=None, metavar="N",
+                    help="tokens of one shared system prompt ahead of every "
+                         "prompt (default: half the longest prompt with "
+                         "--prefix-cache on, else 0)")
+
+
+def scheduling_kwargs(args) -> Dict:
+    return dict(scheduler=args.scheduler, page_size=args.page_size,
+                prefix_cache=args.prefix_cache == "on",
+                prefill_chunk=args.prefill_chunk, shared_prefix=args.shared_prefix)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--executor", choices=EXECUTORS, default="galaxy",
                     help="galaxy: a paper model through the HMP plan; zoo: a "
-                         "zoo model (recurrentgemma-9b) through waves")
+                         "zoo model (stablelm-12b, qwen1.5-0.5b, ..., "
+                         "recurrentgemma-9b)")
     ap.add_argument("--model", default="gpt2-l",
                     help=f"galaxy: one of {sorted(PAPER_MODELS)}; zoo: one of "
                          f"{sorted(ZOO_MODELS)}")
@@ -209,16 +288,17 @@ def main(argv=None):
     ap.add_argument("--reduce", action="store_true",
                     help="serve the model's small variant (configs.reduced), "
                          "e.g. for a CPU run")
+    add_scheduling_args(ap)
     args = ap.parse_args(argv)
     out = serve(args.model, [float(c) for c in args.capacities.split(",")],
                 executor_kind=args.executor, requests=args.requests,
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=args.device, dtype=args.dtype, seed=args.seed,
-                reduce=args.reduce)
+                reduce=args.reduce, **scheduling_kwargs(args))
     print(out["plan"])
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("plan", "requests", "executor")}))
+                      if k not in ("plan", "requests", "pool", "executor")}))
 
 
 if __name__ == "__main__":

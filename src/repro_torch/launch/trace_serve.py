@@ -5,6 +5,9 @@
   PYTHONPATH=src python -m repro_torch.launch.trace_serve --executor zoo \\
       --model recurrentgemma-9b --prompt-lens 300,300,300,300,2100,2100 \\
       --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.trace_serve --executor zoo \\
+      --model stablelm-12b --requests 8 --prompt-len 64-512 \\
+      --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 Builds the same executor as ``launch.serve`` (random weights from
 ``--seed``) and serves the same requests three times: once to build and
@@ -23,7 +26,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.launch.serve import EXECUTORS, parse_prompt_len, parse_prompt_lens, serve
+from repro_torch.launch.serve import (
+    EXECUTORS,
+    add_scheduling_args,
+    parse_prompt_len,
+    parse_prompt_lens,
+    scheduling_kwargs,
+    serve,
+)
 
 
 def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
@@ -31,14 +41,17 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           prompt_len: Tuple[int, int] = (37, 300),
           prompt_lens: Optional[Sequence[int]] = None,
           max_new: int = 8, max_batch: int = 4, device=None,
-          dtype: Optional[str] = None, seed: int = 1, reduce: bool = False) -> Dict:
+          dtype: Optional[str] = None, seed: int = 1, reduce: bool = False,
+          **scheduling) -> Dict:
     """Serve warm, then unprofiled, then profiled; return the wall times,
-    device-busy ms and the profiler's device-side events."""
+    device-busy ms, the profiler's device-side events and the unprofiled
+    run's engine stats.  ``scheduling`` takes ``serve``'s scheduler,
+    page-size, prefix-cache, prefill-chunk and shared-prefix arguments."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(executor_kind=executor_kind, requests=requests, prompt_len=prompt_len,
               prompt_lens=prompt_lens, max_new=max_new, max_batch=max_batch,
-              device=device, dtype=dtype, seed=seed, reduce=reduce)
+              device=device, dtype=dtype, seed=seed, reduce=reduce, **scheduling)
     warm = serve(model, capacities, **kw)
     plain = serve(model, capacities, executor=warm["executor"], **kw)
     activities = [ProfilerActivity.CPU]
@@ -54,6 +67,8 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "profiled_wall_ms": 1e3 * traced["seconds"],
         "busy_ms": sum(e.device_time_total for e in kernels) / 1e3,
         "kernels": sorted(kernels, key=lambda e: -e.device_time_total),
+        "stats": plain["stats"],
+        "ttft_p50_ms": 1e3 * plain["ttft_p50_s"],
     }
 
 
@@ -78,14 +93,16 @@ def main(argv=None):
                     help="the model's small variant (configs.reduced), e.g. on the CPU")
     ap.add_argument("--top", type=int, default=10,
                     help="kernels to list, by device time")
+    add_scheduling_args(ap)
     args = ap.parse_args(argv)
     out = trace(args.model, [float(c) for c in args.capacities.split(",")],
                 executor_kind=args.executor, requests=args.requests,
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=args.device, dtype=args.dtype, seed=args.seed,
-                reduce=args.reduce)
+                reduce=args.reduce, **scheduling_kwargs(args))
     print(out["plan"])
+    print(f"unprofiled run: TTFT p50 {out['ttft_p50_ms']:.1f} ms; stats {out['stats']}")
     kernels, busy = out["kernels"], out["busy_ms"]
     n_req = len(args.prompt_lens) if args.prompt_lens else args.requests
     head = (f"{n_req} requests x {args.max_new} tokens: wall "

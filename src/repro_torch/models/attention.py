@@ -8,9 +8,16 @@ a repeat.  The decode step attends to the cache in torch ops, as the
 reference leaves it to XLA: a rolling buffer of W slots under a sliding
 window, a position-addressed buffer otherwise.
 
-Caches are updated in place (the engine owns one cache per wave) and
-returned.  Chunked prefill at an offset and cross-attention are not on
-this path: ROADMAP queue 1, item 11.
+Chunked prefill at an offset (the paged serving path: prefill chunks and
+prefix-hit suffixes) writes the chunk's K/V at ``[offset, offset + S)`` of
+the gathered cache view and runs the same flash kernel over keys ``[0,
+offset + S)``: the kernel right-aligns the queries to the keys, so chunk
+row ``j`` sits at position ``offset + j``, which is the reference's mask.
+Rows of the view past the chunk (stale pages) are never read.
+
+Caches are updated in place (the engine owns one cache per wave, and the
+paged executor one gathered view per call) and returned.  Cross-attention
+is not on this path: ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -96,11 +103,22 @@ def self_attention_block(
     absolute token positions (rope and the decode mask); one-shot prefill
     and train take them to be ``arange(S)``.  cache_index: the decode
     write position, a host int (lockstep batch) or a (B,) tensor of
-    per-slot depths.
+    per-slot depths.  In prefill, None is the one-shot path and a host
+    int ``offset`` selects chunked prefill: the chunk is written at
+    ``[offset, offset + S)`` and attends to every position before it.
+
+    The reference's query-chunked prefill attention (``cfg.attn_chunk``,
+    its ``_chunked_causal_attention``) only caps the size of its score
+    buffer; the flash kernel never holds that buffer, so every prefill
+    here, chunked or not, takes the kernel path whatever ``attn_chunk``
+    says (it is 0 in every config).
     """
-    if mode == "prefill" and cache_index is not None:
-        raise NotImplementedError(
-            "chunked prefill at an offset is not ported yet (ROADMAP queue 1, item 11)")
+    chunked = mode == "prefill" and cache_index is not None
+    if chunked:
+        if window > 0:
+            raise ValueError("chunked prefill requires full-causal attention")
+        if cache is None:
+            raise ValueError("chunked prefill needs the gathered cache view")
     xn = connective_norm(x, p["ln1"], cfg.norm)
     q, k, v = _project_qkv(p, xn, cfg)
     b, s = x.shape[:2]
@@ -110,7 +128,20 @@ def self_attention_block(
         k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if mode in ("train", "prefill"):
+    if chunked:
+        off = int(cache_index)
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache[:, off:off + s] = k
+        v_cache[:, off:off + s] = v
+        new_cache = {"k": k_cache, "v": v_cache}
+        # keys sliced to the chunk's end: the kernel's right-aligned causal
+        # mask then puts query j at position off + j
+        out = ops.flash_attention(q.transpose(1, 2),
+                                  k_cache[:, :off + s].transpose(1, 2),
+                                  v_cache[:, :off + s].transpose(1, 2),
+                                  causal=True, window=0,
+                                  backend=backend).transpose(1, 2)
+    elif mode in ("train", "prefill"):
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True, window=window,
                                   backend=backend).transpose(1, 2)

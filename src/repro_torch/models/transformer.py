@@ -6,8 +6,9 @@ stacked along a leading group dim; here a Python loop walks the same
 stacked tensors group by group (views, no copies).  Remainder layers
 (``num_layers % len(pattern)``) run after the groups as "tail" blocks.
 
-Modes: "train" (no cache), "prefill" (fills the cache), "decode" (one
-token per row).  Prefill and decode update the cache of
+Modes: "train" (no cache), "prefill" (fills the cache, or with a
+``cache_index`` offset writes one chunk of it), "decode" (one token per
+row).  Prefill and decode update the cache of
 ``serving/kvcache.py:make_cache`` in place and return it.
 """
 from __future__ import annotations
@@ -93,7 +94,9 @@ def apply_model(
     """Returns (logits, new_cache).
 
     tokens: (B, S) int token ids.  cache_index: decode write position, a
-    host int or a (B,) tensor of per-slot depths.  backend: "kernel" runs
+    host int or a (B,) tensor of per-slot depths; in prefill, a host int
+    offset selects chunked prefill at positions ``offset + arange(S)``
+    into the cache view (full-causal attention stacks only).  backend: "kernel" runs
     the flash and scan kernels (their plain versions on CPU tensors),
     "eager" the plain versions on any device.  rows: None for logits of
     every position, (B, S, V); else an int or a (B,) tensor naming one
@@ -109,9 +112,10 @@ def apply_model(
         raise ValueError(f"{mode} needs a cache from serving.kvcache.make_cache")
     if mode == "decode" and cache_index is None:
         raise ValueError("decode mode requires cache_index")
-    if mode == "prefill" and cache_index is not None:
-        raise NotImplementedError(
-            "chunked prefill at an offset is not ported yet (ROADMAP queue 1, item 11)")
+    chunked = mode == "prefill" and cache_index is not None
+    if chunked and (cfg.window > 0 or any(k != "attn" for k in cfg.layer_kinds())):
+        # checked before any block runs, so no cache is half written
+        raise ValueError("chunked prefill requires full-causal attention")
     dtype = getattr(torch, cfg.dtype)
     if not isinstance(tokens, torch.Tensor):
         tokens = torch.tensor(np.asarray(tokens), dtype=torch.long)
@@ -125,6 +129,8 @@ def apply_model(
             positions = cache_index.to(dev)[:, None].expand(bsz, seq)
         else:
             positions = torch.full((bsz, seq), int(cache_index), device=dev)
+    elif chunked:
+        positions = (int(cache_index) + torch.arange(seq, device=dev)).expand(bsz, seq)
     else:
         positions = torch.arange(seq, device=dev).expand(bsz, seq)
     if isinstance(cache_index, torch.Tensor):

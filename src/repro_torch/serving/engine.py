@@ -14,12 +14,31 @@ Two schedulers share one engine:
   no extra pages and bounds the number of distinct prefill shapes.
 * ``wave`` — batch same-bucket prompts, prefill them together into a
   dense cache, decode in lockstep.  It needs the wave protocol
-  (``make_cache`` / ``prefill`` / ``decode``), which every executor has;
-  the model zoo's :class:`TransformerExecutor` has only this one, since
-  recurrent and sliding-window caches are not position-addressable pages.
+  (``make_cache`` / ``prefill`` / ``decode``), which every executor has.
+  The model zoo's :class:`TransformerExecutor` pages full-causal
+  attention stacks (the dense GQA archs) and serves the rest
+  (RecurrentGemma: recurrent and sliding-window caches are not
+  position-addressable pages) in waves.
 
 ``scheduler="auto"`` takes the continuous scheduler when the executor
 supports the paged protocol, else waves.
+
+Two continuous-scheduler extensions, as in the reference:
+
+* **Shared-prefix KV cache** (``prefix_cache=True``): admission looks the
+  prompt up in the radix tree of
+  :class:`~repro_torch.serving.prefix_cache.PrefixCache`, attaches the
+  hit's filled pages to the slot by refcount bump, and prefills only the
+  uncached suffix (the executor's ``prefill_chunk`` at the cached
+  offset).  The request's full prompt pages then enter the tree.
+* **Chunked prefill** (``prefill_chunk=N``): admission queues a prefill
+  task and the main loop runs one N-token (grain-rounded) chunk per
+  iteration beside the decode step, so a long prompt does not stall the
+  live decode slots.
+
+The reference's tracer, drift monitor, metrics registry and speculative
+decoding wait for the port of ``obs/`` and ``serving/spec.py`` (ROADMAP
+queue 1, items 9 and 10); ``stats`` is a plain dict here.
 """
 from __future__ import annotations
 
@@ -35,8 +54,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.execplan import COMPUTE_BACKENDS
 from repro_torch.models.transformer import apply_model
-from repro_torch.serving.kvcache import make_cache
+from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves
 from repro_torch.serving.kvpool import PagedKVPool
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import SamplerConfig, sample
 
 
@@ -61,13 +81,20 @@ def _roundup(x: int, m: int) -> int:
 
 class TransformerExecutor:
     """The model zoo (``models/transformer.py``) on one device, behind the
-    wave protocol.
+    wave protocol and, for full-causal attention stacks, the paged one.
 
     params: the tree of ``models.params.init_params`` /
             ``params_from_numpy``; its device is the executor's.
     backend: "kernel" runs the flash-attention and RG-LRU scan kernels in
             prefill (their plain versions on CPU tensors); "eager" runs the
             plain versions on any device (the oracle).
+
+    The paged pool is ``make_cache(cfg, num_pages, page_size)`` read as
+    (page, in-page slot).  Each paged call gathers the slot's pages into a
+    dense per-request view, runs ``apply_model`` on it, and scatters the
+    new K/V back into the pages in place (the reference donates the pool
+    to XLA for the same effect), so no call holds a second copy of the
+    pool.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, backend: str = "kernel"):
@@ -86,11 +113,10 @@ class TransformerExecutor:
 
     @property
     def supports_paged(self) -> bool:
-        """False: the reference pages full-causal attention stacks only
-        (recurrent and sliding-window caches are not position-addressable
-        pages, so RecurrentGemma is served in waves there too), and the
-        zoo's paged protocol is not ported (ROADMAP queue 1, item 11)."""
-        return False
+        """Paged serving covers full-causal attention stacks; recurrent and
+        sliding-window caches are not position-addressable pages."""
+        kinds = tuple(self.cfg.block_pattern) + tuple(self.cfg.tail_pattern)
+        return all(k == "attn" for k in kinds) and self.cfg.window == 0
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device).long()
@@ -120,6 +146,106 @@ class TransformerExecutor:
                                     backend=self.backend)
         return logits[:, -1], cache
 
+    # --- paged protocol ------------------------------------------------------
+    def make_pool(self, num_pages: int, page_size: int):
+        """Pool storage: the cache tree with (batch, seq) read as (page,
+        in-page slot); every leaf is (G?, P, page_size, kv, hd)."""
+        return make_cache(self.cfg, num_pages, page_size, device=self.device)
+
+    @staticmethod
+    def gather_pages(pool, block_table):
+        """Dense (B, W * page, kv, hd) views of the pages of each row of
+        ``block_table`` (B, W): a copy, one per call, of those pages only."""
+        bsz, w = block_table.shape
+
+        def gather(leaf, _, grouped):
+            if grouped:
+                g = leaf[:, block_table]  # (G, B, W, page, kv, hd)
+                return g.reshape(g.shape[0], bsz, w * g.shape[3], *g.shape[4:])
+            g = leaf[block_table]
+            return g.reshape(bsz, w * g.shape[2], *g.shape[3:])
+
+        return map_cache_leaves(pool, pool, gather)
+
+    @staticmethod
+    def _scatter(pool, dense, phys, within, rows, pos) -> None:
+        """pool[page phys[i], slot within[i]] = dense[rows[i], pos[i]], in
+        place, for every leaf."""
+
+        def scatter(leaf, new, grouped):
+            if grouped:
+                leaf[:, phys, within] = new[:, rows, pos]
+            else:
+                leaf[phys, within] = new[rows, pos]
+
+        map_cache_leaves(pool, dense, scatter)
+
+    def prefill_paged(self, tokens, pool, block_row, length: int):
+        """Prefill one request (batch 1) and scatter its K/V into its pages.
+
+        tokens: (1, S_pad); length: real prompt length (logits are taken at
+        ``length - 1``); block_row: (W,) physical pages of this request.
+        Returns ``(logits (1, V), pool)``.
+        """
+        tokens = self._tensor(tokens)
+        b, s = tokens.shape
+        if b != 1:
+            raise ValueError("paged prefill is per-request: batch must be 1")
+        dense = make_cache(self.cfg, 1, s, device=self.device)
+        logits, dense = apply_model(self.params, self.cfg, tokens=tokens,
+                                    mode="prefill", cache=dense,
+                                    backend=self.backend, rows=int(length) - 1)
+        ps = cache_page_size(pool)
+        pos = torch.arange(s, device=self.device)
+        phys = self._tensor(block_row)[pos // ps]
+        self._scatter(pool, dense, phys, pos % ps, torch.zeros_like(pos), pos)
+        return logits, pool
+
+    def prefill_chunk(self, tokens, pool, block_row, *, offset: int, length: int):
+        """One chunked-prefill step (batch 1): gather the slot's pages into
+        a dense view, run the chunk at absolute positions ``[offset, offset
+        + S)`` attending back to every written position (earlier chunks and
+        shared prefix pages), and scatter the chunk's K/V into its pages.
+        Returns ``(logits, pool)``, logits of *every* chunk row, (1, S, V):
+        row ``j`` predicts position ``offset + j + 1``.
+
+        Only the pages up to the chunk's end are gathered (the reference
+        gathers the whole block-table row); the attention reads no key past
+        ``offset + S``, so the numbers are the same.
+        """
+        tokens = self._tensor(tokens)
+        b, s = tokens.shape
+        if b != 1:
+            raise ValueError("paged prefill is per-request: batch must be 1")
+        offset = int(offset)
+        ps = cache_page_size(pool)
+        row = self._tensor(block_row)
+        dense = self.gather_pages(pool, row[: -(-(offset + s) // ps)][None])
+        logits, dense = apply_model(self.params, self.cfg, tokens=tokens,
+                                    mode="prefill", cache=dense, cache_index=offset,
+                                    backend=self.backend)
+        pos = offset + torch.arange(s, device=self.device)
+        self._scatter(pool, dense, row[pos // ps], pos % ps, torch.zeros_like(pos), pos)
+        return logits, pool
+
+    def decode_paged(self, tokens, pool, block_table, positions):
+        """One continuous-batching step: gather each slot's pages into a
+        dense per-slot view, run the single-token model at per-slot depths,
+        scatter each new K/V entry back into its page.  Rows of idle slots
+        carry the null page and position 0.  Returns ``(logits (B, V),
+        pool)``."""
+        bt = self._tensor(block_table)
+        positions = self._tensor(positions)
+        dense = self.gather_pages(pool, bt)
+        logits, dense = apply_model(self.params, self.cfg, tokens=self._tensor(tokens),
+                                    mode="decode", cache=dense, cache_index=positions,
+                                    backend=self.backend)
+        ps = cache_page_size(pool)
+        rows = torch.arange(bt.shape[0], device=self.device)
+        self._scatter(pool, dense, bt[rows, positions // ps], positions % ps,
+                      rows, positions)
+        return logits[:, -1], pool
+
 
 @dataclasses.dataclass
 class _Slot:
@@ -130,19 +256,51 @@ class _Slot:
     limit: int        # min(max_new_tokens, max_len - prompt_len)
 
 
+@dataclasses.dataclass
+class _PrefillTask:
+    """An admitted request whose prompt is (still) being prefilled.
+
+    The pool pages are already reserved (and prefix-hit pages attached);
+    ``next_off`` is the first absolute position not yet written: it starts
+    at the cached prefix length and advances one chunk per step."""
+    req: Request
+    slot: int
+    tokens: np.ndarray  # (1, s_pad) bucket-padded prompt
+    s: int              # real prompt length
+    s_pad: int
+    limit: int
+    next_off: int
+
+
+#: the engine's counters; ``peak_shared_pages`` is a maximum, and
+#: ``prefill_oneshots`` (prefills that ran as one ``prefill_paged`` call,
+#: beside ``prefill_chunks``) is the port's own
+STAT_KEYS = ("requests", "prefill_tokens", "decode_steps", "decode_tokens",
+             "prefill_chunks", "prefill_oneshots", "prefix_hits",
+             "cached_prefix_tokens", "peak_shared_pages")
+
+
 class ServingEngine:
     """Serving engine over an executor.  ``stats`` counts requests,
-    prefilled prompt tokens, decode steps and decoded tokens of the
-    engine's runs."""
+    computed prompt tokens (the uncached suffix under prefix hits), decode
+    steps and tokens, prefill calls and prefix-cache hits of the engine's
+    runs; ``prefix_stats`` holds the prefix tree's own stats after a run
+    with ``prefix_cache=True``."""
 
     def __init__(self, executor, *, max_batch: int = 8, max_len: int = 512,
                  sampler: SamplerConfig = SamplerConfig(), rng_seed: int = 0,
                  scheduler: str = "auto", page_size: int = 16,
-                 num_pages: Optional[int] = None, record_times: bool = False):
+                 num_pages: Optional[int] = None, record_times: bool = False,
+                 prefix_cache: bool = False, prefill_chunk: Optional[int] = None):
         if scheduler not in ("auto", "continuous", "wave"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if scheduler == "continuous" and not getattr(executor, "supports_paged", False):
             raise ValueError("the continuous scheduler needs the paged executor protocol")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1 token")
+        if (prefix_cache or prefill_chunk) and not hasattr(executor, "prefill_chunk"):
+            raise ValueError("prefix caching / chunked prefill need an executor with "
+                             "the prefill_chunk protocol")
         self.executor = executor
         self.scheduler = scheduler
         self.max_batch = max_batch
@@ -153,10 +311,12 @@ class ServingEngine:
         self.page_size = page_size
         self.num_pages = num_pages
         self.record_times = record_times
+        self.prefix_cache = prefix_cache
+        self.prefill_chunk = prefill_chunk
         self.queue: deque = deque()
-        self.stats: Dict[str, int] = {"requests": 0, "prefill_tokens": 0,
-                                      "decode_steps": 0, "decode_tokens": 0}
+        self.stats: Dict[str, int] = dict.fromkeys(STAT_KEYS, 0)
         self.pool: Optional[PagedKVPool] = None
+        self.prefix_stats: Optional[Dict] = None
 
     def submit(self, req: Request) -> None:
         if self.record_times:
@@ -185,23 +345,73 @@ class ServingEngine:
                     if getattr(self.executor, "supports_paged", False) else "wave")
         if mode == "continuous":
             return self._run_continuous()
+        if self.prefix_cache or self.prefill_chunk:
+            raise ValueError("prefix caching / chunked prefill belong to the continuous "
+                             "scheduler (the wave path has no paged pool to share)")
         return self._run_waves()
 
     def _run_continuous(self) -> List[Request]:
         ex = self.executor
         ps = self.page_size
         n_slots = self.max_batch
+        # the same grain aligns prefix-cache hits and prefill chunks, so
+        # every suffix chunk starts on a page boundary
         grain = math.lcm(getattr(ex, "prompt_pad_multiple", 1), ps)
         pages_per_slot = _roundup(self.max_len, grain) // ps
         total_pages = self.num_pages or (1 + n_slots * pages_per_slot)
         pool = PagedKVPool(total_pages, ps, n_slots, pages_per_slot)
         storage = ex.make_pool(total_pages, ps)
+        pcache = PrefixCache(pool, grain=grain) if self.prefix_cache else None
         self.pool = pool  # introspection (tests / benches)
+        chunk_tokens = (None if self.prefill_chunk is None
+                        else _roundup(self.prefill_chunk, grain))
         slots: List[Optional[_Slot]] = [None] * n_slots
+        prefills: deque = deque()  # admitted slots still mid-prefill
         finished: List[Request] = []
 
-        def admit() -> None:
+        def prefill_step(t: _PrefillTask) -> bool:
+            """Advance one chunk; True when the prompt is fully prefilled.
+
+            The final chunk always covers position ``s - 1`` (chunk starts
+            are grain-aligned and ``s_pad - s < grain``), so its logits row
+            is the last real prompt token's: the first sampled token."""
             nonlocal storage
+            off = t.next_off
+            size = (t.s_pad - off if chunk_tokens is None
+                    else min(chunk_tokens, t.s_pad - off))
+            block_row = pool.block_table[t.slot].copy()
+            chunk = t.tokens[:, off:off + size]
+            if off == 0 and size == t.s_pad:
+                # one-shot (no context gather): the path without chunking
+                logits, storage = ex.prefill_paged(chunk, storage, block_row, length=t.s)
+                self.stats["prefill_oneshots"] += 1
+            else:
+                logits, storage = ex.prefill_chunk(chunk, storage, block_row,
+                                                   offset=off, length=t.s)
+                # chunk logits carry every row; the first token comes from
+                # the last *real* prompt token's row
+                logits = logits[:, max(0, min(t.s - 1 - off, size - 1))]
+                self.stats["prefill_chunks"] += 1
+            # computed prompt tokens: the suffix only under prefix hits
+            self.stats["prefill_tokens"] += max(0, min(t.s, off + size) - off)
+            t.next_off = off + size
+            if t.next_off < t.s_pad:
+                return False
+            if pcache is not None:
+                # publish this prompt's full pages for later admissions
+                # (the partial tail page stays slot-private)
+                pcache.insert(t.req.prompt, pool.block_table[t.slot])
+            tok = int(self._sample(logits)[0])
+            if self._emit(t.req, tok, t.limit):
+                pool.retire(t.slot)
+                finished.append(t.req)
+            else:
+                slots[t.slot] = _Slot(t.req, tok, t.s, t.limit)
+            return True
+
+        def admit() -> None:
+            """Admission: prefix lookup -> shared-page refcount bump ->
+            suffix-only prefill (inline, or queued as chunk tasks)."""
             while self.queue:
                 slot = pool.free_slot()
                 if slot is None:
@@ -216,58 +426,92 @@ class ServingEngine:
                     continue
                 s_pad = _roundup(s, grain)
                 max_positions = max(s_pad, s + limit)
-                if not pool.can_admit(max_positions):
-                    return
+                shared: List[int] = []
+                cached = 0
+                if pcache is not None:
+                    shared, cached = pcache.lookup(r.prompt)
+                if not pool.can_admit(max_positions, shared=len(shared)):
+                    if pcache is not None:
+                        need = (pool.pages_for(max_positions) - len(shared)
+                                - pool.available)
+                        pcache.evict(need)
+                        # eviction may have pruned our own match: re-walk
+                        shared, cached = pcache.lookup(r.prompt)
+                    if not pool.can_admit(max_positions, shared=len(shared)):
+                        return
                 self.queue.popleft()
                 pool.admit(slot, initial_positions=s_pad,
-                           max_positions=max_positions)
+                           max_positions=max_positions, shared_pages=shared)
+                if shared:
+                    self.stats["prefix_hits"] += 1
+                    self.stats["cached_prefix_tokens"] += cached
+                    self.stats["peak_shared_pages"] = max(
+                        self.stats["peak_shared_pages"], pool.shared_page_count())
+                    pool.check()
                 tokens = np.zeros((1, s_pad), np.int64)
                 tokens[0, :s] = r.prompt
-                logits, storage = ex.prefill_paged(
-                    tokens, storage, pool.block_table[slot].copy(), length=s)
-                self.stats["prefill_tokens"] += s
-                tok = int(self._sample(logits)[0])
-                if self._emit(r, tok, limit):
-                    pool.retire(slot)
-                    finished.append(r)
+                task = _PrefillTask(r, slot, tokens, s, s_pad, limit, next_off=cached)
+                if chunk_tokens is None:
+                    # no interleaving requested: prefill to completion now
+                    while not prefill_step(task):
+                        pass
                 else:
-                    slots[slot] = _Slot(r, tok, s, limit)
+                    prefills.append(task)
 
         admit()
-        while any(slots) or self.queue:
-            live = [i for i, sl in enumerate(slots) if sl is not None]
-            if not live:
+        while any(slots) or prefills or self.queue:
+            if not any(slots) and not prefills:
+                # nothing active and nothing admissible: drop the whole
+                # prefix tree (its pins may be what starves the head
+                # request) and retry before declaring the pool too small
+                if pcache is not None and len(pcache):
+                    pcache.evict(total_pages)
+                    admit()
+                    if any(slots) or prefills:
+                        continue
                 r = self.queue[0]
                 raise RuntimeError(
                     f"request uid={r.uid} (prompt {len(r.prompt)}, "
                     f"max_new {r.max_new_tokens}) cannot fit the pool of "
                     f"{total_pages} pages x {ps}"
                 )
-            tokens = np.zeros((n_slots, 1), np.int64)
-            positions = np.zeros(n_slots, np.int64)
-            live_mask = np.zeros(n_slots, bool)
-            for i in live:
-                pool.ensure(i, slots[i].next_index)
-                tokens[i, 0] = slots[i].last_token
-                positions[i] = slots[i].next_index
-                live_mask[i] = True
-            # idle rows decode against the null page: their dummy write must
-            # not touch real pages
-            bt = np.where(live_mask[:, None], pool.block_table, 0)
-            logits, storage = ex.decode_paged(tokens, storage, bt, positions)
-            self.stats["decode_steps"] += 1
-            self.stats["decode_tokens"] += len(live)
-            toks = self._sample(logits)
-            for i in live:
-                sl = slots[i]
-                if self._emit(sl.req, int(toks[i]), sl.limit):
-                    pool.retire(i)
-                    slots[i] = None
-                    finished.append(sl.req)
-                else:
-                    sl.last_token = int(toks[i])
-                    sl.next_index += 1
+            if prefills:
+                # one chunk per iteration, interleaved with the decode step
+                # below: long prompts do not stall live decode slots
+                if prefill_step(prefills[0]):
+                    prefills.popleft()
+            live = [i for i, sl in enumerate(slots) if sl is not None]
+            if live:
+                tokens = np.zeros((n_slots, 1), np.int64)
+                positions = np.zeros(n_slots, np.int64)
+                live_mask = np.zeros(n_slots, bool)
+                for i in live:
+                    pool.ensure(i, slots[i].next_index)
+                    tokens[i, 0] = slots[i].last_token
+                    positions[i] = slots[i].next_index
+                    live_mask[i] = True
+                # non-live rows (idle or mid-prefill) decode against the
+                # null page: their dummy write must not touch real pages
+                bt = np.where(live_mask[:, None], pool.block_table, 0)
+                logits, storage = ex.decode_paged(tokens, storage, bt, positions)
+                self.stats["decode_steps"] += 1
+                self.stats["decode_tokens"] += len(live)
+                toks = self._sample(logits)
+                for i in live:
+                    sl = slots[i]
+                    if self._emit(sl.req, int(toks[i]), sl.limit):
+                        pool.retire(i)
+                        slots[i] = None
+                        finished.append(sl.req)
+                    else:
+                        sl.last_token = int(toks[i])
+                        sl.next_index += 1
             admit()  # freed slots refill immediately — continuous batching
+        if pcache is not None:
+            pool.check()  # the refcount algebra at the end of the run
+            self.prefix_stats = pcache.stats()
+        else:
+            self.prefix_stats = None
         return finished
 
     # --- wave execution ------------------------------------------------------

@@ -1,9 +1,15 @@
 """Dense serving caches of the model zoo: KV caches (full or
 sliding-window) and RG-LRU states, mirroring the grouped parameter tree
-(a leading ``num_groups`` dim on ``"groups"`` entries)."""
+(a leading ``num_groups`` dim on ``"groups"`` entries).
+
+The same tree is the paged pool of the continuous scheduler:
+``make_cache(cfg, num_pages, page_size)`` read as (page, in-page slot),
+so every leaf of an attention-only stack is ``(G?, P, page_size, kv,
+hd)`` (:func:`cache_page_size`, :func:`map_cache_leaves`)."""
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Callable, Dict
 
 import torch
 
@@ -45,3 +51,35 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None) -> 
                          for n, (shape, dt) in leaves.items()}
                    for key, leaves in blocks.items()}
             for part, blocks in cache_shapes(cfg, batch, cache_len).items()}
+
+
+def cache_page_size(pool: Dict) -> int:
+    """Positions per page of a pool built by ``make_cache(cfg, num_pages,
+    page_size)``: grouped leaves are (G, P, page, kv, hd), tail leaves (P,
+    page, kv, hd)."""
+    for part in ("groups", "tail"):
+        for leaves in pool[part].values():
+            leaf = next(iter(leaves.values()))
+            return leaf.shape[2] if part == "groups" else leaf.shape[1]
+    raise ValueError("empty cache tree")
+
+
+def map_cache_leaves(pool: Dict, other: Dict, fn: Callable) -> Dict:
+    """``fn(pool_leaf, other_leaf, grouped)`` over an attention-only cache
+    tree ({"groups": {...}, "tail": {...}} of {"k", "v"} leaves); grouped
+    leaves carry the leading group dim.  This walk owns the schema of
+    :func:`make_cache`, so the paged gather and scatter stay layout-blind."""
+    out: Dict = {"groups": {}, "tail": {}}
+    for part in ("groups", "tail"):
+        for key, leaves in pool[part].items():
+            out[part][key] = {n: fn(leaf, other[part][key][n], part == "groups")
+                              for n, leaf in leaves.items()}
+    return out
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, cache_len: int) -> int:
+    """Bytes of :func:`make_cache`'s tree, from its shapes alone."""
+    return sum(math.prod(shape) * getattr(torch, dt).itemsize
+               for blocks in cache_shapes(cfg, batch, cache_len).values()
+               for leaves in blocks.values()
+               for shape, dt in leaves.values())

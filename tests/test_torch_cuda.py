@@ -35,6 +35,8 @@ from repro_torch.kernels.fused_connective import (  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.tiled_gemm import (  # noqa: E402
     dense_block_count,
+    tiled_gemm,
+    tiled_gemm_plain,
     tiled_gemm_valid,
     tiled_gemm_valid_plain,
 )
@@ -166,6 +168,9 @@ FLASH_CASES = [
     (1, 2, 2, 65, 65, 32, False, 0),
     (1, 2, 1, 100, 100, 256, False, 17),
     (1, 3, 3, 1, 40, 128, True, 8),
+    # StableLM-12B's head dim 160 on GQA 4:1, a prefill chunk at an offset
+    (1, 32, 8, 256, 1280, 160, True, 0),
+    (1, 4, 1, 37, 300, 160, True, 0),
 ]
 
 
@@ -238,3 +243,86 @@ def test_zoo_kernel_path_matches_eager_path(cuda):
         le, ce = eager.decode(tok, ce, 40 + step)
         torch.testing.assert_close(lk, le, **TOL[torch.float32])
     assert ops.launch_counts() == counts
+
+
+# (m, k, n): the reference's test sweep, then shapes no tile divides
+DENSE_GEMM_CASES = [(128, 256, 128), (256, 512, 384), (512, 128, 256),
+                    (201, 333, 157), (1, 7, 1), (130, 1, 129)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n", DENSE_GEMM_CASES)
+def test_dense_gemm_kernel_matches_plain(cuda, m, k, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    # the reference's sweep tiles in 128-blocks; the rest take the default
+    # blocks, each clipped to its axis
+    blocks = ({"block_m": 128, "block_n": 128, "block_k": 128}
+              if m % 128 == k % 128 == n % 128 == 0 else {})
+    before = tiled_gemm.launches
+    out = tiled_gemm(x, w, **blocks)
+    torch.cuda.synchronize()
+    assert tiled_gemm.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    torch.testing.assert_close(out.float(), tiled_gemm_plain(x, w).float(), **TOL[dtype])
+    # a strided operand is taken as it is
+    wt = w.t().contiguous().t()
+    torch.testing.assert_close(tiled_gemm(x, wt, **blocks).float(), out.float(),
+                               **TOL[dtype])
+
+
+def test_dense_gemm_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(100, 64, device=cuda)
+    with pytest.raises(ValueError, match="block_m=48"):
+        ops.tiled_gemm(x, torch.zeros(64, 96, device=cuda), block_m=48, block_n=32,
+                       block_k=32)
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        tiled_gemm(x, torch.zeros(48, 96, device=cuda))
+    with pytest.raises(ValueError, match="float32/bfloat16/float16"):
+        tiled_gemm(x.double(), torch.zeros(64, 96, device=cuda).double())
+
+
+def test_dense_paged_protocol_kernel_matches_eager(cuda):
+    """Reduced StableLM (GQA 4:2, head dim 64) in fp32 on the card: the
+    paged protocol's one-shot prefill, chunks at offsets 16 and 32, and 4
+    decode steps, kernel vs eager backend; 2 flash launches per prefill
+    call, none in decode."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    cfg = dataclasses.replace(reduced(get_config("stablelm-12b")), num_kv_heads=2)
+    params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 48), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    rows = [[1, 2, 3, 4], [5, 6, 7, 8]]
+    out = {}
+    for backend in ("kernel", "eager"):
+        ex = TransformerExecutor(params, cfg, backend=backend)
+        pool = ex.make_pool(9, 16)
+        ops.reset_launch_counts()
+        lo, pool = ex.prefill_paged(tokens[:, :32], pool, rows[0], length=30)
+        chunks = []
+        for off in (0, 16, 32):
+            lc, pool = ex.prefill_chunk(tokens[:, off:off + 16], pool, rows[1],
+                                        offset=off, length=48)
+            chunks.append(lc)
+        n_flash = ops.launch_counts()["flash_attention"]
+        assert n_flash == (2 * 4 if backend == "kernel" else 0)
+        decoded = []
+        table = torch.tensor(rows, device=cuda)
+        pos = torch.tensor([30, 48], device=cuda)
+        tok = torch.stack([lo[0].argmax(), chunks[-1][0, -1].argmax()])
+        for step in range(4):
+            logits, pool = ex.decode_paged(tok[:, None], pool, table, pos + step)
+            decoded.append(logits)
+            tok = logits.argmax(-1)
+        assert ops.launch_counts()["flash_attention"] == n_flash
+        out[backend] = (lo, torch.cat(chunks, 1), torch.stack(decoded), pool)
+    for got, want in zip(out["kernel"][:3], out["eager"][:3]):
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+    for key, leaves in out["kernel"][3]["groups"].items():
+        for name, leaf in leaves.items():
+            torch.testing.assert_close(leaf, out["eager"][3]["groups"][key][name],
+                                       **TOL[torch.float32])

@@ -23,6 +23,7 @@ from repro.kernels.flash_attention import (  # noqa: E402
 )
 from repro.kernels.fused_connective import fused_connective as j_connective  # noqa: E402
 from repro.kernels.tiled_gemm import divisor_block as j_divisor_block  # noqa: E402
+from repro.kernels.tiled_gemm import tiled_gemm as j_tiled_gemm  # noqa: E402
 from repro.kernels.tiled_gemm import tiled_gemm_valid as j_gemm_valid  # noqa: E402
 from repro_torch.core.execplan import SeqLayout  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -37,6 +38,8 @@ from repro_torch.kernels.tiled_gemm import (  # noqa: E402
     BLOCK_N,
     dense_block_count,
     divisor_block,
+    tiled_gemm,
+    tiled_gemm_plain,
     tiled_gemm_valid,
 )
 
@@ -204,3 +207,53 @@ def test_fused_connective_takes_any_row_count():
     assert out.shape == (100, 8) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="keep_mask"):
         fused_connective(x, x, None, torch.ones(8), torch.zeros(8), rate=0.1)
+
+
+# --- the dense tiled GEMM ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 5e-4), ("bfloat16", 0.25)])
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (256, 512, 384), (512, 128, 256)])
+def test_dense_gemm_plain_matches_pallas(m, k, n, dtype, atol):
+    """The reference's sweep (``tests/test_kernels.py``) and tolerances:
+    the same bf16-rounded operands on both sides, the Pallas kernel in
+    128-blocks in interpret mode."""
+    rng = np.random.default_rng(m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    jx, jw = (jnp.asarray(a).astype(dtype) for a in (x, w))
+    tx, tw = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, w))
+    b128 = dict(block_m=128, block_n=128, block_k=128)
+    jout = j_tiled_gemm(jx, jw, interpret=True, **b128)
+    out = ops.tiled_gemm(tx, tw, **b128)
+    assert out.dtype == tx.dtype and out.shape == (m, n)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(jout, np.float32), atol=atol)
+    # the eager backend is the plain version; on a CPU tensor the kernel
+    # wrapper runs it too and launches nothing
+    before = tiled_gemm.launches
+    torch.testing.assert_close(ops.tiled_gemm(tx, tw, backend="eager", **b128), out,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(tiled_gemm_plain(tx, tw), out, rtol=0, atol=0)
+    assert tiled_gemm.launches == before
+
+
+def test_dense_gemm_raises_what_the_reference_raises():
+    """Blocks clipped to their axis must divide it, and the contraction
+    must match: the reference's ``ValueError`` messages, on both backends."""
+    x, w = np.zeros((100, 64), np.float32), np.zeros((64, 96), np.float32)
+    for backend in ("kernel", "eager"):
+        for call in (lambda: ops.tiled_gemm(torch.from_numpy(x), torch.from_numpy(w),
+                                            block_m=48, block_n=32, block_k=32,
+                                            backend=backend),
+                     lambda: j_tiled_gemm(jnp.asarray(x), jnp.asarray(w), block_m=48,
+                                          block_n=32, block_k=32, interpret=True)):
+            with pytest.raises(ValueError, match="block_m=48"):
+                call()
+        with pytest.raises(ValueError, match="contraction mismatch"):
+            ops.tiled_gemm(torch.zeros(64, 32), torch.zeros(48, 96), backend=backend)
+    with pytest.raises(ValueError, match="contraction mismatch"):
+        j_tiled_gemm(jnp.zeros((64, 32)), jnp.zeros((48, 96)), interpret=True)
+    with pytest.raises(ValueError, match="backend"):
+        ops.tiled_gemm(torch.zeros(4, 4), torch.zeros(4, 4), backend="pallas")
+    # blocks larger than an axis are clipped to it: any shape below the
+    # default blocks is accepted
+    assert ops.tiled_gemm(torch.ones(201, 333), torch.ones(333, 157)).shape == (201, 157)

@@ -237,9 +237,15 @@ def test_self_attention_block_matches_reference(zoo, mode):
 
 
 def test_chunked_prefill_is_not_ported(zoo):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Chunked prefill at an offset is ported for full-causal attention
+    stacks only: RecurrentGemma (window 32, recurrent blocks) is refused
+    with the reference's error, before any cache is written."""
+    cache = make_cache(zoo["cfg"], B, MAX_LEN)
+    with pytest.raises(ValueError, match="full-causal"):
         apply_model(zoo["p"], zoo["cfg"], tokens=zoo["tokens"], mode="prefill",
-                    cache=make_cache(zoo["cfg"], B, MAX_LEN), cache_index=4)
+                    cache=cache, cache_index=4)
+    assert not any(t.any() for blocks in cache.values() for leaves in blocks.values()
+                   for t in leaves.values())
 
 
 # --- the model ----------------------------------------------------------------

@@ -8,12 +8,19 @@ host with one CUDA device and the CUDA toolkit.  Phases, each raising on
 failure:
 
 1. card    — CUDA present; the card's name and power limit; TF32 off.
-2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+             ptxas's registers and spills; the tensor-core instructions
+             ``cuobjdump --dump-sass`` finds in the GEMMs (HMMA in
+             tiled_gemm_valid, HGMMA in tiled_gemm; none fails).
 3. kernels — each hand-written kernel against its plain PyTorch version at
              the GPT2-L main-path shapes, float32 and float16, with garbage
              in every pad region (pad outputs must be exact zeros) and the
-             GEMM's live-tile counter against ``dense_block_count``; times
-             the kernel, the plain version and one PyTorch library call.
+             GEMM's live-tile counter against ``dense_block_count``; the
+             GEMM at the ring tiles and at the served decode (one-row
+             segments, 4 slots), its split plan printed, its output equal
+             bit for bit on a second call, fp16 on the tensor-core path
+             ("mma") and fp32 on the CUDA cores ("fma"); times the kernel,
+             the plain version and one PyTorch library call.
 4. parity  — two GPT2-L-width layers in float32 through the executor:
              kernel vs eager backend logits after the prefill of 4
              prompts and after each of 8 decode steps of the 4-slot
@@ -22,8 +29,8 @@ failure:
              and depth in float16 on the planner's uneven 3:2:2:1 plan, 8
              requests of 37-300 prompt tokens, 16 new tokens each,
              ``max_batch=4``; each of its three kernels must have launched,
-             and the first served token of a request must match the eager
-             backend.
+             every GEMM on the tensor-core path, and the first served
+             token of a request must match the eager backend.
 6. zoo kernels — the dense flash attention and the RG-LRU scan against
              their plain versions at RecurrentGemma-9B's served prefill
              shapes: attention (2, 16, 2100, 256) on one KV head, causal,
@@ -46,10 +53,12 @@ failure:
 9. dense kernels — the dense ``tiled_gemm`` against its plain version at
              the reference's test shapes (128x256x128, 256x512x384,
              512x128x256) and one odd shape in float32, bfloat16 and
-             float16; its own path, ``ops.tiled_gemm``, driven once at a
-             served width, StableLM-12B's MLP up-projection on a 512-row
-             chunk, (512 x 5120) @ (5120 x 13824) bf16, and timed there
-             beside its plain version, ``torch.matmul`` and its bound.
+             float16, bf16/fp16 on the wgmma path and fp32 and the odd
+             shape on the CUDA-core ("simt") path, counted; its own path,
+             ``ops.tiled_gemm``, driven once at a served width,
+             StableLM-12B's MLP up-projection on a 512-row chunk, (512 x
+             5120) @ (5120 x 13824) bf16 (wgmma), and timed there beside
+             its plain version, ``torch.matmul`` and its bound.
              The flash kernel at StableLM-12B's prefill chunk: 256
              queries at offset 1024 (Sq < Sk), 32 heads on 8 KV heads of
              dim 160, strided views of the gathered page view, fp32 and
@@ -205,7 +214,8 @@ def phase_kernels(rec, plan, torch):
     from repro_torch.kernels.fused_connective import (
         fused_connective, fused_connective_plain)
     from repro_torch.kernels.tiled_gemm import (
-        dense_block_count, tiled_gemm_valid, tiled_gemm_valid_plain)
+        _sm_count, dense_block_count, plan_valid_gemm, tiled_gemm_valid,
+        tiled_gemm_valid_plain)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -214,14 +224,25 @@ def phase_kernels(rec, plan, torch):
     d_model = plan.d_model
     vh, vc, rows_dev = plan.heads[1], plan.columns[1], lay.tiles[1]
     # one ring step of device 1 (5 heads, 1280 columns) on a 56-row tile of
-    # the 57-row padded tile, and one decode step of 4 slots
+    # the 57-row padded tile; a decode step of 4 slots as _decode_layer
+    # launches it, (4, 1, d) folded to one-row segments, for QKV and W2;
+    # and a 4-row segment (correctness only)
     gemms = {
         "qkv": (pt, 3 * ph * hd, d_model, rows_dev, vh * hd, d_model, pt, ph * hd),
         "wo": (pt, d_model, ph * hd, rows_dev, d_model, vh * hd, pt, d_model),
         "w1": (pt, pc, d_model, rows_dev, vc, d_model, pt, pc),
         "w2": (pt, d_model, pc, rows_dev, d_model, vc, pt, d_model),
+        "decode_qkv_s1": (4, 3 * ph * hd, d_model, 1, vh * hd, d_model, 1, ph * hd),
+        "decode_w2_s1": (4, d_model, pc, 1, d_model, vc, 1, d_model),
         "decode_qkv": (4, 3 * ph * hd, d_model, 4, vh * hd, d_model, 4, ph * hd),
     }
+    sms = _sm_count(dev)
+    for key, (m, n, k, vm, vn, vk, seg_m, seg_n) in gemms.items():
+        p = plan_valid_gemm(m, n, k, seg_m=seg_m, seg_n=seg_n, valid_m=vm, valid_n=vn,
+                            valid_k=vk, sm_count=sms)
+        log("kernels", f"tiled_gemm_valid plan {key}: {p.live_tiles} live tiles of "
+            f"{p.m_tiles * p.n_tiles} ({p.pack} segment(s) a tile) x {p.splits} K slices of "
+            f"{p.steps_per_split} steps = {p.live_tiles * p.splits} live blocks on {sms} SMs")
     junk = 1e3
     for dtype in ("float32", "float16"):
         tdt = getattr(torch, dtype)
@@ -235,7 +256,10 @@ def phase_kernels(rec, plan, torch):
             x = torch.where(rows[:, None] & kk[None, :], x, junk).to(tdt)
             w = torch.where(kk[:, None] & cols[None, :], w, -junk).to(tdt)
             kw = dict(valid_m=vm, valid_n=vn, valid_k=vk, seg_m=seg_m, seg_n=seg_n)
+            path = "mma" if dtype == "float16" else "fma"
+            before = dict(tiled_gemm_valid.paths)
             out, cnt = tiled_gemm_valid(x, w, count_blocks=True, **kw)
+            again = tiled_gemm_valid(x, w, **kw)
             plain = tiled_gemm_valid_plain(x, w, **kw)
             torch.cuda.synchronize()
             err = check_close("tiled_gemm_valid", out, plain, dtype, key)
@@ -244,8 +268,14 @@ def phase_kernels(rec, plan, torch):
             want = dense_block_count(m, n, k, **kw)
             if int(cnt) != want:
                 raise AssertionError(f"tiled_gemm_valid {key}: live tiles {int(cnt)} != {want}")
-            log("kernels", f"tiled_gemm_valid {key} {dtype} ({m}x{k})@({k}x{n}) "
-                f"valid=({vm},{vn},{vk}) err={err:.3g} live_tiles={want}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"tiled_gemm_valid {key} {dtype}: two calls differ")
+            if tiled_gemm_valid.paths[path] != before[path] + 2:
+                raise AssertionError(f"tiled_gemm_valid {key} {dtype}: not the {path} path: "
+                                     f"{before} -> {tiled_gemm_valid.paths}")
+            log("kernels", f"tiled_gemm_valid {key} {dtype} ({m}x{k})@({k}x{n}) seg_m={seg_m} "
+                f"valid=({vm},{vn},{vk}) err={err:.3g} live_tiles={want} path={path}, "
+                "bitwise equal on repeat")
             if dtype != "float16":
                 continue
             rec["tiled_gemm_valid"].err(err)
@@ -418,6 +448,10 @@ def phase_serve(torch, rec):
     for name in ZOO_KERNELS + ("tiled_gemm",):
         if counts[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the Galaxy path")
+    paths = ops.path_counts()["tiled_gemm_valid"]
+    if paths != {"mma": counts["tiled_gemm_valid"], "fma": 0}:
+        raise AssertionError(f"served GEMMs off the tensor-core path: {paths}")
+    log("serve", f"tiled_gemm_valid paths: {paths} (every served GEMM on the tensor cores)")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
         f"{out['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * out['ttft_p50_s']:.1f} ms, "
@@ -659,6 +693,10 @@ def phase_dense_kernels(rec, torch):
             # shape takes the default blocks, each clipped to its axis
             blocks = ({"block_m": 128, "block_n": 128, "block_k": 128}
                       if m % 128 == k % 128 == n % 128 == 0 else {})
+            # bf16/fp16 with 16-byte rows on the tensor cores; fp32 and the
+            # odd shape's 666-byte rows on the CUDA cores
+            path = "simt" if dtype == "float32" or (m, k, n) == (201, 333, 157) else "wgmma"
+            before = dict(tiled_gemm.paths)
             out = tiled_gemm(x, w, **blocks)
             plain = tiled_gemm_plain(x, w)
             torch.cuda.synchronize()
@@ -668,8 +706,11 @@ def phase_dense_kernels(rec, torch):
             if out.shape != (m, n) or out.dtype != tdt or not bool((diff <= lim).all()):
                 raise AssertionError(f"tiled_gemm ({m}x{k})@({k}x{n}) {dtype}: max abs err "
                                      f"{err} beyond {ATOL[dtype]} + {ULP[dtype]} |ref|")
+            if tiled_gemm.paths[path] != before[path] + 1:
+                raise AssertionError(f"tiled_gemm ({m}x{k})@({k}x{n}) {dtype}: not the {path} "
+                                     f"path: {before} -> {tiled_gemm.paths}")
             rec["tiled_gemm"].err(err)
-            log("kernels", f"tiled_gemm {dtype} ({m}x{k})@({k}x{n}) err={err:.3g}")
+            log("kernels", f"tiled_gemm {dtype} ({m}x{k})@({k}x{n}) err={err:.3g} path={path}")
 
     # its path: the public op, once, at a served width
     m, k, n = 512, 5120, 13824
@@ -681,6 +722,8 @@ def phase_dense_kernels(rec, torch):
     counts = ops.launch_counts()
     if counts != {name: int(name == "tiled_gemm") for name in counts}:
         raise AssertionError(f"ops.tiled_gemm launches: {counts}")
+    if ops.path_counts()["tiled_gemm"] != {"wgmma": 1, "simt": 0}:
+        raise AssertionError(f"served width off the wgmma path: {ops.path_counts()}")
     rec["tiled_gemm"].d["launches"] = counts["tiled_gemm"]
     plain = tiled_gemm_plain(x, w)
     diff = (out.float() - plain.float()).abs()
@@ -696,8 +739,8 @@ def phase_dense_kernels(rec, torch):
     rec["tiled_gemm"].timed(ms, plain_ms, lib_ms, nbytes, flops, "bfloat16")
     bms, by = bound(nbytes, flops, "bfloat16")
     log("kernels", f"tiled_gemm bf16 ({m}x{k})@({k}x{n}) via ops.tiled_gemm: 1 launch, "
-        f"err={err:.3g}; {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+        f"path wgmma, err={err:.3g}; {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     del x, w, out, plain
 
     # the flash kernel at a StableLM-12B prefill chunk: 256 queries at
@@ -732,6 +775,25 @@ def phase_dense_kernels(rec, torch):
         bms, by = bound(nbytes, flops, dtype)
         log("kernels", f"flash_attention bf16 dense chunk: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+def sass_check(torch) -> str:
+    """Count the tensor-core instructions ``cuobjdump --dump-sass`` finds in
+    the two GEMM libraries: HMMA (mma.sync) in tiled_gemm_valid, HGMMA
+    (wgmma) in tiled_gemm.  Raises if either has none."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
+    found = {}
+    for name, op in (("tiled_gemm_valid", "HMMA"), ("tiled_gemm", "HGMMA")):
+        sass = subprocess.run([tool, "--dump-sass", str(build._target(name))], check=True,
+                              capture_output=True, text=True, timeout=120).stdout
+        found[name] = (op, sum(f" {op}." in line for line in sass.splitlines()))
+        if not found[name][1]:
+            raise AssertionError(f"no {op} instruction in the SASS of {name}")
+    return ", ".join(f"{name}: {n} {op}" for name, (op, n) in found.items())
 
 
 def phase_dense_parity(torch):
@@ -962,6 +1024,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
+    log("build", f"SASS tensor-core instructions: {sass_check(torch)}")
 
     cfg = get_config("gpt2-l")
     plan = build_plan(cfg, (3, 2, 2, 1))

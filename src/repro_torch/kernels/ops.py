@@ -46,9 +46,17 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def path_counts() -> Dict[str, Dict[str, int]]:
+    """Launches per internal path of the kernels that have two (the GEMMs:
+    tensor cores or CUDA cores), since the last :func:`reset_launch_counts`."""
+    return {name: dict(fn.paths) for name, fn in KERNELS.items() if hasattr(fn, "paths")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "paths"):
+            fn.paths = dict.fromkeys(fn.paths, 0)
 
 
 def _check_backend(backend: str) -> None:

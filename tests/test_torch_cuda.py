@@ -82,6 +82,16 @@ GEMM_CASES = [
     (228, 100, 70, 40, 33, 65, 57, 50),
     (130, 70, 33, 0, 70, 33, 65, 70),
     (16, 16, 16, 16, 16, 0, 16, 16),
+    # split-K: odd valid_n and valid_k, so a 16-byte chunk straddles each
+    # edge and valid_k ends inside a slice
+    (57, 1536, 1280, 56, 317, 1061, 57, 512),
+    # the served decode: one-row segments (4 slots, then many), packed
+    (4, 1536, 1280, 1, 320, 1280, 1, 512),
+    (4, 1280, 1920, 1, 1280, 1280, 1, 1280),
+    (33, 1280, 1920, 1, 1237, 1237, 1, 1280),
+    (192, 200, 77, 1, 37, 37, 1, 100),
+    # segments of 30 rows packed two to a tile, odd row strides
+    (90, 40, 301, 7, 33, 257, 30, 40),
 ]
 
 
@@ -143,6 +153,51 @@ def test_fused_connective_kernel_matches_plain(cuda, s, d, rate, dtype):
     torch.cuda.synchronize()
     plain = fused_connective_plain(x, res, keep, scale, bias, rate=rate)
     torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+
+
+# (m, n, k, valid_m, valid_n, valid_k, seg_m, seg_n): split over several
+# slices, one slice, packed decode
+SPLIT_CASES = [GEMM_CASES[0], GEMM_CASES[8], GEMM_CASES[9], GEMM_CASES[11]]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_valid_gemm_is_bitwise_repeatable_and_counts_its_path(cuda, case, dtype):
+    """The split-K slices meet in a fixed order: the same call gives the
+    same bits; fp16 takes the tensor-core path, fp32 the CUDA cores."""
+    m, n, k, vm, vn, vk, seg_m, seg_n = case
+    x, w, _, _ = _garbage_gemm(*case, dtype, cuda, seed=7)
+    kw = dict(valid_m=vm, valid_n=vn, valid_k=vk, seg_m=seg_m, seg_n=seg_n)
+    path = "mma" if dtype == torch.float16 else "fma"
+    before = dict(tiled_gemm_valid.paths)
+    a = tiled_gemm_valid(x, w, **kw)
+    b = tiled_gemm_valid(x, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert tiled_gemm_valid.paths[path] == before[path] + 2
+    assert sum(tiled_gemm_valid.paths.values()) == sum(before.values()) + 2
+
+
+def test_valid_gemm_back_to_back_shapes_share_the_workspace(cuda):
+    """Launches of different shapes queued without a sync reuse the
+    workspace and the arrival counters; every result is right and every
+    counter is back at 0."""
+    from repro_torch.kernels import tiled_gemm as tg
+
+    runs = []
+    for i, case in enumerate(SPLIT_CASES * 2 + GEMM_CASES[:4]):
+        dtype = DTYPES[i % 2]
+        x, w, _, _ = _garbage_gemm(*case, dtype, cuda, seed=100 + i)
+        m, n, k, vm, vn, vk, seg_m, seg_n = case
+        kw = dict(valid_m=vm, valid_n=vn, valid_k=vk, seg_m=seg_m, seg_n=seg_n)
+        runs.append((x, w, kw, tiled_gemm_valid(x, w, **kw)))
+    torch.cuda.synchronize()
+    for x, w, kw, out in runs:
+        torch.testing.assert_close(out.float(), tiled_gemm_valid_plain(x, w, **kw).float(),
+                                   **TOL[x.dtype])
+        assert torch.equal(out, tiled_gemm_valid(x, w, **kw))
+    _, counters = tg._workspaces[torch.cuda.current_device()]
+    assert not counters.any()
 
 
 def test_ops_kernel_backend_matches_eager(cuda):
@@ -270,6 +325,48 @@ def test_dense_gemm_kernel_matches_plain(cuda, m, k, n, dtype):
     wt = w.t().contiguous().t()
     torch.testing.assert_close(tiled_gemm(x, wt, **blocks).float(), out.float(),
                                **TOL[dtype])
+
+
+# (m, k, n): aligned rows, so bf16/fp16 take the wgmma path, with ragged M,
+# N and K edges (TMA zero-fills past them), and a tall-K case
+WGMMA_CASES = [(200, 264, 136), (1, 8, 8), (130, 520, 1000), (384, 4096, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("m,k,n", WGMMA_CASES + [(201, 333, 157)])
+def test_dense_gemm_takes_the_path_its_operands_allow(cuda, m, k, n, dtype):
+    """bf16/fp16 with 16-byte rows on the tensor cores (wgmma), fp32 and
+    the odd 201 x 333 x 157 shape on the CUDA cores; each counted."""
+    g = torch.Generator(device=cuda).manual_seed(m * k + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).to(dtype)
+    path = ("wgmma" if dtype != torch.float32 and (m, k, n) != (201, 333, 157)
+            else "simt")
+    before = dict(tiled_gemm.paths)
+    out = tiled_gemm(x, w, block_m=m, block_n=n, block_k=k)  # blocks: whole axes
+    torch.cuda.synchronize()
+    assert tiled_gemm.paths[path] == before[path] + 1
+    assert sum(tiled_gemm.paths.values()) == sum(before.values()) + 1
+    ref = tiled_gemm_plain(x, w).float()
+    # both sides sum in fp32; bf16/fp16 outputs may round one unit apart
+    ulp = {torch.float32: 1e-5, torch.float16: 2.0 ** -10, torch.bfloat16: 2.0 ** -7}[dtype]
+    lim = TOL[dtype]["atol"] + ulp * ref.abs()
+    assert bool(((out.float() - ref).abs() <= lim).all())
+
+
+def test_dense_gemm_wgmma_at_the_served_width(cuda):
+    """StableLM-12B's MLP up-projection on a 512-row chunk, bf16: the
+    wgmma path, within one bf16 unit of the fp32 product."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    m, k, n = 512, 5120, 13824
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    before = tiled_gemm.paths["wgmma"]
+    out = ops.tiled_gemm(x, w)
+    torch.cuda.synchronize()
+    assert tiled_gemm.paths["wgmma"] == before + 1
+    ref = tiled_gemm_plain(x, w).float()
+    assert bool(((out.float() - ref).abs() <= 1e-2 + 2.0 ** -7 * ref.abs()).all())
 
 
 def test_dense_gemm_kernel_refuses_what_it_does_not_take(cuda):

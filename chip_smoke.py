@@ -10,17 +10,19 @@ failure:
 1. card    — CUDA present; the card's name and power limit; TF32 off.
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
              ptxas's registers and spills; the tensor-core instructions
-             ``cuobjdump --dump-sass`` finds in the GEMMs (HMMA in
-             tiled_gemm_valid, HGMMA in tiled_gemm; none fails).
+             ``cuobjdump --dump-sass`` finds (HMMA in tiled_gemm_valid and
+             in both attention kernels, HGMMA in tiled_gemm; none fails).
 3. kernels — each hand-written kernel against its plain PyTorch version at
-             the GPT2-L main-path shapes, float32 and float16, with garbage
-             in every pad region (pad outputs must be exact zeros) and the
-             GEMM's live-tile counter against ``dense_block_count``; the
-             GEMM at the ring tiles and at the served decode (one-row
-             segments, 4 slots), its split plan printed, its output equal
-             bit for bit on a second call, fp16 on the tensor-core path
-             ("mma") and fp32 on the CUDA cores ("fma"); times the kernel,
-             the plain version and one PyTorch library call.
+             the GPT2-L main-path shapes, float32, float16 and bfloat16,
+             with garbage in every pad region (pad outputs must be exact
+             zeros) and the GEMM's live-tile counter against
+             ``dense_block_count``; the GEMM at the ring tiles and at the
+             served decode (one-row segments, 4 slots), its split plan
+             printed; the GEMM's and the ragged attention's output equal bit
+             for bit on a second call, fp16/bf16 on the tensor-core path
+             ("mma") and fp32 on the CUDA cores ("fma" / "simt"); times the
+             kernel (fp16, the served dtype), the plain version and one
+             PyTorch library call.
 4. parity  — two GPT2-L-width layers in float32 through the executor:
              kernel vs eager backend logits after the prefill of 4
              prompts and after each of 8 decode steps of the 4-slot
@@ -29,12 +31,17 @@ failure:
              and depth in float16 on the planner's uneven 3:2:2:1 plan, 8
              requests of 37-300 prompt tokens, 16 new tokens each,
              ``max_batch=4``; each of its three kernels must have launched,
-             every GEMM on the tensor-core path, and the first served
-             token of a request must match the eager backend.
+             every GEMM and every attention on the tensor-core path, and
+             the first served token of a request must match the eager
+             backend.  Then a short bf16 serve of the same plan on the
+             kernel backend (4 requests, 4 new tokens): every GEMM and
+             attention on the tensor cores, the first served token checked
+             the same way at bf16's tolerance.
 6. zoo kernels — the dense flash attention and the RG-LRU scan against
              their plain versions at RecurrentGemma-9B's served prefill
              shapes: attention (2, 16, 2100, 256) on one KV head, causal,
-             window 2048, float32 and bfloat16; scan (2, 2100, 4096)
+             window 2048, float32, bfloat16 and float16 (the 16-bit types
+             on the "mma" path, fp32 on "simt"); scan (2, 2100, 4096)
              float32 with a nonzero h0.  Timed beside their plain versions,
              SDPA with the window mask (attention; the scan has no one
              PyTorch call) and their bounds.
@@ -48,8 +55,9 @@ failure:
              requests of 300 and 2 of 2100 prompt tokens, 16 new tokens
              each, ``max_batch=4``: two waves, so exactly 24 flash and 52
              scan launches (12 attention and 26 recurrent layers per
-             prefill; decode launches neither); the first served tokens of
-             the 300-token wave must match the eager backend.
+             prefill; decode launches neither), every flash launch on the
+             "mma" path; the first served tokens of the 300-token wave must
+             match the eager backend.
 9. dense kernels — the dense ``tiled_gemm`` against its plain version at
              the reference's test shapes (128x256x128, 256x512x384,
              512x128x256) and one odd shape in float32, bfloat16 and
@@ -61,8 +69,9 @@ failure:
              its plain version, ``torch.matmul`` and its bound.
              The flash kernel at StableLM-12B's prefill chunk: 256
              queries at offset 1024 (Sq < Sk), 32 heads on 8 KV heads of
-             dim 160, strided views of the gathered page view, fp32 and
-             bf16, timed beside its plain version, SDPA and its bound.
+             dim 160, strided views of the gathered page view, fp32, bf16
+             and fp16, timed (bf16) beside its plain version, SDPA and its
+             bound.
 10. dense parity — StableLM-12B at full width cut to 4 layers in float32,
              backend kernel and eager: the paged protocol's one-shot
              ``prefill_paged``, ``prefill_chunk`` in chunks of 64 at page-
@@ -78,8 +87,8 @@ failure:
              prefill chunks of 256: every request finishes, the prefix
              cache hits, computed + cached prompt tokens equal the prompt
              total, ``pool.check()`` passes, and the flash kernel launched
-             exactly 40 times per prefill call (one-shot or chunk); no
-             other kernel launched.  The first served token of a prefix-hit
+             exactly 40 times per prefill call (one-shot or chunk), each on
+             the "mma" path; no other kernel launched.  The first served token of a prefix-hit
              request must match a dense eager prefill of its prompt.
 
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -139,35 +148,6 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 30) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs after warm-up.
-
-    The runs are queued behind a device-side sleep, so the host has
-    enqueued them all before the first starts: the events then time the
-    device's work back to back, not the host's launch overhead."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(nbytes: float, flops: float, dtype: str):
     """Least time (ms) the card could take, and what sets it."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
@@ -200,11 +180,39 @@ class Record:
         self.d["bound_by"] = "bytes" if self._t_bytes >= self._t_ops else "operations"
 
 
-def check_close(name, out, ref, dtype, what):
-    err = (out.float() - ref.float()).abs().max().item() if out.numel() else 0.0
-    if not err <= ATOL[dtype]:
-        raise AssertionError(f"{name} {what} {dtype}: max abs err {err} > {ATOL[dtype]}")
+def check_close(name, out, ref, dtype, what, ulp=False):
+    """Max abs error of ``out`` against ``ref``: within ATOL, or with
+    ``ulp`` within ATOL plus one unit in the last place of each ``ref``
+    value (for outputs that both sides round from one fp32 result)."""
+    diff = (out.float() - ref.float()).abs()
+    lim = ATOL[dtype] + (ULP[dtype] * ref.float().abs() if ulp else 0.0)
+    err = diff.max().item() if out.numel() else 0.0
+    if not bool((diff <= lim).all()):
+        raise AssertionError(f"{name} {what} {dtype}: max abs err {err} beyond {ATOL[dtype]}"
+                             + (f" + {ULP[dtype]} |ref|" if ulp else ""))
     return err
+
+
+def check_path(fn, before, path, n, what):
+    """The kernel wrapper ``fn`` took ``path`` for its last ``n`` launches
+    (``before``: its ``paths`` counts until then)."""
+    if (fn.paths[path] != before[path] + n
+            or sum(fn.paths.values()) != sum(before.values()) + n):
+        raise AssertionError(f"{what}: not the {path} path: {before} -> {fn.paths}")
+
+
+def check_flash_paths(ops, counts, what):
+    """Every flash_attention launch of a serve took the tensor cores."""
+    paths = ops.path_counts()["flash_attention"]
+    if paths != {"mma": counts["flash_attention"], "simt": 0}:
+        raise AssertionError(f"{what}: flash_attention off the tensor-core path: {paths}")
+    log("serve", f"flash_attention paths: {paths} (every launch on the tensor cores)")
+
+
+def expected_attention_path(dtype: str) -> str:
+    """The attention kernels' path for a dtype (fp32 stays on the CUDA
+    cores)."""
+    return "simt" if dtype == "float32" else "mma"
 
 
 def phase_kernels(rec, plan, torch):
@@ -216,6 +224,7 @@ def phase_kernels(rec, plan, torch):
     from repro_torch.kernels.tiled_gemm import (
         _sm_count, dense_block_count, plan_valid_gemm, tiled_gemm_valid,
         tiled_gemm_valid_plain)
+    from repro_torch.launch.kernel_timing import time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -244,7 +253,7 @@ def phase_kernels(rec, plan, torch):
             f"{p.m_tiles * p.n_tiles} ({p.pack} segment(s) a tile) x {p.splits} K slices of "
             f"{p.steps_per_split} steps = {p.live_tiles * p.splits} live blocks on {sms} SMs")
     junk = 1e3
-    for dtype in ("float32", "float16"):
+    for dtype in ("float32", "float16", "bfloat16"):
         tdt = getattr(torch, dtype)
         esize = torch.finfo(tdt).bits // 8
         for key, (m, n, k, vm, vn, vk, seg_m, seg_n) in gemms.items():
@@ -256,7 +265,7 @@ def phase_kernels(rec, plan, torch):
             x = torch.where(rows[:, None] & kk[None, :], x, junk).to(tdt)
             w = torch.where(kk[:, None] & cols[None, :], w, -junk).to(tdt)
             kw = dict(valid_m=vm, valid_n=vn, valid_k=vk, seg_m=seg_m, seg_n=seg_n)
-            path = "mma" if dtype == "float16" else "fma"
+            path = "fma" if dtype == "float32" else "mma"
             before = dict(tiled_gemm_valid.paths)
             out, cnt = tiled_gemm_valid(x, w, count_blocks=True, **kw)
             again = tiled_gemm_valid(x, w, **kw)
@@ -314,14 +323,20 @@ def phase_kernels(rec, plan, torch):
         qkv[:, :, vh:ph] = -junk
         qkv = qkv.to(tdt)
         q, k, v = (t.transpose(1, 2) for t in qkv.split(ph, dim=2))
+        apath = expected_attention_path(dtype)
+        before = dict(ragged_flash_attention.paths)
         out = ragged_flash_attention(q, k, v, positions=pos, valid_heads=vh)
+        again = ragged_flash_attention(q, k, v, positions=pos, valid_heads=vh)
         plain = ragged_flash_attention_plain(q, k, v, positions=pos, valid_heads=vh)
         torch.cuda.synchronize()
         err = check_close("ragged_flash_attention", out, plain, dtype, "shard")
         if out[:, :, pad].any() or out[:, vh:].any():
             raise AssertionError(f"ragged_flash_attention {dtype}: pad rows/heads not zero")
+        if not torch.equal(out, again):
+            raise AssertionError(f"ragged_flash_attention {dtype}: two calls differ")
+        check_path(ragged_flash_attention, before, apath, 2, f"ragged_flash_attention {dtype}")
         log("kernels", f"ragged_flash_attention {dtype} (1,{ph},{s},{hd}) "
-            f"valid_heads={vh} err={err:.3g}")
+            f"valid_heads={vh} err={err:.3g} path={apath}, bitwise equal on repeat")
         if dtype == "float16":
             rec["ragged_flash_attention"].err(err)
             mask = torch.as_tensor(lay.attention_mask(), device=dev)
@@ -341,7 +356,10 @@ def phase_kernels(rec, plan, torch):
             log("kernels", f"ragged_flash_attention fp16: {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
-        # connective on a 57-row tile, rate 0 (the path) and 0.1 (dropout)
+        # connective on a 57-row tile, rate 0 (the path) and 0.1 (dropout);
+        # kernel and plain version round one fp32 result, and at outputs of
+        # 2-4 one bf16 unit (0.0156) exceeds ATOL: bf16 is held to ATOL plus
+        # one unit of its output
         for rate in (0.0, 0.1):
             x, res = (torch.randn(pt, d_model, generator=g, device=dev).to(tdt)
                       for _ in range(2))
@@ -351,7 +369,8 @@ def phase_kernels(rec, plan, torch):
             out = fused_connective(x, res, keep, scale, bias, rate=rate)
             plain = fused_connective_plain(x, res, keep, scale, bias, rate=rate)
             torch.cuda.synchronize()
-            err = check_close("fused_connective", out, plain, dtype, f"rate={rate}")
+            err = check_close("fused_connective", out, plain, dtype, f"rate={rate}",
+                              ulp=dtype == "bfloat16")
             log("kernels", f"fused_connective {dtype} ({pt},{d_model}) rate={rate} err={err:.3g}")
             if dtype == "float16" and rate == 0.0:
                 rec["fused_connective"].err(err)
@@ -417,21 +436,21 @@ def phase_parity(cfg, plan, torch):
         f"tokens equal: {tokens}")
 
 
-def phase_serve(torch, rec):
+def phase_serve(torch, rec, dtype="float16", n_req=8, max_new=16):
+    """The Galaxy serve on the kernel backend; ``rec`` (the served fp16
+    run's record) takes its launch counts, or None for another dtype's."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launch_serve
 
-    dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    n_req, max_new = 8, 16
     ops.reset_launch_counts()
     out = launch_serve.serve("gpt2-l", (3, 2, 2, 1), requests=n_req,
                              prompt_len=(37, 300), max_new=max_new, max_batch=4,
-                             device="cuda", dtype="float16", seed=0)
+                             device="cuda", dtype=dtype, seed=0)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     reqs = out["requests"]
-    log("serve", out["plan"])
+    log("serve", f"{out['plan']} ({dtype})")
     if len(reqs) != n_req or any(len(r.output) != max_new for r in reqs):
         raise AssertionError(f"unfinished requests: {[len(r.output) for r in reqs]}")
     steps = out["stats"]["decode_steps"]
@@ -442,16 +461,21 @@ def phase_serve(torch, rec):
         n = counts[name]
         if n <= 0:
             raise AssertionError(f"{name} never launched on the Galaxy path")
-        rec[name].d["launches"] = n
+        if rec is not None:
+            rec[name].d["launches"] = n
         note = "as expected" if n == expect[name] else f"expected {expect[name]}"
         log("serve", f"{name}: {n} launches ({note})")
     for name in ZOO_KERNELS + ("tiled_gemm",):
         if counts[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the Galaxy path")
-    paths = ops.path_counts()["tiled_gemm_valid"]
-    if paths != {"mma": counts["tiled_gemm_valid"], "fma": 0}:
-        raise AssertionError(f"served GEMMs off the tensor-core path: {paths}")
-    log("serve", f"tiled_gemm_valid paths: {paths} (every served GEMM on the tensor cores)")
+    paths = ops.path_counts()
+    want = {"tiled_gemm_valid": {"mma": counts["tiled_gemm_valid"], "fma": 0},
+            "ragged_flash_attention": {"mma": counts["ragged_flash_attention"], "simt": 0}}
+    for name, p in want.items():
+        if paths[name] != p:
+            raise AssertionError(f"served {name} off the tensor-core path: {paths[name]}")
+    log("serve", f"paths: {', '.join(f'{n} {paths[n]}' for n in want)} (every served GEMM "
+        "and attention on the tensor cores)")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
         f"{out['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * out['ttft_p50_s']:.1f} ms, "
@@ -460,11 +484,12 @@ def phase_serve(torch, rec):
     return out
 
 
-def check_served_token(out, torch):
+def check_served_token(out, torch, dtype="float16"):
     """Request 0's prefill logits from the kernel backend agree with the
-    eager backend on the same fp16 weights at full depth, the first served
+    eager backend on the same weights at full depth, the first served
     token is the kernel backend's argmax, and it is the eager backend's
-    argmax up to the fp16 disagreement (a near-tie may flip the order)."""
+    argmax up to the working dtype's disagreement (a near-tie may flip the
+    order)."""
     import numpy as np
 
     kern = out["executor"]
@@ -481,8 +506,9 @@ def check_served_token(out, torch):
         logits[name], _ = ex.prefill_paged(toks, pool, list(range(1, 1 + s_pad // 16)),
                                            length=s)
     # fp16 through 36 layers: the eager path rounds attention scores and
-    # probabilities to fp16 where the kernel keeps them in fp32
-    tol = 5e-2
+    # probabilities to fp16 where the kernel keeps them in fp32; bf16 keeps
+    # 3 fewer mantissa bits, so its roundings are 8 times as large
+    tol = {"float16": 5e-2, "bfloat16": 8 * 5e-2}[dtype]
     kl, el = logits["kernel"].float()[0], logits["eager"].float()[0]
     err = (kl - el).abs().max().item()
     first = int(kl.argmax())
@@ -491,35 +517,33 @@ def check_served_token(out, torch):
         raise AssertionError(f"served token check: err {err}, served {req.output[0]}, "
                              f"kernel argmax {first}, eager argmax {int(el.argmax())} "
                              f"(gap {gap})")
-    log("serve", f"request 0 ({s} tokens, 36 layers fp16): kernel vs eager prefill "
-        f"logits max abs err {err:.3g}; first token {first} == served")
-
-
-def window_pairs(sq: int, sk: int, window: int) -> int:
-    """Visible (query, key) pairs of causal window attention, queries
-    right-aligned to the keys."""
-    return sum(min(p + 1, window) if window else p + 1 for p in range(sk - sq, sk))
+    log("serve", f"request 0 ({s} tokens, 36 layers {dtype}): kernel vs eager prefill "
+        f"logits max abs err {err:.3g} (tolerance {tol}); first token {first} == served")
 
 
 def phase_zoo_kernels(rec, torch):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    from repro_torch.launch.kernel_timing import time_ms, window_pairs
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     b, h, hkv, s, hd, window = 2, 16, 1, 2100, 256, 2048
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "float16"):
         tdt = getattr(torch, dtype)
         # transposed views of the zoo's (B, S, H, hd) projections
         q = torch.randn(b, s, h, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
         k, v = (torch.randn(b, s, hkv, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
                 for _ in range(2))
+        before = dict(flash_attention.paths)
         out = flash_attention(q, k, v, causal=True, window=window)
         plain = flash_attention_plain(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         err = check_close("flash_attention", out, plain, dtype, "served prefill")
+        apath = expected_attention_path(dtype)
+        check_path(flash_attention, before, apath, 1, f"flash_attention {dtype}")
         log("kernels", f"flash_attention {dtype} q ({b},{h},{s},{hd}) kv ({b},{hkv},{s},{hd}) "
-            f"causal window={window} err={err:.3g}")
+            f"causal window={window} err={err:.3g} path={apath}")
         if dtype != "bfloat16":
             continue
         rec["flash_attention"].err(err)
@@ -636,6 +660,7 @@ def phase_zoo_serve(torch, rec):
         log("serve", f"{name}: {counts[name]} launches (expected {expect[name]})")
     if counts != expect:
         raise AssertionError(f"zoo launch counts {counts} != {expect}")
+    check_flash_paths(ops, counts, "zoo serve")
     steps = out["stats"]["decode_steps"]
     log("serve", f"{len(reqs)} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
@@ -679,6 +704,7 @@ def phase_dense_kernels(rec, torch):
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.tiled_gemm import tiled_gemm, tiled_gemm_plain
+    from repro_torch.launch.kernel_timing import time_ms, window_pairs
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
@@ -747,18 +773,21 @@ def phase_dense_kernels(rec, torch):
     # offset 1024 over a gathered view of 97 pages of 16
     b, h, hkv, sq, hd, off, view = 1, 32, 8, 256, 160, 1024, 97 * 16
     sk = off + sq
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "float16"):
         tdt = getattr(torch, dtype)
         q = torch.randn(b, sq, h, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
         kc, vc = (torch.randn(b, view, hkv, hd, generator=g, device=dev).to(tdt)
                   for _ in range(2))
         k, v = kc[:, :sk].transpose(1, 2), vc[:, :sk].transpose(1, 2)
+        before = dict(flash_attention.paths)
         out = flash_attention(q, k, v, causal=True)
         plain = flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
         err = check_close("flash_attention", out, plain, dtype, "dense chunk")
+        apath = expected_attention_path(dtype)
+        check_path(flash_attention, before, apath, 1, f"flash_attention {dtype}")
         log("kernels", f"flash_attention {dtype} q ({b},{h},{sq},{hd}) kv ({b},{hkv},{sk},{hd}) "
-            f"causal, queries at {off}.. err={err:.3g}")
+            f"causal, queries at {off}.. err={err:.3g} path={apath}")
         if dtype != "bfloat16":
             continue
         rec["flash_attention"].err(err)
@@ -777,17 +806,39 @@ def phase_dense_kernels(rec, torch):
             f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
+def spill_check(build) -> str:
+    """ptxas reports 0 bytes spilled in every tensor-core instantiation of
+    both attention kernels (bf16 and fp16 at each head-dim instance).
+    Raises if one spills or if the log lists another number of them."""
+    from repro_torch.kernels.flash_attention import DENSE_HEAD_DIMS, RAGGED_HEAD_DIMS
+
+    found = []
+    for name, dims in (("flash_attention", DENSE_HEAD_DIMS["mma"]),
+                       ("ragged_flash_attention", RAGGED_HEAD_DIMS["mma"])):
+        mma = {f: s for f, s in build.spills(build.build_log(name)).items()
+               if "mma_kernel" in f}
+        if len(mma) != 2 * len(dims):
+            raise AssertionError(f"{name}: ptxas reports {len(mma)} mma_kernel "
+                                 f"instantiations, expected {2 * len(dims)}")
+        bad = {f: s for f, s in mma.items() if s != (0, 0)}
+        if bad:
+            raise AssertionError(f"{name}: spill (stores, loads) bytes in {bad}")
+        found.append(f"{name} {len(mma)} x 0 bytes")
+    return ", ".join(found)
+
+
 def sass_check(torch) -> str:
-    """Count the tensor-core instructions ``cuobjdump --dump-sass`` finds in
-    the two GEMM libraries: HMMA (mma.sync) in tiled_gemm_valid, HGMMA
-    (wgmma) in tiled_gemm.  Raises if either has none."""
+    """Count the tensor-core instructions ``cuobjdump --dump-sass`` finds:
+    HMMA (mma.sync) in tiled_gemm_valid and in both attention kernels,
+    HGMMA (wgmma) in tiled_gemm.  Raises if any has none."""
     import shutil
 
     from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or str(Path(build.nvcc_path()).parent / "cuobjdump")
     found = {}
-    for name, op in (("tiled_gemm_valid", "HMMA"), ("tiled_gemm", "HGMMA")):
+    for name, op in (("tiled_gemm_valid", "HMMA"), ("tiled_gemm", "HGMMA"),
+                     ("flash_attention", "HMMA"), ("ragged_flash_attention", "HMMA")):
         sass = subprocess.run([tool, "--dump-sass", str(build._target(name))], check=True,
                               capture_output=True, text=True, timeout=120).stdout
         found[name] = (op, sum(f" {op}." in line for line in sass.splitlines()))
@@ -923,6 +974,7 @@ def phase_dense_serve(torch, rec):
         f"{st['prefill_chunks']} chunks)); tiled_gemm: {counts['tiled_gemm']}")
     if counts != expect:
         raise AssertionError(f"dense launch counts {counts} != {expect}")
+    check_flash_paths(ops, counts, "dense serve")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]} ({total} "
         f"tokens: {st['prefill_tokens']} computed, {st['cached_prefix_tokens']} cached in "
         f"{st['prefix_hits']} hits, peak {st['peak_shared_pages']} shared pages), "
@@ -941,6 +993,7 @@ def measure_decode_gather(out, torch):
     the step's device time (profiler) and its wall time (host clock)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.kernel_timing import time_ms
     from repro_torch.serving.kvcache import cache_bytes
 
     ex, pool = out["executor"], out["pool"]
@@ -1004,6 +1057,8 @@ def main() -> int:
         print(f"chip_smoke: no repro_torch package under {SRC}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.launch.kernel_timing import card_line
+
     t_start = time.perf_counter()
 
     card = card_line()
@@ -1024,6 +1079,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
+    log("build", f"ptxas spills in the attention kernels' mma_kernels: {spill_check(build)}")
     log("build", f"SASS tensor-core instructions: {sass_check(torch)}")
 
     cfg = get_config("gpt2-l")
@@ -1038,6 +1094,10 @@ def main() -> int:
     phase_parity(cfg, plan, torch)
     out = phase_serve(torch, rec)
     check_served_token(out, torch)
+    del out
+    torch.cuda.empty_cache()
+    out = phase_serve(torch, None, dtype="bfloat16", n_req=4, max_new=4)
+    check_served_token(out, torch, dtype="bfloat16")
     del out
     torch.cuda.empty_cache()
 

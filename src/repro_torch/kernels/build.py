@@ -8,8 +8,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a``, then loaded with ``ctypes``.
 All sources missing a build are compiled together, one ``nvcc`` process
 each, so the build costs as long as the slowest file.  Libraries are named
-by a digest of their source and flags, so an edited source is rebuilt and
-a stale library is never loaded.  The build directory is
+by a digest of their source, of every ``csrc/`` header it includes
+(``#include "<name>.cuh"``, followed through the headers' own includes),
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  The build directory is
 ``kernels/_build/`` (listed in ``.gitignore``); ``ptxas``'s register and
 shared-memory report for each source is kept there as ``<name>.log``.
 """
@@ -19,13 +21,14 @@ import ctypes
 import hashlib
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -50,11 +53,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header, in the order first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes()))
+    return seen
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, float]:
@@ -133,6 +154,27 @@ def build_log(name: str) -> str:
     """``nvcc``/``ptxas`` output of the last build of ``name``."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+_FUNCTION = re.compile(r"Function properties for (\S+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def spills(log: str) -> Dict[str, Tuple[int, int]]:
+    """Bytes of spill stores and loads that ``ptxas -v`` reports in a build
+    log for each function, by its mangled name."""
+    out: Dict[str, Tuple[int, int]] = {}
+    function = None
+    for line in log.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            function = m.group(1)
+            continue
+        m = _SPILLS.search(line)
+        if m and function is not None:
+            out[function] = (int(m.group(1)), int(m.group(2)))
+            function = None
+    return out
 
 
 def check(err: int, what: str) -> None:

@@ -33,7 +33,7 @@
 //   segments, so each weight tile is read once per call, not once per
 //   slot.  Prefill tiles (seg_m = 57) keep one segment per tile.  A row is
 //   real iff (row % seg_m) < valid_m.
-// - fp16 on the tensor cores: mma.sync.m16n8k16 (fp32 accumulate) fed by
+// - fp16 and bf16 on the tensor cores: mma.sync.m16n8k16 (fp32 accumulate) fed by
 //   ldmatrix (.trans for the row-major K x N weight tile) from a 4-stage
 //   ring of 16-byte cp.async copies, so three K steps of loads stay in
 //   flight behind the one being multiplied.  fp32 (the parity dtype) keeps
@@ -57,7 +57,7 @@
 // and the arrival, and ~5-6 us in the last block's reduction and
 // epilogue, which wait on L2 round trips.
 //
-// Layout: 64 x 64 output tiles, K step 32, 128 threads.  fp16: 4 warps in
+// Layout: 64 x 64 output tiles, K step 32, 128 threads.  fp16/bf16: 4 warps in
 // 2 x 2, each a 32 x 32 sub-tile of 2 x 4 m16n8 fragments.  fp32: each
 // thread owns rows ty + 8 i and columns tx + 16 j (8 x 4 outputs).  Either
 // way a thread holds 32 fp32 accumulators, which is also the layout of its
@@ -65,6 +65,7 @@
 // thread 0 of each live block adds its slice's K steps once per live
 // segment of its tile to a device counter, so the total is the live
 // (m, n, k) tile count at 64 x 64 x 32, as the TPU kernel counts.
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,10 +94,10 @@ struct Params {
 
 template <typename T> struct Raw;
 template <> struct Raw<__half> { using type = uint16_t; };
+template <> struct Raw<__nv_bfloat16> { using type = uint16_t; };
 template <> struct Raw<float> { using type = uint32_t; };
 
-template <typename T> struct Cfg;
-template <> struct Cfg<__half> {
+template <typename T> struct Cfg {  // the 16-bit types
   static constexpr int STAGES = 4, APITCH = BK + 8, BPITCH = BN + 8;
 };
 template <> struct Cfg<float> {
@@ -107,6 +108,9 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __half from_float<__half>(float v) {
   return __float2half_rn(v);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -153,23 +157,35 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
+template <typename T>
 __device__ __forceinline__ void mma16816(float* c, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+                                         uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__half>(float* c, const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float* c, const uint32_t (&a)[4],
+                                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-// the tile row and column of accumulator e of thread tid
-template <typename T> __device__ __forceinline__ int acc_row(int e, int tid);
-template <typename T> __device__ __forceinline__ int acc_col(int e, int tid);
-template <> __device__ __forceinline__ int acc_row<__half>(int e, int tid) {
+// the tile row and column of accumulator e of thread tid (the 16-bit
+// types' mma fragments; fp32 below)
+template <typename T> __device__ __forceinline__ int acc_row(int e, int tid) {
   const int warp = tid / 32, lane = tid % 32;
   return (warp / 2) * 32 + (e / 16) * 16 + lane / 4 + ((e % 4) >= 2 ? 8 : 0);
 }
-template <> __device__ __forceinline__ int acc_col<__half>(int e, int tid) {
+template <typename T> __device__ __forceinline__ int acc_col(int e, int tid) {
   const int warp = tid / 32, lane = tid % 32;
   return (warp % 2) * 32 + ((e / 4) % 4) * 8 + (lane % 4) * 2 + (e % 2);
 }
@@ -180,13 +196,12 @@ template <> __device__ __forceinline__ int acc_col<float>(int e, int tid) {
   return tid % 16 + 16 * (e % 4);
 }
 
-// one K step of the tile from stage buffers As / Bs
-template <typename T> struct Compute;
-
-template <> struct Compute<__half> {
-  using C = Cfg<__half>;
-  static __device__ __forceinline__ void step(const __half (*As)[C::APITCH],
-                                              const __half (*Bs)[C::BPITCH],
+// one K step of the tile from stage buffers As / Bs (the 16-bit types on
+// the tensor cores; fp32 below)
+template <typename T> struct Compute {
+  using C = Cfg<T>;
+  static __device__ __forceinline__ void step(const T (*As)[C::APITCH],
+                                              const T (*Bs)[C::BPITCH],
                                               float (&acc)[NACC], int tid) {
     const int warp = tid / 32, lane = tid % 32;
     const int wm = warp / 2, wn = warp % 2;
@@ -208,7 +223,7 @@ template <> struct Compute<__half> {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma16816(&acc[(i * 4 + j) * 4], a[i], b[j][0], b[j][1]);
+        for (int j = 0; j < 4; ++j) mma16816<T>(&acc[(i * 4 + j) * 4], a[i], b[j][0], b[j][1]);
     }
   }
 };
@@ -404,7 +419,7 @@ __global__ void __launch_bounds__(THREADS) valid_gemm_kernel(const Params p) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16.  Pointers are device pointers; strides
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  Pointers are device pointers; strides
 // are in elements (row-major, unit column stride).  valid_* are clamped to
 // their extents by the caller.  pack, m_tiles, per and splits are the
 // host plan's (plan_valid_gemm); ws holds live tiles x splits x 64 x 64
@@ -457,6 +472,8 @@ extern "C" int tiled_gemm_valid(int dtype, const void* x, const void* w, void* o
     valid_gemm_kernel<float><<<grid, THREADS, 0, s>>>(p);
   else if (dtype == 1)
     valid_gemm_kernel<__half><<<grid, THREADS, 0, s>>>(p);
+  else if (dtype == 2)
+    valid_gemm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(p);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -11,13 +11,24 @@ kernel of ``csrc/flash_attention.cu``; on a CPU tensor it runs
 :func:`ragged_flash_attention` is the prefill self-attention of the
 kernel backend: queries and keys sit in a padded ragged order
 (``positions[r]`` is the real position of padded row ``r``, -1 for a pad
-row), the static :func:`attention_block_map` prunes (q block, k block)
-pairs with no visible valid pair, and head slots ``>= valid_heads`` are
-skipped.  Pad query rows and pad heads come out exactly zero.  On a CUDA
-tensor it launches the hand-written kernel of
+row), a static map of (q tile, key block) pairs prunes the pairs with no
+visible valid pair (:func:`attention_block_map`) and marks those that
+need no mask (:func:`ragged_block_kinds`), and head slots ``>=
+valid_heads`` are skipped.  Pad query rows and pad heads come out exactly
+zero.  On a CUDA tensor it launches the hand-written kernel of
 ``csrc/ragged_flash_attention.cu``; on a CPU tensor it runs
 :func:`ragged_flash_attention_plain`.  It replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py:ragged_flash_attention``.
+
+Both kernels have two paths, chosen by :func:`attention_path` from the
+dtype before the launch and counted in ``.paths``: ``"mma"`` (bf16 and
+fp16 on the tensor cores, ``csrc/flash_mma.cuh``) and ``"simt"`` (fp32,
+the parity dtype, on the CUDA cores).  The head-dim instantiation
+(:func:`head_dim_instance`), the tiles (:func:`attention_tiles`) and the
+grid (:func:`attention_grid`) are worked out here too, in pure Python, and
+passed to the kernels, which refuse a launch whose instantiation, key-block
+size or grid differs from what they build.  :func:`dense_key_blocks` is
+the dense kernel's per-tile key range, written out for the tests.
 """
 from __future__ import annotations
 
@@ -32,28 +43,89 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-#: the CUDA kernel's query rows per block and keys per k block
-BLOCK_Q, BLOCK_K = 64, 64
+#: the C interfaces' dtype codes
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: head-dim instantiations of each kernel and path (a head dim runs the
+#: smallest one that holds it, zero-padded)
+DENSE_HEAD_DIMS = {"mma": (64, 128, 160, 256), "simt": (64, 128, 256)}
+RAGGED_HEAD_DIMS = {"mma": (32, 64, 128), "simt": (32, 64, 128)}
+#: (query rows, keys) a block of each path: the dense mma kernel's 4 warps
+#: of 16 rows, 32-key blocks at instantiation 256; the ragged mma kernel's
+#: 2 warps of 16 rows
+DENSE_TILES = {"mma": (64, 64), "simt": (64, 64)}
+RAGGED_TILES = {"mma": (32, 64), "simt": (64, 64)}
 
-_DTYPES = {torch.float32: 0, torch.float16: 1}
-_SIGNATURES = {
-    "ragged_flash_attention": (ctypes.c_int, [
-        ctypes.c_int, *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6,
-        *[ctypes.c_longlong] * 12, ctypes.c_void_p,
-    ]),
-}
-
-
-#: dtypes of the dense kernel (its C interface's dtype codes)
-_DENSE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the dense kernel's largest head dim
-DENSE_HD_MAX = 256
 _DENSE_SIGNATURES = {
     "flash_attention": (ctypes.c_int, [
-        ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8,
+        *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8,
         *[ctypes.c_longlong] * 12, ctypes.c_void_p,
     ]),
 }
+_RAGGED_SIGNATURES = {
+    "ragged_flash_attention": (ctypes.c_int, [
+        *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6,
+        *[ctypes.c_longlong] * 12, ctypes.c_void_p,
+    ]),
+}
+
+
+def attention_path(dtype: torch.dtype, hd: int, *, ragged: bool = False) -> str:
+    """The attention kernels' path for this dtype: ``"mma"`` (bf16, fp16:
+    the tensor cores) or ``"simt"`` (fp32: CUDA-core FMAs).  A row's
+    alignment does not change it: misaligned rows are copied element by
+    element inside either kernel.  Raises for a dtype or head dim the
+    kernel does not take."""
+    dims = RAGGED_HEAD_DIMS if ragged else DENSE_HEAD_DIMS
+    if dtype in (torch.bfloat16, torch.float16):
+        path = "mma"
+    elif dtype == torch.float32:
+        path = "simt"
+    else:
+        raise ValueError(f"{'ragged_' if ragged else ''}flash_attention kernel takes "
+                         f"float32/bfloat16/float16, got {dtype}")
+    if not 0 < hd <= dims[path][-1]:
+        raise ValueError(f"head_dim {hd} > {dims[path][-1]} is not supported")
+    return path
+
+
+def head_dim_instance(hd: int, path: str, *, ragged: bool = False) -> int:
+    """The kernel instantiation a head dim runs: the smallest that holds
+    it (the columns past ``hd`` are zeros in shared memory)."""
+    dims = (RAGGED_HEAD_DIMS if ragged else DENSE_HEAD_DIMS)[path]
+    for d in dims:
+        if hd <= d:
+            return d
+    raise ValueError(f"head_dim {hd} > {dims[-1]} is not supported")
+
+
+def attention_tiles(path: str, hdp: int, *, ragged: bool = False) -> Tuple[int, int]:
+    """(query rows, keys) of one block of scores at instantiation ``hdp``."""
+    if ragged:
+        return RAGGED_TILES[path]
+    bq, bk = DENSE_TILES[path]
+    return (bq, 32) if path == "mma" and hdp > 160 else (bq, bk)
+
+
+def attention_grid(b: int, h: int, sq: int, path: str, *,
+                   ragged: bool = False) -> Tuple[int, int, int]:
+    """The launch grid: (q tiles, head slots, batch) blocks."""
+    bq = (RAGGED_TILES if ragged else DENSE_TILES)[path][0]
+    return (-(-sq // bq), h, b)
+
+
+def dense_key_blocks(q_tile: int, sq: int, sk: int, *, causal: bool, window: int,
+                     block_q: int, block_k: int) -> range:
+    """The key blocks the dense kernel's q tile ``q_tile`` loops over:
+    those that intersect the keys visible to some row of the tile,
+    [p_lo - window + 1, p_hi] with queries right-aligned to the keys."""
+    off = sk - sq
+    p_lo = q_tile * block_q + off
+    p_hi = min(q_tile * block_q + block_q, sq) - 1 + off
+    k_lo = max(0, p_lo - window + 1) if window > 0 else 0
+    k_hi = min(sk - 1, p_hi) if causal else sk - 1
+    if k_hi < k_lo:
+        return range(0)
+    return range(k_lo // block_k, k_hi // block_k + 1)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
@@ -102,29 +174,32 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
-    if q.dtype not in _DENSE_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes float32/bfloat16/float16, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd > DENSE_HD_MAX:
-        raise ValueError(f"head_dim {hd} > {DENSE_HD_MAX} is not supported")
+    path = attention_path(q.dtype, hd)
+    hdp = head_dim_instance(hd, path)
+    grid = attention_grid(b, h, sq, path)
+    bk = attention_tiles(path, hdp)[1]
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load("flash_attention", _DENSE_SIGNATURES)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
     err = lib.flash_attention(
-        _DENSE_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPES[q.dtype], hdp, grid[0], bk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, h, hkv, sq, sk, hd, int(bool(causal)), int(window),
         *strides, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.paths[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.paths = {"mma": 0, "simt": 0}
 
 
-def attention_block_map(positions, block_q: int = BLOCK_Q,
-                        block_k: int = BLOCK_K) -> np.ndarray:
+def attention_block_map(positions, block_q: int, block_k: int) -> np.ndarray:
     """Static (ceil(S/block_q), ceil(S/block_k)) skip map of a ragged
     causal attention.
 
@@ -147,13 +222,35 @@ def attention_block_map(positions, block_q: int = BLOCK_Q,
     return live.astype(np.int32)
 
 
+def ragged_block_kinds(positions, block_q: int, block_k: int) -> np.ndarray:
+    """:func:`attention_block_map` with its live pairs split in two: 0 dead,
+    1 live and cut (some (query, key) pair of the block is a pad row, past
+    the end, or causally hidden: the kernel masks it), 2 live and whole
+    (every query and key valid, every key visible to every query: no
+    mask)."""
+    pos = np.asarray(positions, int)
+    (s,) = pos.shape
+    nq, nk = -(-s // block_q), -(-s // block_k)
+    qpad = np.full(nq * block_q, -1)
+    qpad[:s] = pos
+    kpad = np.full(nk * block_k, -1)
+    kpad[:s] = pos
+    qb, kb = qpad.reshape(nq, block_q), kpad.reshape(nk, block_k)
+    whole = ((qb.min(1)[:, None] >= 0) & (kb.min(1)[None, :] >= 0)
+             & (kb.max(1)[None, :] <= qb.min(1)[:, None]))
+    live = attention_block_map(pos, block_q, block_k)
+    return np.where(live > 0, np.where(whole, 2, 1), 0).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=64)
-def _device_layout(pos_bytes: bytes, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Positions and live map of one layout, uploaded once and cached."""
+def _device_layout(pos_bytes: bytes, device: str, block_q: int,
+                   block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Positions and block map of one layout at one tile shape, uploaded
+    once and cached."""
     pos = np.frombuffer(pos_bytes, dtype=np.int64)
-    bm = attention_block_map(pos)
+    kinds = ragged_block_kinds(pos, block_q, block_k)
     return (torch.as_tensor(pos.astype(np.int32), device=device),
-            torch.as_tensor(bm, device=device))
+            torch.as_tensor(kinds, device=device))
 
 
 def ragged_flash_attention_plain(q, k, v, *, positions, valid_heads=None):
@@ -200,26 +297,29 @@ def ragged_flash_attention(q, k, v, *, positions, valid_heads=None):
                                             valid_heads=valid_heads)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_flash_attention kernel for {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"ragged_flash_attention kernel takes float32/float16, "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"ragged_flash_attention kernel takes float32/bfloat16/float16, "
                          f"got {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd > 128:
-        raise ValueError(f"head_dim {hd} > 128 is not supported")
+    path = attention_path(q.dtype, hd, ragged=True)
+    hdp = head_dim_instance(hd, path, ragged=True)
+    bq, bk = attention_tiles(path, hdp, ragged=True)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     vh = h if valid_heads is None else max(0, min(int(valid_heads), h))
-    pos, block_map = _device_layout(
-        np.ascontiguousarray(positions, dtype=np.int64).tobytes(), str(q.device))
+    pos, kinds = _device_layout(
+        np.ascontiguousarray(positions, dtype=np.int64).tobytes(), str(q.device), bq, bk)
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lib = build.load("ragged_flash_attention", _SIGNATURES)
+    lib = build.load("ragged_flash_attention", _RAGGED_SIGNATURES)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
     err = lib.ragged_flash_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), pos.data_ptr(), block_map.data_ptr(),
+        _DTYPES[q.dtype], hdp, kinds.shape[0], kinds.shape[1], q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), pos.data_ptr(), kinds.data_ptr(),
         b, h, hkv, s, hd, vh, *strides,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "ragged_flash_attention")
     ragged_flash_attention.launches += 1
+    ragged_flash_attention.paths[path] += 1
     return out
 
 
 ragged_flash_attention.launches = 0
+ragged_flash_attention.paths = {"mma": 0, "simt": 0}

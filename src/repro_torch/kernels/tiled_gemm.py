@@ -21,8 +21,8 @@ outputs are exactly zero whatever the pad regions of the operands hold,
 and tiles wholly in the padding issue no work.  On a CUDA tensor it
 launches the hand-written kernel of ``csrc/tiled_gemm_valid.cu`` on the
 grid :func:`plan_valid_gemm` lays out (short segments packed into one
-tile, the contraction split over blocks); fp16 runs on the tensor cores
-(path ``"mma"``), fp32 on the CUDA cores (path ``"fma"``), counted in
+tile, the contraction split over blocks); fp16 and bf16 run on the tensor
+cores (path ``"mma"``), fp32 on the CUDA cores (path ``"fma"``), counted in
 ``tiled_gemm_valid.paths``.  On a CPU tensor it runs
 :func:`tiled_gemm_valid_plain`, the same function in plain PyTorch.  It
 replaces the TPU kernel ``src/repro/kernels/tiled_gemm.py:tiled_gemm_valid``.
@@ -45,8 +45,8 @@ BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
 #: more partial-sum bytes than weight bytes
 MIN_SLICE_STEPS = 2
 
-_DTYPES = {torch.float32: 0, torch.float16: 1}
-_VALID_PATHS = {torch.float32: "fma", torch.float16: "mma"}
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_VALID_PATHS = {torch.float32: "fma", torch.float16: "mma", torch.bfloat16: "mma"}
 _SIGNATURES = {
     "tiled_gemm_valid": (ctypes.c_int, [
         ctypes.c_int, *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 15, ctypes.c_void_p,
@@ -406,7 +406,7 @@ def tiled_gemm_valid(x: torch.Tensor, w: torch.Tensor, *, valid_m=None,
     if x.device.type != "cuda":
         raise ValueError(f"no tiled_gemm_valid kernel for {x.device}")
     if x.dtype not in _DTYPES:
-        raise ValueError(f"tiled_gemm_valid kernel takes float32/float16, "
+        raise ValueError(f"tiled_gemm_valid kernel takes float32/float16/bfloat16, "
                          f"got {x.dtype}")
     seg_m, seg_n, vm, vn, vk = _resolve(m, n, k, valid_m, valid_n, valid_k,
                                         seg_m, seg_n)

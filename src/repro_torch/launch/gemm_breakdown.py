@@ -26,45 +26,24 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parents[2]
+CU = "tiled_gemm_valid.cu"
+# (file, old, new) edits of each variant
 VARIANTS = {
     "full": [],
-    "empty": [("  const int z = blockIdx.x, tile_n = blockIdx.y, tile_m = blockIdx.z;\n",
+    "empty": [(CU, "  const int z = blockIdx.x, tile_n = blockIdx.y, tile_m = blockIdx.z;\n",
                "  const int z = blockIdx.x, tile_n = blockIdx.y, tile_m = blockIdx.z;\n"
                "  if (p.m > 0) return;\n")],
-    "no_reduce": [("    if (!is_last) return;\n", "    return;\n")],
-    "no_split_sums": [("  if (p.splits > 1) {\n    const int ln", "  if (false) {\n    const int ln")],
-    "no_loads": [("  const int nk = max(0, min(p.per, p.k_steps - s_begin));",
+    "no_reduce": [(CU, "    if (!is_last) return;\n", "    return;\n")],
+    "no_split_sums": [(CU, "  if (p.splits > 1) {\n    const int ln",
+                       "  if (false) {\n    const int ln")],
+    "no_loads": [(CU, "  const int nk = max(0, min(p.per, p.k_steps - s_begin));",
                   "  const int nk = 0;")],
 }
 SHAPES = ("qkv", "w2", "decode_qkv_s1")
-
-
-def build_variants(build) -> dict:
-    out_dir = build.BUILD_DIR / "breakdown"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    source = (build.CSRC / "tiled_gemm_valid.cu").read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the kernel source changed; update it")
-            text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"variant {name} failed to build:\n{log}")
-    return {name: out_dir / f"lib{name}.so" for name in VARIANTS}
 
 
 def main(argv=None) -> int:
@@ -78,14 +57,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("gemm_breakdown: needs a CUDA device", file=sys.stderr)
         return 2
-    from gemm_times import VALID_SHAPES, time_ms
+    from gemm_times import VALID_SHAPES
+    from kernel_timing import build_variants, card_line, time_ms
     from repro_torch.kernels import build
     from repro_torch.kernels import tiled_gemm as tg
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    libs = build_variants(build)
+    card = card_line()
+    libs = build_variants(build, "tiled_gemm_valid", VARIANTS,
+                          build.BUILD_DIR / "breakdown")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -112,7 +91,7 @@ def main(argv=None) -> int:
                                    out.data_ptr(), None, part.data_ptr(), arrivals.data_ptr(),
                                    m, n, k, k, n, n, seg_m, seg_n, vm, vn, vk, plan.pack,
                                    plan.m_tiles, per, splits, stream), name)
-                res[f"{key}/{split}/{name}"] = round(1e3 * time_ms(torch, run, args.iters), 2)
+                res[f"{key}/{split}/{name}"] = round(1e3 * time_ms(run, args.iters), 2)
                 arrivals.zero_()  # variants that skip the reduction leave counts behind
         del ws
     print(card)

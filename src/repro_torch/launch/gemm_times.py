@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -38,37 +37,22 @@ VALID_SHAPES = {
 DENSE_SHAPE = (512, 5120, 13824)
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # the host queues every launch first
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
 
     if not torch.cuda.is_available():
         print("gemm_times: needs a CUDA device", file=sys.stderr)
         return 2
+    from kernel_timing import card_line, time_ms
     from repro_torch.kernels.tiled_gemm import tiled_gemm, tiled_gemm_valid
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     res = {}
@@ -79,13 +63,13 @@ def main(argv=None) -> int:
         ws = [w.clone() for _ in range(copies)]
         it = iter(range(1 << 30))
         kw = dict(valid_m=vm, valid_n=vn, valid_k=vk, seg_m=seg_m, seg_n=seg_n)
-        res[key] = time_ms(torch, lambda: tiled_gemm_valid(
+        res[key] = time_ms(lambda: tiled_gemm_valid(
             x, ws[next(it) % copies], **kw), args.iters)
         del ws
     m, k, n = DENSE_SHAPE
     x = torch.randn(m, k, generator=g, device=dev).bfloat16()
     w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).bfloat16()
-    res["dense_512x5120x13824"] = time_ms(torch, lambda: tiled_gemm(x, w), 10)
+    res["dense_512x5120x13824"] = time_ms(lambda: tiled_gemm(x, w), 10)
     print(card)
     print(json.dumps({"src": args.src, "ms": res}))
     return 0

@@ -47,6 +47,8 @@ TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.float16: dict(atol=1e-2, rtol=1e-2),
        torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 DTYPES = [torch.float32, torch.float16]
+# the kernels with a bf16 path besides fp16 (the Galaxy path serves bf16)
+DTYPES3 = DTYPES + [torch.bfloat16]
 
 
 @pytest.fixture
@@ -95,7 +97,7 @@ GEMM_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES3)
 @pytest.mark.parametrize("case", GEMM_CASES)
 def test_valid_gemm_kernel_matches_plain(cuda, case, dtype):
     m, n, k, vm, vn, vk, seg_m, seg_n = case
@@ -111,14 +113,18 @@ def test_valid_gemm_kernel_matches_plain(cuda, case, dtype):
     assert int(cnt) == dense_block_count(m, n, k, **kw)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", [
+# (tiles, heads, kv heads, valid heads, head dim)
+RAGGED_CASES = [
     ((57, 56, 56, 31), 8, 8, 5, 64),   # a GPT2-L device shard
     ((5, 3, 0, 6), 4, 4, 3, 8),
     ((70, 1, 65, 0), 4, 2, 4, 32),     # GQA g=2, blocks past 64 rows
     ((40, 40), 2, 2, 1, 128),
     ((33, 20, 7), 3, 3, 3, 40),
-])
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("case", RAGGED_CASES)
 def test_ragged_flash_kernel_matches_plain(cuda, case, dtype):
     tiles, h, hkv, vh, hd = case
     lay = SeqLayout(tiles)
@@ -140,7 +146,7 @@ def test_ragged_flash_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES3)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("s,d", [(57, 1280), (100, 8), (3, 5000)])
 def test_fused_connective_kernel_matches_plain(cuda, s, d, rate, dtype):
@@ -160,15 +166,16 @@ def test_fused_connective_kernel_matches_plain(cuda, s, d, rate, dtype):
 SPLIT_CASES = [GEMM_CASES[0], GEMM_CASES[8], GEMM_CASES[9], GEMM_CASES[11]]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES3)
 @pytest.mark.parametrize("case", SPLIT_CASES)
 def test_valid_gemm_is_bitwise_repeatable_and_counts_its_path(cuda, case, dtype):
     """The split-K slices meet in a fixed order: the same call gives the
-    same bits; fp16 takes the tensor-core path, fp32 the CUDA cores."""
+    same bits; fp16 and bf16 take the tensor-core path, fp32 the CUDA
+    cores."""
     m, n, k, vm, vn, vk, seg_m, seg_n = case
     x, w, _, _ = _garbage_gemm(*case, dtype, cuda, seed=7)
     kw = dict(valid_m=vm, valid_n=vn, valid_k=vk, seg_m=seg_m, seg_n=seg_n)
-    path = "mma" if dtype == torch.float16 else "fma"
+    path = "fma" if dtype == torch.float32 else "mma"
     before = dict(tiled_gemm_valid.paths)
     a = tiled_gemm_valid(x, w, **kw)
     b = tiled_gemm_valid(x, w, **kw)
@@ -208,7 +215,7 @@ def test_ops_kernel_backend_matches_eager(cuda):
     torch.testing.assert_close(ops.gemm(x, w, backend="kernel", **kw),
                                ops.gemm(x, w, backend="eager", **kw),
                                **TOL[torch.float32])
-    with pytest.raises(ValueError, match="float32/float16"):
+    with pytest.raises(ValueError, match="float32/float16/bfloat16"):
         tiled_gemm_valid(x[0].double(), w.double())
 
 
@@ -253,6 +260,126 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="float32/bfloat16/float16"):
         flash_attention(q[..., :8].double(), q[..., :8].double(), q[..., :8].double())
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("hd", [64, 160, 256])
+def test_flash_kernel_refuses_a_plan_it_does_not_build(cuda, dtype, hd):
+    """The C interface checks the key-block size and the grid the wrapper
+    worked out: the planned call launches, a call off in either is
+    refused before any launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, sq = 1, 2, 100
+    q = torch.randn(b, h, sq, hd, device=cuda).to(dtype)
+    out = torch.empty_like(q)
+    path = fa.attention_path(dtype, hd)
+    hdp = fa.head_dim_instance(hd, path)
+    q_tiles = fa.attention_grid(b, h, sq, path)[0]
+    bk = fa.attention_tiles(path, hdp)[1]
+    lib = build.load("flash_attention", fa._DENSE_SIGNATURES)
+    strides = [t.stride(i) for t in (q, q, q, out) for i in (0, 2, 1)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(tiles, block_k):
+        return lib.flash_attention(fa._DTYPES[dtype], hdp, tiles, block_k, q.data_ptr(),
+                                   q.data_ptr(), q.data_ptr(), out.data_ptr(), b, h, h, sq,
+                                   sq, hd, 1, 0, *strides, stream)
+
+    assert call(q_tiles, bk) == 0
+    torch.cuda.synchronize()
+    for tiles, block_k in ((q_tiles, 2 * bk), (q_tiles, bk // 2), (q_tiles + 1, bk)):
+        assert call(tiles, block_k) != 0
+
+
+def _ragged_inputs(case, dtype, device, seed, junk=1e3):
+    """The executor's fused-QKV (B, S, H + 2 Hkv, hd) tensor, transposed to
+    (B, H, S, hd) views, with +junk in every pad row and -junk in every pad
+    head slot of q, k and v."""
+    tiles, h, hkv, vh, hd = case
+    lay = SeqLayout(tiles)
+    s = lay.padded_len
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(2, s, h + 2 * hkv, hd, generator=g, device=device)
+    pad = torch.as_tensor(~lay.valid, device=device)
+    qkv[:, pad] = junk
+    qkv[:, :, vh:h] = -junk
+    kv_pad = -(-vh // (h // hkv))  # kv heads that no valid q head reads
+    qkv[:, :, h + kv_pad:h + hkv] = -junk
+    qkv[:, :, h + hkv + kv_pad:] = -junk
+    q, k, v = qkv.to(dtype).split([h, hkv, hkv], dim=2)
+    return lay, pad, [t.transpose(1, 2) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("case", [c[:4] + (64,) for c in RAGGED_CASES])
+def test_ragged_flash_kernel_zeroes_pad_rows_and_heads_at_hd64(cuda, case, dtype):
+    """Every ragged case at the served head dim, with +-1e3 junk in every
+    pad row and pad head slot of q, k and v: pad outputs exactly 0, valid
+    rows equal to the plain version."""
+    lay, pad, (q, k, v) = _ragged_inputs(case, dtype, cuda, seed=11)
+    vh = case[3]
+    out = ragged_flash_attention(q, k, v, positions=lay.positions, valid_heads=vh)
+    torch.cuda.synchronize()
+    assert not out[:, :, pad].any() and not out[:, vh:].any()
+    plain = ragged_flash_attention_plain(q, k, v, positions=lay.positions, valid_heads=vh)
+    torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+def test_attention_kernels_are_bitwise_repeatable_and_count_their_path(cuda, dtype):
+    """No atomics: a second call gives the same bits.  bf16/fp16 take the
+    tensor-core path ("mma"), fp32 the CUDA cores ("simt"), one launch a
+    call."""
+    path = "simt" if dtype == torch.float32 else "mma"
+    lay, _, (q, k, v) = _ragged_inputs(RAGGED_CASES[0], dtype, cuda, seed=12)
+    before = dict(ragged_flash_attention.paths)
+    a, b = (ragged_flash_attention(q, k, v, positions=lay.positions, valid_heads=5)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert ragged_flash_attention.paths[path] == before[path] + 2
+    assert sum(ragged_flash_attention.paths.values()) == sum(before.values()) + 2
+    for case in (FLASH_CASES[1], FLASH_CASES[2], FLASH_CASES[6]):
+        bb, h, hkv, sq, sk, hd, causal, window = case
+        g = torch.Generator(device=cuda).manual_seed(sq)
+        qd = torch.randn(bb, sq, h, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
+        kd, vd = (torch.randn(bb, sk, hkv, hd, generator=g, device=cuda).to(dtype)
+                  .transpose(1, 2) for _ in range(2))
+        before = dict(flash_attention.paths)
+        a, b = (flash_attention(qd, kd, vd, causal=causal, window=window) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert flash_attention.paths[path] == before[path] + 2
+        assert sum(flash_attention.paths.values()) == sum(before.values()) + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+def test_attention_kernels_take_misaligned_rows(cuda, dtype):
+    """Views whose rows start off a 16-byte boundary (odd row strides, a
+    base one element in) are copied element by element: the same results
+    as the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    b, h, hkv, sq, sk, hd = 1, 4, 2, 70, 100, 64
+
+    def view(s, heads):  # (B, S, heads, hd + 1) sliced to hd from column 1
+        return torch.randn(b, s, heads, hd + 1, generator=g, device=cuda).to(dtype)[
+            ..., 1:].transpose(1, 2)
+
+    q, k, v = view(sq, h), view(sk, hkv), view(sk, hkv)
+    assert q.data_ptr() % 16  # every row starts off a 16-byte boundary
+    out = flash_attention(q, k, v, causal=True, window=40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), flash_attention_plain(
+        q, k, v, causal=True, window=40).float(), **TOL[dtype])
+    lay = SeqLayout((30, 25, 0, 28))
+    s = lay.padded_len
+    q, k, v = view(s, h), view(s, hkv), view(s, hkv)
+    out = ragged_flash_attention(q, k, v, positions=lay.positions, valid_heads=3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ragged_flash_attention_plain(
+        q, k, v, positions=lay.positions, valid_heads=3).float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

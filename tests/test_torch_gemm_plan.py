@@ -163,7 +163,13 @@ def test_cpu_calls_take_no_kernel_path():
     x, w = torch.ones(4, 16), torch.ones(16, 8)
     tiled_gemm_valid(x, w, seg_m=1, valid_n=5)
     tiled_gemm(x.bfloat16(), w.bfloat16())
+    q = torch.ones(1, 2, 4, 8, dtype=torch.bfloat16)  # (B, H, S, hd)
+    ops.flash_attention(q, q, q)
+    qs = q.transpose(1, 2)  # the executor's (B, S, H, hd)
+    ops.ragged_attention(qs, qs, qs, positions=[0, 1, -1, 2])
     assert ops.path_counts() == {"tiled_gemm_valid": {"mma": 0, "fma": 0},
+                                 "ragged_flash_attention": {"mma": 0, "simt": 0},
+                                 "flash_attention": {"mma": 0, "simt": 0},
                                  "tiled_gemm": {"wgmma": 0, "simt": 0}}
     assert sum(ops.launch_counts().values()) == 0
 

@@ -1,9 +1,10 @@
 """The kernels' plain PyTorch versions (what a CPU tensor runs) against the
 reference's Pallas kernels in interpret mode, on the same numpy inputs.
 
-Tolerances: fp32 throughout, atol=rtol=1e-5 — the two sides sum in a
-different order (PyTorch's CPU matmul vs the interpreted block loop), which
-moves the last few bits of O(10) sums of O(1) products.  Pad outputs are
+Tolerances: fp32 atol=rtol=1e-5 — the two sides sum in a different order
+(PyTorch's CPU matmul vs the interpreted block loop), which moves the last
+few bits of O(10) sums of O(1) products; the bf16 ragged attention cases
+one bf16 unit of their rounded outputs.  Pad outputs are
 compared exactly: they must be exact zeros whatever the pads hold.
 """
 import pytest
@@ -137,8 +138,9 @@ ATTN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_ragged_flash_plain_matches_pallas(case):
+def _ragged_case_inputs(case):
+    """(lay, q, k, v, clean q/k/v) of an ATTN_CASES case, fp32 numpy, with
+    garbage in the pad rows and pad head slots."""
     tiles, h, hkv, vh = case
     lay = SeqLayout(tiles)
     s, hd, b = lay.padded_len, 8, 2
@@ -151,6 +153,14 @@ def test_ragged_flash_plain_matches_pallas(case):
     for a in (q, k, v):  # garbage in pad rows and pad head slots
         a[:, :, pad] = rng.normal(size=(b, a.shape[1], int(pad.sum()), hd)) * 100
     q[:, vh:] = rng.normal(size=(b, h - vh, s, hd)) * 100
+    return lay, q, k, v, clean
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_ragged_flash_plain_matches_pallas(case):
+    vh = case[3]
+    lay, q, k, v, clean = _ragged_case_inputs(case)
+    pad = ~lay.valid
 
     jout = np.asarray(j_ragged_flash(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -167,6 +177,28 @@ def test_ragged_flash_plain_matches_pallas(case):
     expected = np.asarray(ref.flash_attention_ref(
         jnp.asarray(qc), jnp.asarray(kc), jnp.asarray(vc), causal=True))
     np.testing.assert_allclose(out[:, :vh][:, :, lay.rows], expected[:, :vh], **TOL)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_ragged_flash_plain_matches_pallas_bf16(case):
+    """The same cases in bf16, the Galaxy path's other serving dtype: both
+    sides take bf16 inputs, compute in fp32 and round the output to bf16,
+    so they may differ by one bf16 unit (2^-8 relative) where their fp32
+    sums round to neighbouring values."""
+    vh = case[3]
+    lay, q, k, v, _ = _ragged_case_inputs(case)
+    jout = np.asarray(j_ragged_flash(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        positions=lay.positions, valid_heads=vh, block_q=4, block_k=4,
+        interpret=True).astype(jnp.float32))
+    out = ragged_flash_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+        positions=lay.positions, valid_heads=vh)
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    pad = ~lay.valid
+    assert not np.any(out[:, :, pad]) and not np.any(out[:, vh:])
+    np.testing.assert_allclose(out, jout, atol=2.0 ** -8, rtol=2.0 ** -7)
 
 
 @pytest.mark.parametrize("tiles", [(5, 3, 0, 6), (4, 4, 4, 4), (57, 56, 56, 31)])

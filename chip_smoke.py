@@ -9,7 +9,9 @@ failure:
 
 1. card    — CUDA present; the card's name and power limit; TF32 off.
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-             ptxas's registers and spills; the tensor-core instructions
+             ptxas's registers and spills (0 bytes in the attention
+             kernels' mma_kernels and in every scan and connective
+             kernel, or it fails); the tensor-core instructions
              ``cuobjdump --dump-sass`` finds (HMMA in tiled_gemm_valid and
              in both attention kernels, HGMMA in tiled_gemm; none fails).
 3. kernels — each hand-written kernel against its plain PyTorch version at
@@ -22,7 +24,13 @@ failure:
              for bit on a second call, fp16/bf16 on the tensor-core path
              ("mma") and fp32 on the CUDA cores ("fma" / "simt"); times the
              kernel (fp16, the served dtype), the plain version and one
-             PyTorch library call.
+             PyTorch library call.  The connective as the Galaxy layer
+             launches it, one launch for the four shards of a site (four
+             57-row padded tiles), and for unequal shards with an empty
+             one, rate 0 and 0.1: each shard against the plain version,
+             a second call bitwise equal, every launch on the register-row
+             path ("warp"); timed at the site beside ``layer_norm(x +
+             res)`` over the stacked rows.
 4. parity  — two GPT2-L-width layers in float32 through the executor:
              kernel vs eager backend logits after the prefill of 4
              prompts and after each of 8 decode steps of the 4-slot
@@ -31,7 +39,9 @@ failure:
              and depth in float16 on the planner's uneven 3:2:2:1 plan, 8
              requests of 37-300 prompt tokens, 16 new tokens each,
              ``max_batch=4``; each of its three kernels must have launched,
-             every GEMM and every attention on the tensor-core path, and
+             every GEMM and every attention on the tensor-core path, the
+             connective exactly once per site (72 launches a prefill) on
+             the "warp" path, and
              the first served token of a request must match the eager
              backend.  Then a short bf16 serve of the same plan on the
              kernel backend (4 requests, 4 new tokens): every GEMM and
@@ -41,10 +51,12 @@ failure:
              their plain versions at RecurrentGemma-9B's served prefill
              shapes: attention (2, 16, 2100, 256) on one KV head, causal,
              window 2048, float32, bfloat16 and float16 (the 16-bit types
-             on the "mma" path, fp32 on "simt"); scan (2, 2100, 4096)
-             float32 with a nonzero h0.  Timed beside their plain versions,
-             SDPA with the window mask (attention; the scan has no one
-             PyTorch call) and their bounds.
+             on the "mma" path, fp32 on "simt"); scan at both served
+             waves, (4, 300, 4096) and (2, 2100, 4096) float32 with a
+             nonzero h0, bitwise equal to the plain version and on a
+             second call, on the TMA path.  Timed beside their plain
+             versions, SDPA with the window mask (attention; the scan has
+             no one PyTorch call) and their bounds.
 7. zoo parity — RecurrentGemma-9B at full width cut to 5 layers (one
              rec,rec,attn group + the 2 tail rec blocks) in float32:
              kernel vs eager (plain) backend logits after a 2100-token
@@ -56,8 +68,8 @@ failure:
              each, ``max_batch=4``: two waves, so exactly 24 flash and 52
              scan launches (12 attention and 26 recurrent layers per
              prefill; decode launches neither), every flash launch on the
-             "mma" path; the first served tokens of the 300-token wave must
-             match the eager backend.
+             "mma" path and every scan on the "tma" path; the first served
+             tokens of the 300-token wave must match the eager backend.
 9. dense kernels — the dense ``tiled_gemm`` against its plain version at
              the reference's test shapes (128x256x128, 256x512x384,
              512x128x256) and one odd shape in float32, bfloat16 and
@@ -101,6 +113,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -131,7 +144,7 @@ REPLACES = {
 SOURCES = {
     "tiled_gemm_valid": "src/repro_torch/kernels/csrc/tiled_gemm_valid.cu",
     "ragged_flash_attention": "src/repro_torch/kernels/csrc/ragged_flash_attention.cu",
-    "fused_connective": "src/repro_torch/kernels/csrc/fused_connective.py",
+    "fused_connective": "src/repro_torch/kernels/csrc/fused_connective.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "tiled_gemm": "src/repro_torch/kernels/csrc/tiled_gemm.cu",
@@ -220,10 +233,10 @@ def phase_kernels(rec, plan, torch):
     from repro_torch.kernels.flash_attention import (
         ragged_flash_attention, ragged_flash_attention_plain)
     from repro_torch.kernels.fused_connective import (
-        fused_connective, fused_connective_plain)
+        fused_connective_group, fused_connective_group_plain)
+    from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.tiled_gemm import (
-        _sm_count, dense_block_count, plan_valid_gemm, tiled_gemm_valid,
-        tiled_gemm_valid_plain)
+        dense_block_count, plan_valid_gemm, tiled_gemm_valid, tiled_gemm_valid_plain)
     from repro_torch.launch.kernel_timing import time_ms
 
     dev = torch.device("cuda")
@@ -245,7 +258,7 @@ def phase_kernels(rec, plan, torch):
         "decode_w2_s1": (4, d_model, pc, 1, d_model, vc, 1, d_model),
         "decode_qkv": (4, 3 * ph * hd, d_model, 4, vh * hd, d_model, 4, ph * hd),
     }
-    sms = _sm_count(dev)
+    sms = sm_count(dev)
     for key, (m, n, k, vm, vn, vk, seg_m, seg_n) in gemms.items():
         p = plan_valid_gemm(m, n, k, seg_m=seg_m, seg_n=seg_n, valid_m=vm, valid_n=vn,
                             valid_k=vk, sm_count=sms)
@@ -356,34 +369,53 @@ def phase_kernels(rec, plan, torch):
             log("kernels", f"ragged_flash_attention fp16: {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
-        # connective on a 57-row tile, rate 0 (the path) and 0.1 (dropout);
-        # kernel and plain version round one fp32 result, and at outputs of
-        # 2-4 one bf16 unit (0.0156) exceeds ATOL: bf16 is held to ATOL plus
-        # one unit of its output
-        for rate in (0.0, 0.1):
-            x, res = (torch.randn(pt, d_model, generator=g, device=dev).to(tdt)
-                      for _ in range(2))
-            keep = (torch.rand(pt, d_model, generator=g, device=dev) > rate).to(tdt)
-            scale = (1 + 0.1 * torch.randn(d_model, generator=g, device=dev)).to(tdt)
-            bias = (0.1 * torch.randn(d_model, generator=g, device=dev)).to(tdt)
-            out = fused_connective(x, res, keep, scale, bias, rate=rate)
-            plain = fused_connective_plain(x, res, keep, scale, bias, rate=rate)
+        # connective as the layer launches it: one site of four 57-row
+        # padded tiles, then unequal shards and an empty one; rate 0 (the
+        # path) and 0.1 (dropout).  Kernel and plain version round one fp32
+        # result, and at outputs of 2-4 one bf16 unit (0.0156) exceeds ATOL:
+        # bf16 is held to ATOL plus one unit of its output
+        groups = {"site": [pt] * len(lay.tiles), "unequal": [*lay.tiles, 0]}
+        def draw(shape, scale=1.0, shift=0.0):
+            return (shift + scale * torch.randn(shape, generator=g, device=dev)).to(tdt)
+
+        for (key, rows), rate in itertools.product(groups.items(), (0.0, 0.1)):
+            xs = [draw((r, d_model)) for r in rows]
+            ress = [draw((r, d_model)) for r in rows]
+            keeps = [(torch.rand(r, d_model, generator=g, device=dev) > rate).to(tdt)
+                     for r in rows]
+            scales = [draw(d_model, 0.1, 1.0) for _ in rows]
+            biases = [draw(d_model, 0.1) for _ in rows]
+            args = (xs, ress, keeps, scales, biases)
+            before = dict(fused_connective_group.paths)
+            outs = fused_connective_group(*args, rate=rate)
+            again = fused_connective_group(*args, rate=rate)
+            plain = fused_connective_group_plain(*args, rate=rate)
             torch.cuda.synchronize()
-            err = check_close("fused_connective", out, plain, dtype, f"rate={rate}",
-                              ulp=dtype == "bfloat16")
-            log("kernels", f"fused_connective {dtype} ({pt},{d_model}) rate={rate} err={err:.3g}")
-            if dtype == "float16" and rate == 0.0:
+            err = max(check_close("fused_connective", o, p, dtype,
+                                  f"{key} shard {i} rate={rate}", ulp=dtype == "bfloat16")
+                      for i, (o, p) in enumerate(zip(outs, plain)))
+            if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                raise AssertionError(f"fused_connective {key} {dtype}: two calls differ")
+            check_path(fused_connective_group, before, "warp", 2,
+                       f"fused_connective {key} {dtype}")
+            log("kernels", f"fused_connective {dtype} {key} shards {rows} x {d_model} "
+                f"rate={rate}: one launch, err={err:.3g} path=warp, bitwise equal on repeat")
+            if dtype == "float16" and rate == 0.0 and key == "site":
                 rec["fused_connective"].err(err)
-                ms = time_ms(lambda: ops.connective(x, res, scale, bias))
-                plain_ms = time_ms(lambda: fused_connective_plain(x, res, None, scale, bias))
+                ms = time_ms(lambda: ops.connective_group(xs, ress, scales, biases))
+                plain_ms = time_ms(lambda: fused_connective_group_plain(
+                    xs, ress, None, scales, biases))
+                xcat, rcat = torch.cat(xs), torch.cat(ress)
                 lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
-                    x + res, (d_model,), scale, bias, 1e-5))
-                nbytes = esize * (3 * pt * d_model + 2 * d_model)
-                flops = 8.0 * pt * d_model
+                    xcat + rcat, (d_model,), scales[0], biases[0], 1e-5))
+                n_rows = sum(rows)
+                nbytes = esize * (3 * n_rows * d_model + 2 * len(rows) * d_model)
+                flops = 8.0 * n_rows * d_model
                 rec["fused_connective"].timed(ms, plain_ms, lib_ms, nbytes, flops, dtype)
                 bms, by = bound(nbytes, flops, dtype)
-                log("kernels", f"fused_connective fp16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"layer_norm(x+res) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                log("kernels", f"fused_connective fp16 site {rows} x {d_model}: {ms:.4f} ms "
+                    f"a launch, plain {plain_ms:.4f} ms, layer_norm(x+res) stacked "
+                    f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
 def phase_parity(cfg, plan, torch):
@@ -456,7 +488,7 @@ def phase_serve(torch, rec, dtype="float16", n_req=8, max_new=16):
     steps = out["stats"]["decode_steps"]
     expect = {"tiled_gemm_valid": n_req * 2304 + steps * 576,
               "ragged_flash_attention": n_req * 144,
-              "fused_connective": n_req * 288}
+              "fused_connective": n_req * 72}
     for name in GALAXY_KERNELS:
         n = counts[name]
         if n <= 0:
@@ -468,14 +500,18 @@ def phase_serve(torch, rec, dtype="float16", n_req=8, max_new=16):
     for name in ZOO_KERNELS + ("tiled_gemm",):
         if counts[name]:
             raise AssertionError(f"{name} launched {counts[name]} times on the Galaxy path")
+    if counts["fused_connective"] != expect["fused_connective"]:
+        raise AssertionError(f"fused_connective: {counts['fused_connective']} launches, not "
+                             "one per connective site")
     paths = ops.path_counts()
     want = {"tiled_gemm_valid": {"mma": counts["tiled_gemm_valid"], "fma": 0},
-            "ragged_flash_attention": {"mma": counts["ragged_flash_attention"], "simt": 0}}
+            "ragged_flash_attention": {"mma": counts["ragged_flash_attention"], "simt": 0},
+            "fused_connective": {"warp": counts["fused_connective"], "loop": 0}}
     for name, p in want.items():
         if paths[name] != p:
-            raise AssertionError(f"served {name} off the tensor-core path: {paths[name]}")
+            raise AssertionError(f"served {name} off its fast path: {paths[name]}")
     log("serve", f"paths: {', '.join(f'{n} {paths[n]}' for n in want)} (every served GEMM "
-        "and attention on the tensor cores)")
+        "and attention on the tensor cores, every connective on the register-row path)")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
         f"{out['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * out['ttft_p50_s']:.1f} ms, "
@@ -563,25 +599,38 @@ def phase_zoo_kernels(rec, torch):
         log("kernels", f"flash_attention bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
+    # the scan at both served waves: 4 x 300 and 2 x 2100 rows, fp32 (the
+    # gates' dtype), held bit for bit: both round each product and sum once
     w = 4096
-    a = 0.5 + 0.499 * torch.rand(b, s, w, generator=g, device=dev)
-    bb = torch.randn(b, s, w, generator=g, device=dev)
-    h0 = torch.randn(b, w, generator=g, device=dev)
-    hs, hl = rglru_scan(a, bb, h0)
-    ps, pl = rglru_scan_plain(a, bb, h0)
-    torch.cuda.synchronize()
-    err = max(check_close("rglru_scan", hs, ps, "float32", "h_seq"),
-              check_close("rglru_scan", hl, pl, "float32", "h_last"))
-    rec["rglru_scan"].err(err)
-    log("kernels", f"rglru_scan float32 ({b},{s},{w}) nonzero h0: h_seq and h_last err={err:.3g}")
-    ms = time_ms(lambda: rglru_scan(a, bb, h0))
-    plain_ms = time_ms(lambda: rglru_scan_plain(a, bb, h0), iters=3)
-    nbytes = 4 * (3 * b * s * w + 2 * b * w)
-    flops = 2.0 * b * s * w
-    rec["rglru_scan"].timed(ms, plain_ms, None, nbytes, flops, "float32")
-    bms, by = bound(nbytes, flops, "float32")
-    log("kernels", f"rglru_scan fp32: {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, "
-        f"bound {bms:.4f} ms ({by})")
+    for bs, ss in ((4, 300), (2, 2100)):
+        a = 0.5 + 0.499 * torch.rand(bs, ss, w, generator=g, device=dev)
+        bb = torch.randn(bs, ss, w, generator=g, device=dev)
+        h0 = torch.randn(bs, w, generator=g, device=dev)
+        before = dict(rglru_scan.paths)
+        hs, hl = rglru_scan(a, bb, h0)
+        hs2, hl2 = rglru_scan(a, bb, h0)
+        ps, pl = rglru_scan_plain(a, bb, h0)
+        torch.cuda.synchronize()
+        err = max(check_close("rglru_scan", hs, ps, "float32", "h_seq"),
+                  check_close("rglru_scan", hl, pl, "float32", "h_last"))
+        if not (torch.equal(hs, ps) and torch.equal(hl, pl)):
+            raise AssertionError(f"rglru_scan ({bs},{ss},{w}) fp32 not bitwise equal to "
+                                 f"the plain version (max abs err {err})")
+        if not (torch.equal(hs, hs2) and torch.equal(hl, hl2)):
+            raise AssertionError(f"rglru_scan ({bs},{ss},{w}): two calls differ")
+        check_path(rglru_scan, before, "tma", 2, f"rglru_scan ({bs},{ss},{w})")
+        rec["rglru_scan"].err(err)
+        log("kernels", f"rglru_scan float32 ({bs},{ss},{w}) nonzero h0: h_seq and h_last "
+            "bitwise equal to the plain version and on repeat, path=tma")
+        ms = time_ms(lambda: rglru_scan(a, bb, h0))
+        plain_ms = time_ms(lambda: rglru_scan_plain(a, bb, h0), iters=3)
+        nbytes = 4 * (3 * bs * ss * w + 2 * bs * w)
+        flops = 2.0 * bs * ss * w
+        rec["rglru_scan"].timed(ms, plain_ms, None, nbytes, flops, "float32")
+        bms, by = bound(nbytes, flops, "float32")
+        log("kernels", f"rglru_scan fp32 ({bs},{ss},{w}): {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, no library call, bound {bms:.4f} ms ({by})")
+        del a, bb, hs, hs2, ps
 
 
 def phase_zoo_parity(torch):
@@ -661,6 +710,10 @@ def phase_zoo_serve(torch, rec):
     if counts != expect:
         raise AssertionError(f"zoo launch counts {counts} != {expect}")
     check_flash_paths(ops, counts, "zoo serve")
+    scan_paths = ops.path_counts()["rglru_scan"]
+    if scan_paths != {"tma": counts["rglru_scan"], "simt": 0}:
+        raise AssertionError(f"zoo serve: rglru_scan off the TMA path: {scan_paths}")
+    log("serve", f"rglru_scan paths: {scan_paths} (every launch on the TMA ring)")
     steps = out["stats"]["decode_steps"]
     log("serve", f"{len(reqs)} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
@@ -808,22 +861,26 @@ def phase_dense_kernels(rec, torch):
 
 def spill_check(build) -> str:
     """ptxas reports 0 bytes spilled in every tensor-core instantiation of
-    both attention kernels (bf16 and fp16 at each head-dim instance).
-    Raises if one spills or if the log lists another number of them."""
+    both attention kernels (bf16 and fp16 at each head-dim instance) and in
+    every kernel of the scan (both paths, three dtypes) and of the
+    connective (three dtypes, with and without dropout: the loop path and
+    the two register-row instances).
+    Raises if one spills or if a log lists another number of them."""
     from repro_torch.kernels.flash_attention import DENSE_HEAD_DIMS, RAGGED_HEAD_DIMS
 
     found = []
-    for name, dims in (("flash_attention", DENSE_HEAD_DIMS["mma"]),
-                       ("ragged_flash_attention", RAGGED_HEAD_DIMS["mma"])):
-        mma = {f: s for f, s in build.spills(build.build_log(name)).items()
-               if "mma_kernel" in f}
-        if len(mma) != 2 * len(dims):
-            raise AssertionError(f"{name}: ptxas reports {len(mma)} mma_kernel "
-                                 f"instantiations, expected {2 * len(dims)}")
-        bad = {f: s for f, s in mma.items() if s != (0, 0)}
+    for name, want, pick in (
+            ("flash_attention", 2 * len(DENSE_HEAD_DIMS["mma"]), "mma_kernel"),
+            ("ragged_flash_attention", 2 * len(RAGGED_HEAD_DIMS["mma"]), "mma_kernel"),
+            ("rglru_scan", 6, "_kernel"), ("fused_connective", 18, "_kernel")):
+        fns = {f: s for f, s in build.spills(build.build_log(name)).items() if pick in f}
+        if len(fns) != want:
+            raise AssertionError(f"{name}: ptxas reports {len(fns)} {pick} "
+                                 f"instantiations, expected {want}")
+        bad = {f: s for f, s in fns.items() if s != (0, 0)}
         if bad:
             raise AssertionError(f"{name}: spill (stores, loads) bytes in {bad}")
-        found.append(f"{name} {len(mma)} x 0 bytes")
+        found.append(f"{name} {len(fns)} x 0 bytes")
     return ", ".join(found)
 
 
@@ -1079,14 +1136,14 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
-    log("build", f"ptxas spills in the attention kernels' mma_kernels: {spill_check(build)}")
+    log("build", f"ptxas spills: {spill_check(build)}")
     log("build", f"SASS tensor-core instructions: {sass_check(torch)}")
 
     cfg = get_config("gpt2-l")
     plan = build_plan(cfg, (3, 2, 2, 1))
     rec = {"tiled_gemm_valid": Record("tiled_gemm_valid", "cuda"),
            "ragged_flash_attention": Record("ragged_flash_attention", "cuda"),
-           "fused_connective": Record("fused_connective", "triton"),
+           "fused_connective": Record("fused_connective", "cuda"),
            "flash_attention": Record("flash_attention", "cuda"),
            "rglru_scan": Record("rglru_scan", "cuda"),
            "tiled_gemm": Record("tiled_gemm", "cuda")}

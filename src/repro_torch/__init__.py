@@ -4,9 +4,10 @@ overlap), for one NVIDIA Hopper GPU.
 
 The subpackage layout mirrors ``src/repro/``: each module here has its JAX
 counterpart at the same relative path.  The package imports ``torch`` and
-``numpy`` only; the three kernels of the serving path are hand-written for
-sm_90a (``kernels/csrc/*.cu``) or in Triton (``kernels/fused_connective``),
-and each keeps a plain PyTorch version beside it for CPU tensors.
+``numpy`` only; every kernel of the serving paths is hand-written in CUDA
+C++ for sm_90a (``kernels/csrc/*.cu``: among them the fused connective,
+one launch per connective site, and the RG-LRU scan on a TMA ring), and
+each keeps a plain PyTorch version beside it for CPU tensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

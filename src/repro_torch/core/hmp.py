@@ -221,10 +221,6 @@ class _KernelCompute:
         return ops.ragged_attention(q, k, v, positions=self.positions,
                                     valid_heads=self.valid_heads)
 
-    def connective(self, x, res, scale, bias):
-        """Fused residual + layernorm (one pass) == ``_ln(res + x)``."""
-        return ops.connective(x, res, scale, bias)
-
 
 def _make_compute(plan: ExecPlan, layout: Optional[SeqLayout],
                   seq_total: Optional[int]) -> Optional[List[_KernelCompute]]:
@@ -294,19 +290,20 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
     g = mm_rs(attn, [p["wo"] for p in ps], ring, schedule=sched("wo_gemm"))
 
     # ---- connective block (SP over the local sequence shard) ----
-    def connective(i, x, res, s, b):
-        p = ps[i]
+    def connective(x, res, s, b):
+        """``_ln(res + x)`` on every device's shard; the kernel backend
+        computes all D shards in one fused launch."""
         if computes is not None:
-            return computes[i].connective(x, res, p[s], p[b])
-        return _ln(res + x, p[s], p[b])
+            return ops.connective_group(x, res, [p[s] for p in ps], [p[b] for p in ps])
+        return [_ln(r + t, p[s], p[b]) for t, r, p in zip(x, res, ps)]
 
-    y = [connective(i, g[i], xs[i], "ln1_s", "ln1_b") for i in range(d)]
+    y = connective(g, xs, "ln1_s", "ln1_b")
 
     # ---- MLP block (TP over columns) ----
     h = ag_mm(y, [p["w1"] for p in ps], ring, schedule=sched("w1_gemm"))
     h = [_gelu(t) for t in h]
     f = mm_rs(h, [p["w2"] for p in ps], ring, schedule=sched("w2_gemm"))
-    out = [connective(i, f[i], y[i], "ln2_s", "ln2_b") for i in range(d)]
+    out = connective(f, y, "ln2_s", "ln2_b")
     return out, ks, vs
 
 

@@ -1,9 +1,5 @@
 """Build the CUDA C++ kernels of ``csrc/`` at first use and load them.
 
-``csrc/`` also holds the Triton kernels (``csrc/<name>.py``), which import
-``triton`` at their top; :func:`load_python` loads one at its first
-launch, so no module of the package needs Triton to import.
-
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library for ``sm_90a``, then loaded with ``ctypes``.
 All sources missing a build are compiled together, one ``nvcc`` process
@@ -14,33 +10,35 @@ and of the flags, so an edited source or header is rebuilt and a stale
 library is never loaded.  The build directory is
 ``kernels/_build/`` (listed in ``.gitignore``); ``ptxas``'s register and
 shared-memory report for each source is kept there as ``<name>.log``.
+:func:`sm_count` gives the launch plans the device's SM count.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
-import importlib.util
 import os
 import re
 import shutil
 import subprocess
-import sys
 import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("tiled_gemm_valid", "ragged_flash_attention", "flash_attention",
-           "rglru_scan", "tiled_gemm")
+SOURCES = ("tiled_gemm_valid", "ragged_flash_attention", "fused_connective",
+           "flash_attention", "rglru_scan", "tiled_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, object] = {}  # loaded CUDA libraries and Triton modules
+_libs: Dict[str, ctypes.CDLL] = {}  # loaded CUDA libraries
+_sm_counts: Dict[int, int] = {}  # per device index
 
 
 def nvcc_path() -> str:
@@ -133,23 +131,6 @@ def load(name: str, signatures: Dict[str, Tuple[Optional[type], list]]) -> ctype
     return lib
 
 
-def load_python(name: str):
-    """The module ``csrc/<name>.py`` (a Triton kernel), loaded once."""
-    key = f"{name}.py"
-    mod = _libs.get(key)
-    if mod is None:
-        with _lock:
-            mod = _libs.get(key)
-            if mod is None:
-                spec = importlib.util.spec_from_file_location(
-                    f"repro_torch_csrc_{name}", CSRC / key)
-                mod = importlib.util.module_from_spec(spec)
-                sys.modules[spec.name] = mod
-                spec.loader.exec_module(mod)
-                _libs[key] = mod
-    return mod
-
-
 def build_log(name: str) -> str:
     """``nvcc``/``ptxas`` output of the last build of ``name``."""
     path = BUILD_DIR / f"{name}.log"
@@ -181,3 +162,11 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device``, read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]

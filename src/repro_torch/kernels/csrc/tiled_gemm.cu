@@ -52,11 +52,12 @@
 // wrapper picks the path from dtype and alignment before the launch.  No
 // path of the port's serving calls this kernel: its entry point is
 // ops.tiled_gemm, as in the reference.
-#include <cuda.h>  // CUtensorMap and its enums (libcuda is reached at run time)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -170,44 +171,11 @@ constexpr int B_BYTES = WN / 64 * B_BOX_BYTES;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int WSMEM = WSTAGES * STAGE_BYTES + 1024;  // + room to align to 1024
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::smem_u32;
 
 // wgmma shared-memory descriptor, 128-byte swizzle
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -300,7 +268,7 @@ __global__ void __launch_bounds__(WTHREADS, 2) wgmma_kernel(
       mbar_init(smem_u32(&full[s]), 1);
       mbar_init(smem_u32(&empty[s]), CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tma::mbar_fence_init();
   }
   __syncthreads();
 
@@ -312,10 +280,10 @@ __global__ void __launch_bounds__(WTHREADS, 2) wgmma_kernel(
         const uint32_t bar = smem_u32(&full[s]);
         const uint32_t a = base + s * STAGE_BYTES, b = a + A_BYTES;
         mbar_expect_tx(bar, STAGE_BYTES);
-        tma_load_2d(a, &map_x, bar, kt * WK, m0);
+        tma::load_2d(a, &map_x, bar, kt * WK, m0);
 #pragma unroll
         for (int box = 0; box < WN / 64; ++box)
-          tma_load_2d(b + box * B_BOX_BYTES, &map_w, bar, n0 + box * 64, kt * WK);
+          tma::load_2d(b + box * B_BOX_BYTES, &map_w, bar, n0 + box * 64, kt * WK);
       }
     }
     return;
@@ -361,37 +329,11 @@ __global__ void __launch_bounds__(WTHREADS, 2) wgmma_kernel(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime, so this
-// library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a row-major (outer x inner) 16-bit matrix cut into (box_outer x
 // box_inner) boxes, 128-byte swizzle, zeros past its edges
 bool make_map(CUtensorMap* map, bool bf16, const void* ptr, int inner, int outer,
               int row_elems, int box_inner, int box_outer) {
-  EncodeTiled fn = encode_tiled();
+  tma::EncodeTiled fn = tma::encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)row_elems * 2};

@@ -1,8 +1,9 @@
 """Dispatch point of ``ExecPlan.compute_backend`` for per-shard compute.
 
-:func:`gemm`, :func:`ragged_attention` and :func:`connective` are what the
-HMP executor (``core/hmp.py``) and the ring primitives (``core/ring.py``)
-call per device shard.  For the GEMM, ``backend="eager"`` keeps the
+:func:`gemm`, :func:`ragged_attention` and :func:`connective_group` are what
+the HMP executor (``core/hmp.py``) and the ring primitives (``core/ring.py``)
+call: the first two per device shard, the connective once per site for
+all the shards.  For the GEMM, ``backend="eager"`` keeps the
 padded dense product with the valid counts applied as masks (the
 pad-and-mask oracle: every pad block still executes); ``backend="kernel"``
 routes through the valid-length kernel, which skips whole pad tiles.  Both
@@ -26,7 +27,7 @@ from repro_torch.core.execplan import COMPUTE_BACKENDS
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rglru_scan as _scan
 from repro_torch.kernels.flash_attention import ragged_flash_attention
-from repro_torch.kernels.fused_connective import fused_connective
+from repro_torch.kernels.fused_connective import fused_connective_group
 from repro_torch.kernels import tiled_gemm as _gemm
 from repro_torch.kernels.tiled_gemm import tiled_gemm_valid
 
@@ -34,7 +35,7 @@ from repro_torch.kernels.tiled_gemm import tiled_gemm_valid
 KERNELS = {
     "tiled_gemm_valid": tiled_gemm_valid,
     "ragged_flash_attention": ragged_flash_attention,
-    "fused_connective": fused_connective,
+    "fused_connective": fused_connective_group,
     "flash_attention": _flash.flash_attention,
     "rglru_scan": _scan.rglru_scan,
     "tiled_gemm": _gemm.tiled_gemm,
@@ -47,16 +48,16 @@ def launch_counts() -> Dict[str, int]:
 
 
 def path_counts() -> Dict[str, Dict[str, int]]:
-    """Launches per internal path of the kernels that have two (the GEMMs:
-    tensor cores or CUDA cores), since the last :func:`reset_launch_counts`."""
-    return {name: dict(fn.paths) for name, fn in KERNELS.items() if hasattr(fn, "paths")}
+    """Launches per internal path of each kernel (tensor cores or CUDA
+    cores; the scan's TMA ring or its plain loop; the connective's rows in
+    registers or its loop), since the last :func:`reset_launch_counts`."""
+    return {name: dict(fn.paths) for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-        if hasattr(fn, "paths"):
-            fn.paths = dict.fromkeys(fn.paths, 0)
+        fn.paths = dict.fromkeys(fn.paths, 0)
 
 
 def _check_backend(backend: str) -> None:
@@ -119,14 +120,16 @@ def ragged_attention(q, k, v, *, positions, valid_heads=None):
     return out.transpose(1, 2)
 
 
+def connective_group(xs, ress, scales, biases):
+    """Fused residual-add + layernorm over the (..., S_i, d) activations of
+    every shard of one connective site — the Galaxy connective block as
+    one pass and one launch (dropout off at inference)."""
+    return fused_connective_group(xs, ress, None, scales, biases, rate=0.0)
+
+
 def connective(x, res, scale, bias):
-    """Fused residual-add + layernorm over (..., S, d) activations — the
-    Galaxy connective block as one pass (dropout off at inference)."""
-    lead = x.shape[:-1]
-    d = x.shape[-1]
-    out = fused_connective(x.reshape(-1, d), res.reshape(-1, d), None, scale,
-                           bias, rate=0.0)
-    return out.reshape(*lead, d)
+    """:func:`connective_group` of one shard."""
+    return connective_group([x], [res], [scale], [bias])[0]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

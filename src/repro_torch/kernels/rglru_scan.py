@@ -2,25 +2,93 @@
 
 :func:`rglru_scan` is RecurrentGemma's recurrence over a prefill: per
 (batch, width column) a sequential loop over S carrying h in fp32.  On a
-CUDA tensor it launches the hand-written kernel of ``csrc/rglru_scan.cu``;
-on a CPU tensor it runs :func:`rglru_scan_plain`.  It replaces the TPU
-kernel ``src/repro/kernels/rglru_scan.py:rglru_scan_kernel``.
+CUDA tensor it launches the hand-written kernel of ``csrc/rglru_scan.cu``
+on the plan :func:`plan_scan` lays out; on a CPU tensor it runs
+:func:`rglru_scan_plain`.  The kernel has two paths, counted in
+``rglru_scan.paths``: ``"tma"`` (rows of a 16-byte multiple, 16-byte
+aligned inputs: 32-column strips streamed through a TMA ring of shared
+memory) and ``"simt"`` (any other shape: one thread per column).  Both
+give fp32 results bitwise equal to the plain version.  It replaces the
+TPU kernel ``src/repro/kernels/rglru_scan.py:rglru_scan_kernel``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PATHS = {"simt": 0, "tma": 1}
 _SIGNATURES = {
     "rglru_scan": (ctypes.c_int, [
-        ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 3,
+        ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 8,
         ctypes.c_void_p,
     ]),
 }
+
+#: columns a TMA block owns (one lane of its consumer warp each)
+STRIP = 32
+#: bytes of one ring stage: rows x STRIP of a, then of b
+STAGE_BYTES = 8192
+MAX_STAGES = 8
+#: columns a simt block owns (one thread each)
+SIMT_STRIP = 64
+#: shared memory of one H100 SM, what the system keeps per resident
+#: block, and the most one block may take
+SM_SMEM, BLOCK_RESERVED, BLOCK_SMEM = 233_472, 1024, 232_448
+#: the kernel's static shared memory (a full and an empty mbarrier per
+#: stage) and the slack that aligns the ring to 128 bytes
+STATIC_SMEM, ALIGN = 16 * MAX_STAGES, 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """One launch of the scan kernel: ``grid`` = (column strips, batch
+    rows) blocks of 64 threads, block ``(i, b)`` owning columns ``[i *
+    strip, (i + 1) * strip)`` of batch row ``b`` (those past ``w``
+    masked).  On the ``"tma"`` path a block streams its strip through
+    ``stages`` ring stages of ``rows`` sequence rows (``smem_bytes`` of
+    dynamic shared memory); the ``"simt"`` path has no ring (0s)."""
+
+    path: str
+    strip: int
+    rows: int
+    stages: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_scan(b: int, s: int, w: int, esize: int, sm_count: int, *,
+              aligned: bool = True) -> ScanPlan:
+    """Lay out the scan kernel's launch for (b, s, w) inputs of ``esize``
+    bytes an element.  ``aligned``: both inputs start on a 16-byte
+    boundary.
+
+    The kernel is bound by bytes, so the TMA ring is as deep as shared
+    memory allows for the blocks that share an SM (``ceil(blocks /
+    sm_count)``), up to ``MAX_STAGES`` and to the stages the sequence
+    fills, at least 2 where there are 2 to fill."""
+    if min(b, s, w, sm_count) <= 0 or esize not in (2, 4):
+        raise ValueError(f"bad scan plan request {(b, s, w, esize, sm_count)}")
+    if not aligned or (w * esize) % 16:
+        return ScanPlan("simt", SIMT_STRIP, 0, 0, (_cdiv(w, SIMT_STRIP), b), 0)
+    rows = STAGE_BYTES // (2 * STRIP * esize)
+    strips = _cdiv(w, STRIP)
+    per_sm = _cdiv(strips * b, sm_count)
+    budget = SM_SMEM // per_sm - BLOCK_RESERVED - STATIC_SMEM - ALIGN
+    tiles = _cdiv(s, rows)
+    stages = max(min(2, tiles), min(MAX_STAGES, budget // STAGE_BYTES, tiles))
+    return ScanPlan("tma", STRIP, rows, stages, (strips, b), stages * STAGE_BYTES + ALIGN)
 
 
 def rglru_scan_plain(a, b, h0):
@@ -62,14 +130,19 @@ def rglru_scan(a, b, h0):
     bsz, s, w = a.shape
     h_seq = torch.empty_like(a)
     h_last = torch.empty((bsz, w), dtype=a.dtype, device=a.device)
+    plan = plan_scan(bsz, s, w, a.element_size(), build.sm_count(a.device),
+                     aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     lib = build.load("rglru_scan", _SIGNATURES)
     err = lib.rglru_scan(
-        _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), h0.data_ptr(),
-        h_seq.data_ptr(), h_last.data_ptr(), bsz, s, w,
+        _DTYPES[a.dtype], _PATHS[plan.path], a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+        h_seq.data_ptr(), h_last.data_ptr(), bsz, s, w, plan.strip, plan.rows,
+        plan.stages, plan.grid[0], plan.smem_bytes,
         torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, "rglru_scan")
     rglru_scan.launches += 1
+    rglru_scan.paths[plan.path] += 1
     return h_seq, h_last
 
 
 rglru_scan.launches = 0
+rglru_scan.paths = {"tma": 0, "simt": 0}

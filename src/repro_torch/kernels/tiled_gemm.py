@@ -317,17 +317,9 @@ def plan_valid_gemm(m: int, n: int, k: int, *, seg_m: int, seg_n: int, valid_m: 
                          splits)
 
 
-_sm_counts: Dict[int, int] = {}
 # per device: (fp32 partials, int32 per-tile arrival counters, kept at 0
 # between launches)
 _workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
 
 
 def _workspace(device: torch.device, floats: int, tiles: int):
@@ -419,7 +411,7 @@ def tiled_gemm_valid(x: torch.Tensor, w: torch.Tensor, *, valid_m=None,
                if count_blocks else None)
     if m and n:
         plan = plan_valid_gemm(m, n, k, seg_m=seg_m, seg_n=seg_n, valid_m=vm,
-                               valid_n=vn, valid_k=vk, sm_count=_sm_count(x.device))
+                               valid_n=vn, valid_k=vk, sm_count=build.sm_count(x.device))
         ws = cnt = None
         if plan.splits > 1:
             ws, cnt = _workspace(x.device, plan.workspace_floats, plan.live_tiles)

@@ -76,7 +76,7 @@ def main(argv=None) -> int:
         ws = [w.clone() for _ in range(max(2, int(200e6 // (w.numel() * 2)) + 1))]
         out = torch.empty(m, n, dtype=torch.half, device=dev)
         plan = tg.plan_valid_gemm(m, n, k, seg_m=seg_m, seg_n=seg_n, valid_m=vm, valid_n=vn,
-                                  valid_k=vk, sm_count=tg._sm_count(dev))
+                                  valid_k=vk, sm_count=build.sm_count(dev))
         part, arrivals = tg._workspace(dev, plan.workspace_floats, plan.live_tiles)
         for split in ("plan", "one_slice"):
             per, splits = ((plan.steps_per_split, plan.splits) if split == "plan"

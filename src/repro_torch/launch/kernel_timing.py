@@ -3,11 +3,11 @@ device times behind a sleep, the least time the card could take, the
 visible pairs of causal attention, and builds of a kernel with parts cut
 out.
 
-``gemm_times.py``, ``attention_times.py``, ``gemm_breakdown.py`` and
-``attention_breakdown.py`` load this module from their own directory, not
-through the package, so with ``--src`` another checkout's kernels are
-timed by this checkout's code; ``chip_smoke.py`` imports it from the
-package.  Importing it needs neither a card nor ``nvcc``.
+``gemm_times.py``, ``attention_times.py``, ``scan_connective_times.py``
+and the three ``*_breakdown.py`` load this module from their own
+directory, not through the package, so with ``--src`` another
+checkout's kernels are timed by this checkout's code; ``chip_smoke.py``
+imports it from the package.  Importing it needs neither a card nor ``nvcc``.
 """
 from __future__ import annotations
 

@@ -29,10 +29,17 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     ragged_flash_attention_plain,
 )
 from repro_torch.kernels.fused_connective import (  # noqa: E402
+    MAX_SHARDS,
     fused_connective,
+    fused_connective_group,
+    fused_connective_group_plain,
     fused_connective_plain,
 )
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    plan_scan,
+    rglru_scan,
+    rglru_scan_plain,
+)
 from repro_torch.kernels.tiled_gemm import (  # noqa: E402
     dense_block_count,
     tiled_gemm,
@@ -397,6 +404,176 @@ def test_rglru_scan_kernel_matches_plain(cuda, b, s, w, dtype):
     assert hs.dtype == hl.dtype == dtype
     torch.testing.assert_close(hs.float(), ps.float(), **TOL[dtype])
     torch.testing.assert_close(hl.float(), pl.float(), **TOL[dtype])
+
+
+def _connective_group(rows, d, rate, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=g, device=device)).to(dtype)
+
+    xs = [draw((r, d)) for r in rows]
+    ress = [draw((r, d)) for r in rows]
+    keeps = [(torch.rand(r, d, generator=g, device=device) > rate).to(dtype) for r in rows]
+    scales = [draw(d, 0.1, 1.0) for _ in rows]
+    biases = [draw(d, 0.1) for _ in rows]
+    return xs, ress, keeps, scales, biases
+
+
+def _assert_connective_close(out, ref, dtype):
+    """TOL, and for bf16 ATOL plus one bf16 unit of the output: both sides
+    round one fp32 result, and at outputs of 2-4 one bf16 unit (0.0156)
+    exceeds ATOL."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if dtype != torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        return
+    lim = TOL[dtype]["atol"] + 2.0 ** -7 * ref.float().abs()
+    assert bool(((out.float() - ref.float()).abs() <= lim).all())
+
+
+# shard rows of one site: D = 1..5, unequal, with empty shards
+GROUP_ROWS = [(57,), (31, 0), (57, 56, 31), (57, 56, 56, 31), (57, 56, 0, 31, 5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rows", GROUP_ROWS)
+@pytest.mark.parametrize("d", [1280, 2560])  # GPT2-L, OPT-XL: both register instances
+def test_connective_group_matches_plain_per_shard(cuda, d, rows, rate, dtype):
+    """All the shards of a site in one launch on the register-row path,
+    each shard equal to the plain version."""
+    args = _connective_group(rows, d, rate, dtype, cuda, seed=sum(rows) + d)
+    launches, before = fused_connective_group.launches, dict(fused_connective_group.paths)
+    outs = fused_connective_group(*args, rate=rate)
+    torch.cuda.synchronize()
+    assert fused_connective_group.launches == launches + 1
+    assert fused_connective_group.paths["warp"] == before["warp"] + 1
+    for out, ref in zip(outs, fused_connective_group_plain(*args, rate=rate)):
+        _assert_connective_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+def test_connective_group_splits_past_max_shards(cuda, dtype):
+    rows = [7 * (i % 3) + 1 for i in range(MAX_SHARDS + 3)]
+    args = _connective_group(rows, 768, 0.0, dtype, cuda, seed=3)
+    launches = fused_connective_group.launches
+    outs = fused_connective_group(*args)
+    torch.cuda.synchronize()
+    assert fused_connective_group.launches == launches + 2
+    for out, ref in zip(outs, fused_connective_group_plain(*args)):
+        _assert_connective_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+def test_connective_group_takes_other_rows_on_the_loop_path(cuda, dtype):
+    """Rows wider than the registers hold, a width off the 16-byte vector,
+    and strided views off a 16-byte boundary take the loop path."""
+    for d, offset in ((2568 if dtype != torch.float32 else 2564, 0), (1284 - 2, 0), (640, 1)):
+        xs, ress, keeps, scales, biases = _connective_group((9, 4), d + offset, 0.1, dtype,
+                                                            cuda, seed=d)
+        xs, ress = [x[:, offset:] for x in xs], [r[:, offset:] for r in ress]
+        keeps = [k[:, offset:] for k in keeps]
+        scales, biases = [s[offset:] for s in scales], [b[offset:] for b in biases]
+        before = dict(fused_connective_group.paths)
+        outs = fused_connective_group(xs, ress, keeps, scales, biases, rate=0.1)
+        torch.cuda.synchronize()
+        assert fused_connective_group.paths["loop"] == before["loop"] + 1
+        for out, ref in zip(outs, fused_connective_group_plain(xs, ress, keeps, scales,
+                                                               biases, rate=0.1)):
+            _assert_connective_close(out, ref, dtype)
+
+
+# (b, s, w): both served waves, a strip cut by w, S shorter than a stage,
+# and the odd widths (simt)
+SCAN_CASES = [(4, 300, 4096), (2, 2100, 4096), (2, 40, 40), (3, 17, 256),
+              (3, 37, 50), (1, 1, 7), (2, 9, 129)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("b,s,w", SCAN_CASES)
+def test_rglru_scan_fp32_bitwise_and_counts_its_path(cuda, b, s, w, dtype):
+    """fp32 bitwise equal to the plain version (both round each product and
+    sum once, in the same order), 16-bit types at TOL; the TMA path where
+    rows are 16-byte multiples, the simt path elsewhere."""
+    g = torch.Generator(device=cuda).manual_seed(b * s + w)
+    a = (0.5 + 0.499 * torch.rand(b, s, w, generator=g, device=cuda)).to(dtype)
+    bb = torch.randn(b, s, w, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn(b, w, generator=g, device=cuda)
+    esize = a.element_size()
+    path = "tma" if (w * esize) % 16 == 0 else "simt"
+    assert plan_scan(b, s, w, esize, 132).path == path
+    before = dict(rglru_scan.paths)
+    hs, hl = rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.paths[path] == before[path] + 1
+    ps, pl = rglru_scan_plain(a, bb, h0)
+    if dtype == torch.float32:
+        assert torch.equal(hs, ps) and torch.equal(hl, pl)
+    else:
+        torch.testing.assert_close(hs.float(), ps.float(), **TOL[dtype])
+        torch.testing.assert_close(hl.float(), pl.float(), **TOL[dtype])
+
+
+def test_rglru_scan_takes_misaligned_inputs_on_the_simt_path(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, s, w = 2, 70, 256
+    a = (0.5 + 0.499 * torch.rand(b * s * w + 1, generator=g, device=cuda))[1:].view(b, s, w)
+    bb = torch.randn(b, s, w, generator=g, device=cuda)
+    h0 = torch.randn(b, w, generator=g, device=cuda)
+    assert a.data_ptr() % 16
+    before = dict(rglru_scan.paths)
+    hs, hl = rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.paths["simt"] == before["simt"] + 1
+    ps, pl = rglru_scan_plain(a, bb, h0)
+    assert torch.equal(hs, ps) and torch.equal(hl, pl)
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+def test_scan_and_connective_are_bitwise_repeatable(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = (0.5 + 0.499 * torch.rand(2, 2100, 4096, generator=g, device=cuda)).to(dtype)
+    bb = torch.randn(2, 2100, 4096, generator=g, device=cuda).to(dtype)
+    h0 = torch.randn(2, 4096, generator=g, device=cuda)
+    first, second = rglru_scan(a, bb, h0), rglru_scan(a, bb, h0)
+    args = _connective_group((57, 56, 56, 31), 1280, 0.1, dtype, cuda, seed=7)
+    one, two = (fused_connective_group(*args, rate=0.1) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+def test_rglru_scan_refuses_a_plan_it_does_not_build(cuda):
+    """The C interface checks the strip, rows, stages, grid and shared
+    memory the wrapper worked out: the planned call launches, a call off
+    in any of them is refused before any launch."""
+    import dataclasses as dc
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rglru_scan as scan
+
+    b, s, w = 2, 100, 256
+    a = torch.rand(b, s, w, device=cuda)
+    h0 = torch.zeros(b, w, device=cuda)
+    out, last = torch.empty_like(a), torch.empty(b, w, device=cuda)
+    lib = build.load("rglru_scan", scan._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = plan_scan(b, s, w, 4, 132)
+
+    def call(p):
+        return lib.rglru_scan(0, scan._PATHS[p.path], a.data_ptr(), a.data_ptr(),
+                              h0.data_ptr(), out.data_ptr(), last.data_ptr(), b, s, w,
+                              p.strip, p.rows, p.stages, p.grid[0], p.smem_bytes, stream)
+
+    assert call(plan) == 0
+    torch.cuda.synchronize()
+    for bad in (dc.replace(plan, strip=64), dc.replace(plan, rows=64),
+                dc.replace(plan, stages=9, smem_bytes=9 * 8192 + 128),
+                dc.replace(plan, smem_bytes=plan.smem_bytes + 16),
+                dc.replace(plan, grid=(plan.grid[0] + 1, b)),
+                dc.replace(plan_scan(b, s, w, 4, 132, aligned=False), strip=32)):
+        assert call(bad) != 0
 
 
 def test_zoo_kernel_path_matches_eager_path(cuda):

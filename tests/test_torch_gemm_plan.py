@@ -167,9 +167,13 @@ def test_cpu_calls_take_no_kernel_path():
     ops.flash_attention(q, q, q)
     qs = q.transpose(1, 2)  # the executor's (B, S, H, hd)
     ops.ragged_attention(qs, qs, qs, positions=[0, 1, -1, 2])
+    ops.rglru_scan(torch.ones(1, 3, 8), torch.ones(1, 3, 8), torch.zeros(1, 8))
+    ops.connective_group([x, x], [x, x], [torch.ones(16)] * 2, [torch.zeros(16)] * 2)
     assert ops.path_counts() == {"tiled_gemm_valid": {"mma": 0, "fma": 0},
                                  "ragged_flash_attention": {"mma": 0, "simt": 0},
+                                 "fused_connective": {"warp": 0, "loop": 0},
                                  "flash_attention": {"mma": 0, "simt": 0},
+                                 "rglru_scan": {"tma": 0, "simt": 0},
                                  "tiled_gemm": {"wgmma": 0, "simt": 0}}
     assert sum(ops.launch_counts().values()) == 0
 

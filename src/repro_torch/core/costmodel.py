@@ -91,3 +91,23 @@ def layer_profile(cfg: ModelConfig, seq: int) -> Dict[str, float]:
         "m_mlp": m_mlp,
         "act_bytes": seq * d * BYTES_ACT,
     }
+
+
+# --- speculative decoding (serving/spec.py) -----------------------------------
+
+def spec_expected_tokens(acceptance: float, k: int) -> float:
+    """Expected tokens emitted per speculative round with k drafts.
+
+    A round emits the longest accepted draft prefix plus one token from the
+    verifier itself (the correction on a mismatch, the bonus row when all k
+    match).  With per-position agreement i.i.d. at probability
+    ``acceptance``, the mean is ``1 + a + ... + a^k = (1 - a^(k+1)) / (1 -
+    a)``: between 1 (a = 0) and k + 1 (a = 1).
+    """
+    if not 0.0 <= acceptance <= 1.0:
+        raise ValueError(f"acceptance {acceptance} must lie in [0, 1]")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if acceptance == 1.0:
+        return float(k + 1)
+    return (1.0 - acceptance ** (k + 1)) / (1.0 - acceptance)

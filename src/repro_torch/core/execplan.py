@@ -196,6 +196,15 @@ class ExecPlan:
             compute_backend=compute_backend,
         )
 
+    @classmethod
+    def even(cls, n: int, *, num_heads: int, d_ff: int, head_dim: int,
+             d_model: int) -> "ExecPlan":
+        """Equal split over ``n`` devices (one device: the whole layer)."""
+        if num_heads % n or d_ff % n:
+            raise ValueError(f"{num_heads} heads / {d_ff} columns do not split "
+                             f"evenly over {n}")
+        return cls((num_heads // n,) * n, (d_ff // n,) * n, head_dim, d_model)
+
     def with_backend(self, compute_backend: str) -> "ExecPlan":
         """The same plan routed through another per-shard compute path."""
         return dataclasses.replace(self, compute_backend=compute_backend)

@@ -23,10 +23,18 @@ attention and both connective blocks through the hand-written kernels of
 block-table gather and a masked softmax), the decode-path layernorms and
 GELU stay plain PyTorch, as the reference leaves them to XLA.
 
-Serving path: ``hmp_prefill(block_row=)`` runs a stack of layers over one
-prompt and scatters its K/V straight into paged-pool pages;
-``hmp_decode(block_table=)`` is the single-token TP step of a slot batch
-against those pages.
+Serving path: ``hmp_prefill`` runs a stack of layers over a prompt and
+``hmp_decode`` is the single-token TP step, against either cache kind: the
+dense per-wave cache of ``make_kv_cache`` (the wave protocol), or the
+paged pool it builds as (pages, page size) with ``block_row=`` /
+``block_table=`` (continuous batching).  ``hmp_prefill(offset=)`` is the
+chunked / suffix-only prefill: a chunk at an absolute offset attends back
+to the pages already written by a shared prefix and earlier chunks.  That
+context attention stays plain PyTorch, as it stays XLA in the reference.
+
+Baselines (paper §IV): ``megatron_layer`` (TP with an all-reduce after each
+block, connectives repeated on every device) and ``sp_layer`` (weights
+replicated, K and V all-gathered); ``SCHEDULES`` names all four.
 """
 from __future__ import annotations
 
@@ -241,9 +249,36 @@ def _hook(computes: Optional[List[_KernelCompute]], name: str):
     return lambda dev, tile, w, valid: getattr(computes[dev], name)(tile, w, valid)
 
 
+def _local_mask(layout: Optional[SeqLayout], s: int, device) -> torch.Tensor:
+    """(s, s) causal mask of a chunk's own rows: the ragged layout's
+    padded-domain causality, or the plain triangle for a dense one."""
+    if layout is not None:
+        return torch.as_tensor(layout.attention_mask(), device=device)
+    return torch.ones((s, s), dtype=torch.bool, device=device).tril()
+
+
+def _ctx_attention(q, k, v, ctx_k, ctx_v, offset: int, local_mask):
+    """Chunked-prefill attention: the chunk's queries attend to context
+    keys at absolute positions below ``offset`` (shared prefix pages and
+    earlier chunks) plus the chunk's own K/V under ``local_mask``.
+
+    q, k, v: (1, S, H, hd); ctx_k, ctx_v: (T, H, hd) gathered over absolute
+    positions [0, T).  Positions ``>= offset`` of the context are masked,
+    so stale rows contribute exact zeros after the softmax and the chunk's
+    own keys enter once, from the fresh K/V.  Every context key precedes
+    every real chunk query (ctx_pos < offset <= q_pos), so the local part
+    keeps the chunk's relative causality."""
+    s, t = q.shape[1], ctx_k.shape[0]
+    ctx_mask = (torch.arange(t, device=q.device) < offset)[None, :].expand(s, t)
+    mask = torch.cat([ctx_mask, local_mask], dim=1)
+    kf = torch.cat([ctx_k[None].to(k.dtype), k], dim=1)
+    vf = torch.cat([ctx_v[None].to(v.dtype), v], dim=1)
+    return _attention(q, kf, vf, mask=mask)
+
+
 def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
                     plan: ExecPlan, overlap: bool,
-                    layout: Optional[SeqLayout] = None):
+                    layout: Optional[SeqLayout] = None, ctx=None):
     """One layer on every ring device.  xs[i]: (B, S_loc, d) sequence shard
     of device i; ps[i] its head/column shards.  TP blocks see the full
     sequence, connective blocks the local shard (paper Fig. 5).  Returns
@@ -252,7 +287,12 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
 
     ``layout`` (a *ragged* SeqLayout; dense layouts pass None) drives the
     uneven-SP masking: the ring primitives zero pad rows per step and the
-    attention masks pad keys, so garbage in pad rows stays in pad rows."""
+    attention masks pad keys, so garbage in pad rows stays in pad rows.
+
+    ``ctx = (ctx_ks, ctx_vs, offset)`` (chunked prefill): device i's
+    queries also attend to its context K/V ``ctx_ks[i]``/``ctx_vs[i]``
+    (``_ctx_attention``).  That attention is plain PyTorch under either
+    backend; the ring GEMMs and connectives still go through the kernels."""
     ag_mm = ring_allgather_matmul if overlap else sync_allgather_matmul
     mm_rs = matmul_ring_reducescatter if overlap else sync_matmul_reducescatter
     d = ring.num_devices
@@ -264,10 +304,12 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
         base = RingSchedule.dense(d, s_loc, transport=plan.transport,
                                   double_buffer=plan.double_buffer)
     computes = _make_compute(plan, layout, d * s_loc)
-    # the padded_len^2 ragged mask feeds only the eager attention; the
-    # kernel derives its masking from layout.positions
+    # the padded_len^2 mask feeds the eager attention and a chunk's context
+    # attention; the kernel derives its masking from layout.positions
     attn_mask = None
-    if layout is not None and computes is None:
+    if ctx is not None:
+        attn_mask = _local_mask(layout, d * s_loc, xs[0].device)
+    elif layout is not None and computes is None:
         attn_mask = torch.as_tensor(layout.attention_mask(), device=xs[0].device)
 
     def sched(name):
@@ -279,7 +321,9 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
     for i in range(d):
         shape = (*qkv[i].shape[:2], ph, hd)
         q, k, v = (t.reshape(shape) for t in qkv[i].split(ph * hd, dim=-1))
-        if computes is not None:
+        if ctx is not None:
+            a = _ctx_attention(q, k, v, ctx[0][i], ctx[1][i], ctx[2], attn_mask)
+        elif computes is not None:
             a = computes[i].attention(q, k, v)
         else:
             a = _attention(q, k, v, mask=attn_mask)
@@ -344,19 +388,22 @@ def hmp_layer(p, x, ring: LocalRing, *, plan: ExecPlan, overlap: bool = False,
     return torch.cat(out, dim=1)
 
 
-# --- paged serving path: pool pages + block tables ----------------------------
+# --- serving path: dense per-wave cache or paged pool ---------------------------
 
-def make_paged_kv_cache(num_pages: int, page_size: int, num_layers: int,
-                        plan: ExecPlan, *, device=None,
-                        dtype=torch.float32) -> List[Dict[str, List[torch.Tensor]]]:
-    """Paged KV pool storage for a stack of HMP layers.
+def make_kv_cache(batch: int, cache_len: int, num_layers: int, plan: ExecPlan, *,
+                  device=None, dtype=torch.float32) -> List[Dict[str, List[torch.Tensor]]]:
+    """KV storage for a stack of HMP layers: the dense per-wave cache, or
+    the paged pool.
 
-    Each layer holds, per ring device, k/v pages of shape (num_pages,
-    page_size, pad_heads, hd): the device's padded head slots, so page
-    shards line up with the weight shards.  Page 0 is the null page
+    Each layer holds, per ring device, k/v of shape (batch, cache_len,
+    pad_heads, hd): the device's padded head slots, so shards line up with
+    the weight shards and pad slots stay zero.  As the wave cache, rows are
+    absolute positions, so cache_len only needs the longest bucketed prompt
+    plus the decode steps.  As the paged pool, ``batch`` is the number of
+    pages and ``cache_len`` the page size; page 0 is the null page
     (``serving/kvpool.py``): idle-slot writes land there and masked reads
     never see it."""
-    shape = (num_pages, page_size, plan.pad_heads, plan.head_dim)
+    shape = (batch, cache_len, plan.pad_heads, plan.head_dim)
 
     def shards():
         return [torch.zeros(shape, device=device, dtype=dtype)
@@ -365,40 +412,97 @@ def make_paged_kv_cache(num_pages: int, page_size: int, num_layers: int,
     return [{"k": shards(), "v": shards()} for _ in range(num_layers)]
 
 
-def hmp_prefill(layers: Sequence, x, ring: LocalRing, pages: List[Dict], *,
-                plan: ExecPlan, block_row, overlap: bool = False,
-                seq: Optional[int] = None):
-    """Run a stack of HMP layers over one prompt, writing its K/V into the
-    paged pool.
+def hmp_prefill(layers: Sequence, x, ring: LocalRing, cache: List[Dict], *,
+                plan: ExecPlan, overlap: bool = False, seq: Optional[int] = None,
+                block_row=None, offset: Optional[int] = None):
+    """Run a stack of HMP layers over a prompt, writing its K/V into the
+    cache at absolute positions.
 
-    x: (1, S, d) — the bucket-padded prompt embeddings, in the plan's
-    padded ragged layout of a ``seq``-row sequence when that is ragged.
-    block_row: (pages_per_slot,) physical pages of this request.  K/V
-    land at *absolute* positions [0, seq) of the request's pages (pad rows
-    of a ragged layout never touch the pool); bucket-padding positions past
-    the real prompt write zero-token K/V that decode overwrites before
-    reading.  Pages are updated in place.  Returns (y, pages), y in x's
-    layout.
-    """
+    x: (B, S, d), in the plan's padded ragged layout of a ``seq``-row
+    sequence when that is ragged.  The knobs compose as in the reference:
+
+    * cache kind — ``cache`` is the dense per-wave cache of
+      ``make_kv_cache`` by default; ``block_row=`` (the request's physical
+      pages, ``(pages_per_slot,)``) makes it the paged pool and K/V scatter
+      straight into pages (batch 1).
+    * ``offset=`` — chunked / suffix-only prefill (paged only): ``x`` is one
+      chunk at absolute positions [offset, offset + seq), attending back to
+      every written position below ``offset``.
+
+    Pad rows of a ragged layout never touch the cache; bucket-padding
+    positions past the real prompt write zero-token K/V that decode
+    overwrites before reading.  The cache is updated in place.  Returns
+    (y, cache), y in x's layout."""
+    if block_row is None:
+        if offset is not None:
+            raise ValueError("offset= (chunked prefill) needs a paged cache; pass "
+                             "the request's block_row= as well")
+        return _prefill_dense(layers, x, ring, cache, plan=plan, overlap=overlap,
+                              seq=seq)
+    return _prefill_paged(layers, x, ring, cache, block_row, plan=plan,
+                          overlap=overlap, seq=seq, offset=offset)
+
+
+def _prefill_dense(layers: Sequence, x, ring: LocalRing, cache: List[Dict], *,
+                   plan: ExecPlan, overlap: bool, seq: Optional[int]):
+    layout = _resolve_layout(plan, ring, x, seq)
+    s = x.shape[1] if layout is None else layout.seq
+    rows = None if layout is None else torch.as_tensor(layout.rows, device=x.device)
+    xs = _split_seq(x, ring.num_devices)
+    for p, c in zip(layers, cache):
+        xs, ks, vs = _hmp_layer_body(_as_shards(plan, p), xs, ring, plan=plan,
+                                     overlap=overlap, layout=layout)
+        for i in range(ring.num_devices):
+            k, v = ks[i], vs[i]
+            if rows is not None:
+                k, v = k[:, rows], v[:, rows]
+            c["k"][i][:, :s] = k
+            c["v"][i][:, :s] = v
+    return torch.cat(xs, dim=1), cache
+
+
+def _prefill_paged(layers: Sequence, x, ring: LocalRing, pages: List[Dict],
+                   block_row, *, plan: ExecPlan, overlap: bool,
+                   seq: Optional[int], offset: Optional[int]):
+    """Paged-pool prefill (see ``hmp_prefill``).  With ``offset`` each
+    layer first gathers every device's context K/V from its own pool shard
+    (the pages below the offset, only the device's valid head slots), then
+    runs the chunk, then scatters the chunk's K/V: the gather comes before
+    the scatter, so the chunk's own keys enter the attention once."""
     if x.shape[0] != 1:
         raise ValueError("paged prefill is per-request: batch must be 1")
     layout = _resolve_layout(plan, ring, x, seq)
     s = x.shape[1] if layout is None else layout.seq
     page_size = pages[0]["k"][0].shape[1]
     block_row = torch.as_tensor(block_row, device=x.device).long()
-    if s > block_row.shape[0] * page_size:
+    base = 0 if offset is None else int(offset)
+    if base < 0:
+        raise ValueError(f"offset must be >= 0, got {base}")
+    if base + s > block_row.shape[0] * page_size:
         raise ValueError(
-            f"prompt of {s} positions exceeds the block row "
+            f"positions [{base}, {base + s}) exceed the block row "
             f"({block_row.shape[0]} pages x {page_size})"
         )
-    pos = torch.arange(s, device=x.device)
+    pos = base + torch.arange(s, device=x.device)
     phys = block_row[pos // page_size]
     within = pos % page_size
     rows = None if layout is None else torch.as_tensor(layout.rows, device=x.device)
+    if offset is not None:
+        # context: the pages holding positions [0, offset); later positions
+        # of the last one are masked in _ctx_attention
+        ctx_row = block_row[None, :-(-base // page_size)]
+        head_ok = [torch.arange(plan.pad_heads, device=x.device) < plan.heads[i]
+                   for i in range(ring.num_devices)]
     xs = _split_seq(x, ring.num_devices)
     for p, c in zip(layers, pages):
+        ctx = None
+        if offset is not None:
+            ctx = ([_paged_kv_gather(c["k"][i], ctx_row, head_ok[i])[0]
+                    for i in range(ring.num_devices)],
+                   [_paged_kv_gather(c["v"][i], ctx_row, head_ok[i])[0]
+                    for i in range(ring.num_devices)], base)
         xs, ks, vs = _hmp_layer_body(_as_shards(plan, p), xs, ring, plan=plan,
-                                     overlap=overlap, layout=layout)
+                                     overlap=overlap, layout=layout, ctx=ctx)
         for i in range(ring.num_devices):
             k, v = ks[i][0], vs[i][0]
             if rows is not None:
@@ -430,46 +534,20 @@ def _paged_kv_gather(pool, block_table, head_ok):
 
 
 def _decode_qkv(p, x, compute: Optional[_KernelCompute], ph: int, hd: int):
-    """(S, 1, d) -> q, k, v (S, 1, ph, hd) through the backend."""
+    """(B, S, d) -> q, k, v (B, S, ph, hd) through the backend (the fused
+    QKV projection shared by decode and the Megatron baseline)."""
     qkv = (compute.qkv_gemm(x, p["wqkv"]) if compute is not None
            else torch.matmul(x, p["wqkv"]))
     shape = (*x.shape[:2], ph, hd)
     return (t.reshape(shape) for t in qkv.split(ph * hd, dim=-1))
 
 
-def _decode_layer(ps: List[Dict], x, pk: List[torch.Tensor],
-                  pv: List[torch.Tensor], block_table, phys, within, valid, *,
-                  plan: ExecPlan, ring: LocalRing):
-    """Paged single-token TP step of one layer on every ring device.
-
-    x: (S, 1, d) replicated slot batch.  Each device scatters its new K/V
-    head shard into its page, gathers each slot's pages through the block
-    table and attends under the per-slot length mask; the TP blocks exit
-    through an all-reduce (a sum over the shards), and the connective
-    blocks run once on the replicated result (the SP axis is degenerate at
-    one token).  The projections go through the backend; the attention
-    core is plain PyTorch."""
-    computes = _make_compute(plan, None, None)
-    ph, hd = plan.pad_heads, plan.head_dim
-    s = block_table.shape[0]
-    gs = []
-    for i in range(ring.num_devices):
-        comp = None if computes is None else computes[i]
-        q, k_new, v_new = _decode_qkv(ps[i], x, comp, ph, hd)
-        pk[i][phys, within] = k_new[:, 0]
-        pv[i][phys, within] = v_new[:, 0]
-        # read only this device's valid head slots of live pages; pad slots
-        # route to the (zero) null page
-        head_ok = torch.arange(ph, device=x.device) < plan.heads[i]
-        ks = _paged_kv_gather(pk[i], block_table, head_ok)
-        vs = _paged_kv_gather(pv[i], block_table, head_ok)
-        scores = torch.einsum("bqhd,bthd->bhqt", q, ks).float() / math.sqrt(hd)
-        scores = torch.where(valid[:, None, None, :], scores,
-                             torch.full((), NEG_INF, device=x.device))
-        probs = torch.softmax(scores, dim=-1).to(vs.dtype)
-        attn = torch.einsum("bhqt,bthd->bqhd", probs, vs).reshape(s, 1, ph * hd)
-        gs.append(comp.wo_gemm(attn, ps[i]["wo"]) if comp is not None
-                  else torch.matmul(attn, ps[i]["wo"]))
+def _tp_exit(ps: List[Dict], x, gs: List[torch.Tensor],
+             computes: Optional[List[_KernelCompute]], ring: LocalRing):
+    """The tail of a replicated-x TP layer (decode, Megatron): the MHA
+    block's partial outputs ``gs`` exit through an all-reduce, then the
+    connective, the TP MLP (all-reduce exit) and the second connective,
+    each connective computed once on the replicated rows."""
     p0 = ps[0]
     x = _ln(x + ring.psum(gs), p0["ln1_s"], p0["ln1_b"])
     fs = []
@@ -482,28 +560,162 @@ def _decode_layer(ps: List[Dict], x, pk: List[torch.Tensor],
     return _ln(x + ring.psum(fs), p0["ln2_s"], p0["ln2_b"])
 
 
-def hmp_decode(layers: Sequence, x, ring: LocalRing, pages: List[Dict],
-               positions, *, plan: ExecPlan, block_table):
-    """One paged decode step of a continuous-batching slot batch.
+def _decode_layer(ps: List[Dict], x, kv_step, valid, *, plan: ExecPlan,
+                  ring: LocalRing):
+    """Single-token TP step of one layer on every ring device.
+
+    x: (S, 1, d) replicated slot batch.  ``kv_step(i, k_new, v_new)``
+    writes device i's new K/V head shard into its cache and returns the
+    keys and values each slot attends to, (S, T, ph, hd); ``valid`` (S, T)
+    masks them by slot length.  The TP blocks exit through an all-reduce,
+    and the connective blocks run once on the replicated result (the SP
+    axis is degenerate at one token).  The projections go through the
+    backend; the attention core is plain PyTorch."""
+    computes = _make_compute(plan, None, None)
+    ph, hd = plan.pad_heads, plan.head_dim
+    s = x.shape[0]
+    gs = []
+    for i in range(ring.num_devices):
+        comp = None if computes is None else computes[i]
+        q, k_new, v_new = _decode_qkv(ps[i], x, comp, ph, hd)
+        ks, vs = kv_step(i, k_new[:, 0], v_new[:, 0])
+        scores = torch.einsum("bqhd,bthd->bhqt", q, ks).float() / math.sqrt(hd)
+        scores = torch.where(valid[:, None, None, :], scores,
+                             torch.full((), NEG_INF, device=x.device))
+        probs = torch.softmax(scores, dim=-1).to(vs.dtype)
+        attn = torch.einsum("bhqt,bthd->bqhd", probs, vs).reshape(s, 1, ph * hd)
+        gs.append(comp.wo_gemm(attn, ps[i]["wo"]) if comp is not None
+                  else torch.matmul(attn, ps[i]["wo"]))
+    return _tp_exit(ps, x, gs, computes, ring)
+
+
+def hmp_decode(layers: Sequence, x, ring: LocalRing, cache: List[Dict],
+               positions, *, plan: ExecPlan, block_table=None):
+    """One decode step for a stack of HMP layers.
 
     x: (S, 1, d) current-token embeddings; positions: (S,) absolute
-    position each slot writes this step; block_table: (S, W) physical page
-    per (slot, logical page).  Idle slots carry all-null block rows: their
-    write lands in the null page and every null read is masked.  Pages are
-    updated in place.  Returns (y, pages) with y (S, 1, d)."""
+    position each row writes this step (a host int broadcasts).  Against
+    the dense cache (default) row b is cache row b; ``block_table=`` (S, W)
+    makes ``cache`` the paged pool of a continuous-batching slot batch,
+    physical page per (slot, logical page), idle slots carrying all-null
+    rows (their write lands in the null page and every null read is
+    masked).  Each row writes its entry before attending, so bucket
+    padding is never read.  The cache is updated in place.  Returns (y,
+    cache) with y (S, 1, d)."""
     if plan.num_devices != ring.num_devices:
         raise ValueError(
             f"plan covers {plan.num_devices} devices but the ring has "
             f"{ring.num_devices}"
         )
-    block_table = torch.as_tensor(block_table, device=x.device).long()
+    s = x.shape[0]
     positions = torch.as_tensor(positions, device=x.device).long()
-    page_size = pages[0]["k"][0].shape[1]
-    s, w = block_table.shape
-    phys = block_table[torch.arange(s, device=x.device), positions // page_size]
-    within = positions % page_size
-    valid = torch.arange(w * page_size, device=x.device)[None, :] <= positions[:, None]
-    for p, c in zip(layers, pages):
-        x = _decode_layer(_as_shards(plan, p), x, c["k"], c["v"], block_table,
-                          phys, within, valid, plan=plan, ring=ring)
-    return x, pages
+    if positions.dim() == 0:
+        positions = positions.expand(s)
+    rows = torch.arange(s, device=x.device)
+    if block_table is None:
+        t = cache[0]["k"][0].shape[1]
+    else:
+        block_table = torch.as_tensor(block_table, device=x.device).long()
+        page_size = cache[0]["k"][0].shape[1]
+        t = block_table.shape[1] * page_size
+        phys = block_table[rows, positions // page_size]
+        within = positions % page_size
+        head_ok = [torch.arange(plan.pad_heads, device=x.device) < plan.heads[i]
+                   for i in range(ring.num_devices)]
+    valid = torch.arange(t, device=x.device)[None, :] <= positions[:, None]
+    for p, c in zip(layers, cache):
+        if block_table is None:
+            def kv_step(i, k_new, v_new, c=c):
+                c["k"][i][rows, positions] = k_new
+                c["v"][i][rows, positions] = v_new
+                return c["k"][i], c["v"][i]
+        else:
+            def kv_step(i, k_new, v_new, c=c):
+                c["k"][i][phys, within] = k_new
+                c["v"][i][phys, within] = v_new
+                # read only this device's valid head slots of live pages;
+                # pad slots route to the (zero) null page
+                return (_paged_kv_gather(c["k"][i], block_table, head_ok[i]),
+                        _paged_kv_gather(c["v"][i], block_table, head_ok[i]))
+        x = _decode_layer(_as_shards(plan, p), x, kv_step, valid, plan=plan,
+                          ring=ring)
+    return x, cache
+
+
+# --- baselines (paper §IV): Megatron-LM TP and pure sequence parallelism -------
+
+def _even_plan(p: Dict, ring: LocalRing) -> ExecPlan:
+    """The equal split of a reference-layout layer over the ring."""
+    return ExecPlan.even(ring.num_devices, num_heads=p["wq"].shape[1],
+                         d_ff=p["w1"].shape[1], head_dim=p["wq"].shape[2],
+                         d_model=p["wq"].shape[0])
+
+
+def megatron_layer(p, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
+    """Megatron-LM TP baseline.  x: (B, S, d) replicated on every device;
+    each device runs its head and column shards over the whole sequence,
+    each block exits through an all-reduce, and the connective blocks run
+    redundantly on every device (the waste HMP removes).  Without a plan
+    the heads and columns split evenly; under the kernel backend the GEMMs
+    shed pad blocks and the attention is the ragged flash kernel over the
+    dense sequence."""
+    if plan is None:
+        plan = _even_plan(p, ring)
+    if plan.num_devices != ring.num_devices:
+        raise ValueError(f"plan covers {plan.num_devices} devices but the ring "
+                         f"has {ring.num_devices}")
+    ps = _as_shards(plan, p)
+    computes = _make_compute(plan, None, x.shape[1])
+    ph, hd = plan.pad_heads, plan.head_dim
+    gs = []
+    for i in range(ring.num_devices):
+        comp = None if computes is None else computes[i]
+        q, k, v = _decode_qkv(ps[i], x, comp, ph, hd)
+        if comp is not None:
+            attn = comp.attention(q, k, v).reshape(*x.shape[:2], ph * hd)
+            gs.append(comp.wo_gemm(attn, ps[i]["wo"]))
+        else:
+            attn = _attention(q, k, v).reshape(*x.shape[:2], ph * hd)
+            gs.append(torch.matmul(attn, ps[i]["wo"]))
+    return _tp_exit(ps, x, gs, computes, ring)
+
+
+def sp_layer(p: Dict, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
+    """Pure sequence-parallelism baseline.  x: (B, S, d) split evenly over
+    the ring's devices; the weights (reference layout) are replicated on
+    each (the memory wall), and K and V need the whole sequence: two
+    all-gathers per MHA block (paper §IV-A).  Plain PyTorch under any
+    backend, as in the reference.  An uneven TP plan does not apply: a
+    plan only has to cover the ring."""
+    d = ring.num_devices
+    if plan is not None and plan.num_devices != d:
+        raise ValueError(f"plan covers {plan.num_devices} devices but the ring "
+                         f"has {d}")
+    if x.shape[1] % d:
+        raise ValueError(f"sequence of {x.shape[1]} rows does not split evenly "
+                         f"over {d} devices")
+    xs = _split_seq(x, d)
+    s_loc = xs[0].shape[1]
+    qs = [torch.einsum("bsd,dhk->bshk", t, p["wq"]) for t in xs]
+    k = ring.all_gather([torch.einsum("bsd,dhk->bshk", t, p["wk"]) for t in xs], dim=1)
+    v = ring.all_gather([torch.einsum("bsd,dhk->bshk", t, p["wv"]) for t in xs], dim=1)
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    outs = []
+    for i, (xl, q) in enumerate(zip(xs, qs)):
+        # causal offset of the local query block
+        q_pos = i * s_loc + torch.arange(s_loc, device=x.device)
+        attn = _attention(q, k, v, mask=k_pos[None, :] <= q_pos[:, None])
+        g = torch.einsum("bshk,hkd->bsd", attn, p["wo"])
+        xl = _ln(xl + g, p["ln1_s"], p["ln1_b"])
+        h = _gelu(torch.einsum("bsd,df->bsf", xl, p["w1"]))
+        f = torch.einsum("bsf,fd->bsd", h, p["w2"])
+        outs.append(_ln(xl + f, p["ln2_s"], p["ln2_b"]))
+    return torch.cat(outs, dim=1)
+
+
+SCHEDULES = {
+    "hmp": lambda p, x, ring, **kw: hmp_layer(p, x, ring, overlap=False, **kw),
+    "hmp_ring": lambda p, x, ring, **kw: hmp_layer(p, x, ring, overlap=True, **kw),
+    "megatron": lambda p, x, ring, **kw: megatron_layer(p, x, ring, **kw),
+    "sp": lambda p, x, ring, **kw: sp_layer(p, x, ring, **kw),
+}

@@ -51,9 +51,10 @@ class LocalRing:
     """D logical ring devices held as D shards in one process.
 
     Every per-device quantity is a list of D tensors on one card (or the
-    CPU).  ``permute`` is the ring hop and ``psum`` the all-reduce; both
-    are explicit, so the same program later maps onto real point-to-point
-    transport.
+    CPU).  ``permute`` is the ring hop, ``psum`` the all-reduce and
+    ``all_gather`` the gather; all are explicit, so the same program later
+    maps onto real point-to-point transport.  With one device there is no
+    hop: the ring primitives run their single step and ship nothing.
     """
 
     def __init__(self, num_devices: int):
@@ -77,6 +78,11 @@ class LocalRing:
         for v in vals[1:]:
             acc = acc + v
         return acc
+
+    def all_gather(self, vals: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """The D shards joined along ``dim`` in device order (what every
+        device holds after the all-gather of the SP baseline)."""
+        return torch.cat(list(vals), dim=dim)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,8 @@ model of the zoo through the continuous scheduler or waves.
   PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
       --model stablelm-12b --requests 8 --prompt-len 64-512 \\
       --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --model gpt2-l \\
+      --draft-model distilbert --spec-k 4 --requests 4 --max-new 16
 
 ``--executor galaxy`` (the default): profiler -> planner (Alg. 1) ->
 ``ExecPlan.from_plan`` -> Galaxy HMP executor on a single-process ring of
@@ -33,6 +35,17 @@ prefix cache on, every request's prompt is a shared system prompt of
 prompt, the reference's split) ahead of its own drawn tail.  ``--reduce``
 serves the model's small variant (``configs.reduced``), for CPU runs.  A
 model whose weights do not fit one card (qwen1.5-110b) is refused.
+Both executors take the prefix cache and chunks, and ``--scheduler
+wave``.
+
+``--draft-model M --spec-k K``: speculative decoding (``serving/spec.py``,
+greedy and continuous scheduler only).  The draft proposes K tokens per
+round and the served model verifies them in one ``prefill_chunk``.  With
+``--executor galaxy`` the draft is a model of the paper's table (e.g.
+``distilbert``, whose vocabulary is GPT2-L's) on a one-device plan,
+placed on the fastest device of the cluster (``place_draft``); with
+``--executor zoo`` it is a zoo model.  Draft and served model must share
+a vocabulary.  The draft's weights are drawn from ``--seed`` + 2.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
@@ -57,6 +70,8 @@ from repro_torch.core.ring import LocalRing
 from repro_torch.models.params import init_params
 from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
+from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.spec import place_draft
 
 EXECUTORS = ("galaxy", "zoo")
 SCHEDULERS = ("auto", "continuous", "wave")
@@ -98,6 +113,28 @@ def build_executor(cfg: ModelConfig, plan: ExecPlan, *, device: torch.device,
     embed = (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
                          device=device) * 0.02).to(dtype)
     return GalaxyHMPExecutor(layers, embed, plan, LocalRing(plan.num_devices))
+
+
+def build_draft(executor_kind: str, model: str, capacities: Sequence[float], *,
+                device: torch.device, dtype: Optional[str] = None, seed: int = 0,
+                reduce: bool = False):
+    """The speculative draft and the cluster device it is placed on.
+
+    galaxy: a paper model on a one-device plan (the whole model on one
+    shard, no ring hop), on the fastest device of the cluster; zoo: a zoo
+    model behind ``TransformerExecutor``.  Both on the one card, weights
+    drawn from ``seed``."""
+    cfg = get_config(model)
+    if reduce:
+        cfg = reduced(cfg)
+    if executor_kind == "zoo":
+        return build_zoo_executor(cfg, device=device, dtype=dtype, seed=seed), 0
+    devs, _ = cluster(capacities)
+    plan = ExecPlan.even(1, num_heads=cfg.num_heads, d_ff=cfg.d_ff,
+                         head_dim=cfg.head_dim, d_model=cfg.d_model).with_backend("kernel")
+    ex = build_executor(cfg, plan, device=device,
+                        dtype=getattr(torch, dtype or cfg.dtype), seed=seed)
+    return ex, place_draft(devs)
 
 
 def build_zoo_executor(cfg: ModelConfig, *, device: torch.device,
@@ -155,7 +192,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           dtype: Optional[str] = None, seed: int = 0, reduce: bool = False,
           scheduler: str = "auto", page_size: int = 16, prefix_cache: bool = False,
           prefill_chunk: Optional[int] = None, shared_prefix: Optional[int] = None,
-          executor: Optional[Union[GalaxyHMPExecutor, TransformerExecutor]] = None) -> Dict:
+          executor: Optional[Union[GalaxyHMPExecutor, TransformerExecutor]] = None,
+          draft_model: Optional[str] = None, spec_k: Optional[int] = None,
+          draft_executor=None, temperature: float = 0.0) -> Dict:
     """Build (or take) the executor, serve random prompts and return the
     finished requests, throughput and latency figures, the engine's stats
     and prefix-cache stats, its pool, and the executor (whose weights a
@@ -166,7 +205,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     tokens of one system prompt go ahead of every prompt (default: half
     the longest drawn prompt when ``prefix_cache``, else none).  ``dtype``
     defaults to the model's serving dtype; ``reduce`` serves the model's
-    small variant."""
+    small variant.  ``draft_model`` (or a built ``draft_executor``) with
+    ``spec_k`` turns on speculative decoding; ``temperature`` 0 is
+    greedy."""
     dev = resolve_device(device)
     if executor_kind not in EXECUTORS:
         raise ValueError(f"unknown executor {executor_kind!r}; one of {EXECUTORS}")
@@ -181,6 +222,21 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         cfg = reduced(cfg)
     elif executor is None:
         check_fits_one_card(cfg, dtype)
+    if (draft_model is None and draft_executor is None) != (spec_k is None):
+        raise ValueError("a draft model and spec_k go together")
+    draft_device = None
+    if draft_executor is None and draft_model is not None:
+        known_draft = PAPER_MODELS if executor_kind == "galaxy" else ZOO_MODELS
+        if draft_model not in known_draft:
+            raise ValueError(f"the {executor_kind} executor drafts with "
+                             f"{sorted(known_draft)}, not {draft_model!r}")
+        dcfg = reduced(get_config(draft_model)) if reduce else get_config(draft_model)
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise ValueError(f"draft {dcfg.name} vocab {dcfg.vocab_size} != target "
+                             f"vocab {cfg.vocab_size}")
+        draft_executor, draft_device = build_draft(
+            executor_kind, draft_model, capacities, device=dev, dtype=dtype,
+            seed=seed + 2, reduce=reduce)
     if executor is None:
         if executor_kind == "galaxy":
             plan = build_plan(cfg, capacities)
@@ -197,7 +253,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     engine = ServingEngine(executor=executor, max_batch=max_batch,
                            max_len=shared_prefix + max_prompt + max_new,
                            record_times=True, scheduler=scheduler, page_size=page_size,
-                           prefix_cache=prefix_cache, prefill_chunk=prefill_chunk)
+                           prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+                           sampler=SamplerConfig(temperature=temperature),
+                           draft_executor=draft_executor, spec_k=spec_k)
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -222,6 +280,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "prefix_stats": engine.prefix_stats,
         "pool": engine.pool,
         "executor": executor,
+        "draft_executor": draft_executor,
+        "draft_device": draft_device,
+        "spec": engine.spec,
     }
 
 
@@ -249,6 +310,17 @@ def add_scheduling_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None, metavar="N",
                     help="chunked prefill: interleave N-token prefill chunks "
                          "with decode steps (continuous scheduler only)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--draft-model", default=None, metavar="MODEL",
+                    help="speculative decoding (serving/spec.py): a small model "
+                         "drafts --spec-k tokens per round on the fastest device "
+                         "and the served model verifies them in one chunked "
+                         "paged prefill (greedy only, continuous scheduler only); "
+                         "galaxy: a paper model (distilbert), zoo: a zoo model")
+    ap.add_argument("--spec-k", type=int, default=None, metavar="N",
+                    help="draft tokens proposed per speculative round "
+                         "(requires --draft-model)")
     ap.add_argument("--shared-prefix", type=int, default=None, metavar="N",
                     help="tokens of one shared system prompt ahead of every "
                          "prompt (default: half the longest prompt with "
@@ -256,9 +328,29 @@ def add_scheduling_args(ap: argparse.ArgumentParser) -> None:
 
 
 def scheduling_kwargs(args) -> Dict:
+    """The engine's scheduling arguments, after the reference's checks of
+    the speculative flags (``SystemExit`` on a bad combination)."""
+    if (args.draft_model is None) != (args.spec_k is None):
+        raise SystemExit("--draft-model and --spec-k go together")
+    if args.draft_model is not None:
+        if args.scheduler == "wave":
+            raise SystemExit(
+                "--draft-model requires the continuous scheduler: the wave path has "
+                "no paged chunk-prefill to verify drafts with (drop --scheduler wave)")
+        if args.temperature != 0.0:
+            raise SystemExit(
+                "--draft-model is greedy-only: verification pins tokens to the "
+                "sequential argmax path (drop --temperature)")
+        target = get_config(args.model)
+        draft = get_config(args.draft_model)
+        if draft.vocab_size != target.vocab_size:
+            raise SystemExit(f"draft {draft.name} vocab {draft.vocab_size} != target "
+                             f"vocab {target.vocab_size}")
     return dict(scheduler=args.scheduler, page_size=args.page_size,
                 prefix_cache=args.prefix_cache == "on",
-                prefill_chunk=args.prefill_chunk, shared_prefix=args.shared_prefix)
+                prefill_chunk=args.prefill_chunk, shared_prefix=args.shared_prefix,
+                temperature=args.temperature, draft_model=args.draft_model,
+                spec_k=args.spec_k)
 
 
 def main(argv=None):
@@ -298,7 +390,8 @@ def main(argv=None):
                 reduce=args.reduce, **scheduling_kwargs(args))
     print(out["plan"])
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("plan", "requests", "pool", "executor")}))
+                      if k not in ("plan", "requests", "pool", "executor",
+                                   "draft_executor", "spec")}))
 
 
 if __name__ == "__main__":

@@ -46,19 +46,21 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     """Serve warm, then unprofiled, then profiled; return the wall times,
     device-busy ms, the profiler's device-side events and the unprofiled
     run's engine stats.  ``scheduling`` takes ``serve``'s scheduler,
-    page-size, prefix-cache, prefill-chunk and shared-prefix arguments."""
+    page-size, prefix-cache, prefill-chunk, shared-prefix, temperature and
+    draft arguments."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(executor_kind=executor_kind, requests=requests, prompt_len=prompt_len,
               prompt_lens=prompt_lens, max_new=max_new, max_batch=max_batch,
               device=device, dtype=dtype, seed=seed, reduce=reduce, **scheduling)
     warm = serve(model, capacities, **kw)
-    plain = serve(model, capacities, executor=warm["executor"], **kw)
+    kw.update(executor=warm["executor"], draft_executor=warm["draft_executor"])
+    plain = serve(model, capacities, **kw)
     activities = [ProfilerActivity.CPU]
     if plain["executor"].device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        traced = serve(model, capacities, executor=warm["executor"], **kw)
+        traced = serve(model, capacities, **kw)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     return {

@@ -36,9 +36,13 @@ Two continuous-scheduler extensions, as in the reference:
   iteration beside the decode step, so a long prompt does not stall the
   live decode slots.
 
-The reference's tracer, drift monitor, metrics registry and speculative
-decoding wait for the port of ``obs/`` and ``serving/spec.py`` (ROADMAP
-queue 1, items 9 and 10); ``stats`` is a plain dict here.
+and **speculative decoding** (``draft_executor=``, ``spec_k=``): a draft
+executor proposes ``spec_k`` greedy tokens per live slot and the target
+verifies them in one ``prefill_chunk`` (``serving/spec.py``).
+
+The reference's tracer, drift monitor and metrics registry wait for the
+port of ``obs/``; ``stats`` is a plain dict here, and
+``spec_acceptance`` is filled in at the end of ``run()``.
 """
 from __future__ import annotations
 
@@ -57,7 +61,8 @@ from repro_torch.models.transformer import apply_model
 from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.sampler import SamplerConfig, sample
+from repro_torch.serving.sampler import SamplerConfig, sample, sample_positions
+from repro_torch.serving.spec import SpeculativeDecoder, run_spec_round
 
 
 @dataclasses.dataclass
@@ -274,24 +279,30 @@ class _PrefillTask:
 
 #: the engine's counters; ``peak_shared_pages`` is a maximum, and
 #: ``prefill_oneshots`` (prefills that ran as one ``prefill_paged`` call,
-#: beside ``prefill_chunks``) is the port's own
+#: beside ``prefill_chunks``) and ``prefill_waves`` (wave prefills) are the
+#: port's own.  A speculative round counts one ``decode_steps`` per verified
+#: slot, as in the reference.
 STAT_KEYS = ("requests", "prefill_tokens", "decode_steps", "decode_tokens",
-             "prefill_chunks", "prefill_oneshots", "prefix_hits",
-             "cached_prefix_tokens", "peak_shared_pages")
+             "prefill_chunks", "prefill_oneshots", "prefill_waves", "prefix_hits",
+             "cached_prefix_tokens", "peak_shared_pages", "spec_steps",
+             "spec_proposed", "spec_accepted")
 
 
 class ServingEngine:
     """Serving engine over an executor.  ``stats`` counts requests,
     computed prompt tokens (the uncached suffix under prefix hits), decode
-    steps and tokens, prefill calls and prefix-cache hits of the engine's
-    runs; ``prefix_stats`` holds the prefix tree's own stats after a run
-    with ``prefix_cache=True``."""
+    steps and tokens, prefill calls, prefix-cache hits and speculative
+    rounds of the engine's runs, with ``spec_accept_counts`` (accepted
+    drafts per round -> rounds) and ``spec_acceptance`` (accepted /
+    proposed, set at the end of each run); ``prefix_stats`` holds the
+    prefix tree's own stats after a run with ``prefix_cache=True``."""
 
     def __init__(self, executor, *, max_batch: int = 8, max_len: int = 512,
                  sampler: SamplerConfig = SamplerConfig(), rng_seed: int = 0,
                  scheduler: str = "auto", page_size: int = 16,
                  num_pages: Optional[int] = None, record_times: bool = False,
-                 prefix_cache: bool = False, prefill_chunk: Optional[int] = None):
+                 prefix_cache: bool = False, prefill_chunk: Optional[int] = None,
+                 draft_executor=None, spec_k: Optional[int] = None):
         if scheduler not in ("auto", "continuous", "wave"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if scheduler == "continuous" and not getattr(executor, "supports_paged", False):
@@ -301,6 +312,24 @@ class ServingEngine:
         if (prefix_cache or prefill_chunk) and not hasattr(executor, "prefill_chunk"):
             raise ValueError("prefix caching / chunked prefill need an executor with "
                              "the prefill_chunk protocol")
+        if (draft_executor is None) != (spec_k is None):
+            raise ValueError("speculative decoding needs both draft_executor and spec_k")
+        if spec_k is not None:
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if scheduler == "wave":
+                raise ValueError(
+                    "speculative decoding requires the continuous scheduler "
+                    "(the wave path has no paged pool to verify against)")
+            if sampler.temperature != 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only: the verify chunk's "
+                    "per-row argmax is the sequential token only at temperature=0")
+            if not hasattr(executor, "prefill_chunk"):
+                raise ValueError("speculative verification needs the target "
+                                 "executor's prefill_chunk protocol")
+            if not getattr(draft_executor, "supports_paged", False):
+                raise ValueError("draft executor must implement the paged protocol")
         self.executor = executor
         self.scheduler = scheduler
         self.max_batch = max_batch
@@ -313,9 +342,14 @@ class ServingEngine:
         self.record_times = record_times
         self.prefix_cache = prefix_cache
         self.prefill_chunk = prefill_chunk
+        self.draft_executor = draft_executor
+        self.spec_k = spec_k
         self.queue: deque = deque()
-        self.stats: Dict[str, int] = dict.fromkeys(STAT_KEYS, 0)
+        self.stats: Dict = dict.fromkeys(STAT_KEYS, 0)
+        self.stats["spec_accept_counts"] = {}
+        self.stats["spec_acceptance"] = 0.0
         self.pool: Optional[PagedKVPool] = None
+        self.spec: Optional[SpeculativeDecoder] = None
         self.prefix_stats: Optional[Dict] = None
 
     def submit(self, req: Request) -> None:
@@ -326,6 +360,12 @@ class ServingEngine:
 
     def _sample(self, logits) -> np.ndarray:
         return sample(logits, self.generator, self.sampler).cpu().numpy()
+
+    def _sample_positions(self, logits) -> np.ndarray:
+        """Per-position sampling of the speculative verify chunk, (B, K, V)
+        -> (B, K); greedy, the only mode speculation runs in, draws nothing
+        from the generator."""
+        return sample_positions(logits, self.generator, self.sampler).cpu().numpy()
 
     def _emit(self, r: Request, token: int, limit: int) -> bool:
         """Append one token; returns True if the request just finished."""
@@ -344,7 +384,15 @@ class ServingEngine:
             mode = ("continuous"
                     if getattr(self.executor, "supports_paged", False) else "wave")
         if mode == "continuous":
-            return self._run_continuous()
+            out = self._run_continuous()
+            st = self.stats
+            st["spec_accept_counts"] = dict(sorted(st["spec_accept_counts"].items()))
+            st["spec_acceptance"] = (st["spec_accepted"] / st["spec_proposed"]
+                                     if st["spec_proposed"] else 0.0)
+            return out
+        if self.spec_k is not None:
+            raise ValueError("speculative decoding requires the continuous scheduler, "
+                             "but this executor only supports the wave path")
         if self.prefix_cache or self.prefill_chunk:
             raise ValueError("prefix caching / chunked prefill belong to the continuous "
                              "scheduler (the wave path has no paged pool to share)")
@@ -363,6 +411,13 @@ class ServingEngine:
         storage = ex.make_pool(total_pages, ps)
         pcache = PrefixCache(pool, grain=grain) if self.prefix_cache else None
         self.pool = pool  # introspection (tests / benches)
+        spec = None
+        if self.spec_k is not None:
+            # the draft pool mirrors the target pool's geometry, so slot
+            # indices and position arithmetic are shared between the two
+            spec = SpeculativeDecoder(self.draft_executor, self.spec_k, num_slots=n_slots,
+                                      page_size=ps, pages_per_slot=pages_per_slot)
+            self.spec = spec  # introspection (tests / benches)
         chunk_tokens = (None if self.prefill_chunk is None
                         else _roundup(self.prefill_chunk, grain))
         slots: List[Optional[_Slot]] = [None] * n_slots
@@ -407,6 +462,9 @@ class ServingEngine:
                 finished.append(t.req)
             else:
                 slots[t.slot] = _Slot(t.req, tok, t.s, t.limit)
+                if spec is not None:
+                    spec.admit(t.slot, t.tokens, t.s,
+                               max_positions=max(t.s_pad, t.s + t.limit))
             return True
 
         def admit() -> None:
@@ -481,7 +539,15 @@ class ServingEngine:
                 if prefill_step(prefills[0]):
                     prefills.popleft()
             live = [i for i, sl in enumerate(slots) if sl is not None]
-            if live:
+            if live and spec is not None:
+                # speculative round: the draft proposes (batched), the
+                # target verifies each slot's proposals in one chunk, and
+                # rejections roll back by block-table truncation
+                storage, done = run_spec_round(self, spec, slots, live, pool, storage)
+                for i, req in done:
+                    slots[i] = None
+                    finished.append(req)
+            elif live:
                 tokens = np.zeros((n_slots, 1), np.int64)
                 positions = np.zeros(n_slots, np.int64)
                 live_mask = np.zeros(n_slots, bool)
@@ -569,6 +635,7 @@ class ServingEngine:
         else:
             logits, cache = ex.prefill(tokens, cache, lengths=lengths)
         self.stats["prefill_tokens"] += int(lengths.sum())
+        self.stats["prefill_waves"] += 1
 
         active = np.ones(b, bool)
         for step in range(budget):

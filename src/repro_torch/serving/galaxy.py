@@ -1,17 +1,24 @@
 """Galaxy HMP executor: serve through the paper-exact schedule.
 
 Bridges the serving engine (``serving/engine.py``) and the heterogeneity-
-aware HMP executor (``core/hmp.py``) through the paged protocol: prefill
-runs the full TP/SP + ring program over the ring devices and scatters the
-prompt's K/V straight into this request's pool pages; decode runs the
-single-token TP step of the slot batch against the pages, each device
-touching only its own head shard.  Both run under the uneven ``ExecPlan``
-the planner produced.
+aware HMP executor (``core/hmp.py``) under the uneven ``ExecPlan`` the
+planner produced.  Prefill runs the full TP/SP + ring program over the
+ring devices; decode runs the single-token TP step, each device touching
+only its own head shard of the cache.
+
+Both scheduler protocols are implemented.  Wave: ``make_cache`` /
+``prefill`` / ``decode`` against a dense per-wave cache.  Paged
+(continuous batching): ``make_pool`` / ``prefill_paged`` / ``decode_paged``
+against a pool of head-sharded KV pages, and ``prefill_chunk``, a
+grain-aligned chunk at an absolute offset that attends back to the pages
+already holding a shared prefix and earlier chunks.  That is what the
+engine's prefix cache, chunked prefill and speculative verification
+(``serving/spec.py``) call.
 
 The prompt is scattered into the plan's padded ragged layout
 (``ExecPlan.seq_layout``) and the output gathered back, so uneven sequence
 tiles and non-dividing lengths run exactly.  K/V land at absolute
-positions, and each decode step overwrites its own page entry before
+positions, and each decode step overwrites its own cache entry before
 attending, so bucket-padding positions are never read.
 """
 from __future__ import annotations
@@ -27,7 +34,7 @@ from repro_torch.core.ring import LocalRing
 
 
 class GalaxyHMPExecutor:
-    """Paged executor protocol over HMP layers.
+    """Wave and paged executor protocols over HMP layers.
 
     layers: stack of layer params in *reference* layout; padded and split
             into per-device shards once here.
@@ -55,20 +62,65 @@ class GalaxyHMPExecutor:
         any length correct; bucketing only bounds the distinct shapes."""
         return self.plan.seq_grain
 
+    def _tensor(self, a) -> torch.Tensor:
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.asarray(a))
+        return a.to(self.device).long()
+
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows of ``tokens``.  Ids past the table clamp to its
+        last row, as the reference's gather does: a draft with a larger
+        vocabulary may propose them, and the verifier never accepts one."""
+        return self.embed[tokens.clamp(max=self.embed.shape[0] - 1)]
+
+    def _embed(self, tokens: torch.Tensor):
+        """Tokens (B, S) -> the ragged layout of S rows and its (B, padded,
+        d) embeddings."""
+        layout = self.plan.seq_layout(tokens.shape[1])
+        return layout, self._lookup(layout.scatter(tokens))
+
+    # --- wave protocol -----------------------------------------------------
+    def make_cache(self, batch: int, max_len: int) -> List[Dict]:
+        """Dense per-wave cache.  Rows are absolute positions (a ragged
+        prefill writes only its valid rows), so it holds the longest
+        bucketed prompt, not the plan's padded ragged extent."""
+        grain = self.plan.seq_grain
+        return hmp.make_kv_cache(batch, -(-max_len // grain) * grain, len(self.layers),
+                                 self.plan, device=self.device, dtype=self.embed.dtype)
+
+    def prefill(self, tokens, cache, lengths=None):
+        """Prefill a wave (B, S), prompts right-padded to S.  Returns the
+        logits of each row's last real token, (B, V): row ``lengths[b] -
+        1``, or the last column without ``lengths``; and the cache."""
+        tokens = self._tensor(tokens)
+        b, s = tokens.shape
+        layout, x = self._embed(tokens)
+        y, cache = hmp.hmp_prefill(self.layers, x, self.ring, cache, plan=self.plan,
+                                   overlap=True, seq=s)
+        y = layout.gather(y)
+        rows = (torch.full((b,), s - 1, device=self.device) if lengths is None
+                else self._tensor(lengths) - 1)
+        return y[torch.arange(b, device=self.device), rows] @ self.embed.T, cache
+
+    def decode(self, tokens, cache, index):
+        """One lockstep decode step of the wave: tokens (B, 1); index a host
+        int or (B,) per-row write positions.  Returns (logits (B, V),
+        cache)."""
+        x = self._lookup(self._tensor(tokens))  # (B, 1, d)
+        y, cache = hmp.hmp_decode(self.layers, x, self.ring, cache,
+                                  self._tensor(index), plan=self.plan)
+        return y[:, -1] @ self.embed.T, cache
+
+    # --- paged protocol ----------------------------------------------------
     @property
     def supports_paged(self) -> bool:
         return True
 
     def make_pool(self, num_pages: int, page_size: int) -> List[Dict]:
-        return hmp.make_paged_kv_cache(
+        return hmp.make_kv_cache(
             num_pages, page_size, len(self.layers), self.plan,
             device=self.device, dtype=self.embed.dtype,
         )
-
-    def _tensor(self, a) -> torch.Tensor:
-        if not isinstance(a, torch.Tensor):
-            a = torch.from_numpy(np.asarray(a))
-        return a.to(self.device).long()
 
     def prefill_paged(self, tokens, pool, block_row, length: int):
         """Prefill one request (batch 1, tokens bucket-padded by the engine)
@@ -76,8 +128,7 @@ class GalaxyHMPExecutor:
         of the last real prompt token, (1, V), and the pool."""
         tokens = self._tensor(tokens)
         s = tokens.shape[1]
-        layout = self.plan.seq_layout(s)
-        x = self.embed[layout.scatter(tokens)]  # (1, padded, d)
+        layout, x = self._embed(tokens)
         y, pool = hmp.hmp_prefill(
             self.layers, x, self.ring, pool, plan=self.plan,
             overlap=True, seq=s, block_row=self._tensor(block_row),
@@ -85,10 +136,29 @@ class GalaxyHMPExecutor:
         y = layout.gather(y)
         return y[:, length - 1] @ self.embed.T, pool
 
+    def prefill_chunk(self, tokens, pool, block_row, *, offset: int, length: int):
+        """One chunked-prefill step (batch 1): the chunk at absolute
+        positions [offset, offset + S) through the Galaxy schedule,
+        attending back to the pages already written below ``offset`` (a
+        shared prefix, earlier chunks, the accepted history of a
+        speculative verify), its K/V scattered into its pages.  Returns
+        ``(logits, pool)`` with *every* chunk row's logits, (1, S, V): row
+        ``j`` predicts position ``offset + j + 1``.  ``length`` (the
+        prompt's real length) is the reference's argument; every row is
+        returned, so nothing here reads it."""
+        tokens = self._tensor(tokens)
+        s = tokens.shape[1]
+        layout, x = self._embed(tokens)
+        y, pool = hmp.hmp_prefill(
+            self.layers, x, self.ring, pool, plan=self.plan, overlap=True, seq=s,
+            block_row=self._tensor(block_row), offset=int(offset),
+        )
+        return layout.gather(y) @ self.embed.T, pool
+
     def decode_paged(self, tokens, pool, block_table, positions):
         """One decode step of the slot batch: tokens (S, 1), block_table
         (S, W), positions (S,).  Returns (logits (S, V), pool)."""
-        x = self.embed[self._tensor(tokens)]  # (S, 1, d)
+        x = self._lookup(self._tensor(tokens))  # (S, 1, d)
         y, pool = hmp.hmp_decode(
             self.layers, x, self.ring, pool, self._tensor(positions),
             plan=self.plan, block_table=self._tensor(block_table),

@@ -2,7 +2,7 @@
 
 The pool owns ``num_pages`` fixed-size KV pages and a block table mapping
 (slot, logical page) -> physical page.  The page *storage* lives with the
-executor (``core/hmp.py:make_paged_kv_cache``); this class only does the
+executor (``core/hmp.py:make_kv_cache``); this class only does the
 allocation arithmetic, so it is pure numpy.
 
 Page 0 is the **null page**: it is never handed to a request.  Block-table

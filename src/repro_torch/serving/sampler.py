@@ -30,3 +30,17 @@ def sample(logits: torch.Tensor, generator: torch.Generator,
                              torch.full((), -1e30, device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_positions(logits: torch.Tensor, generator: torch.Generator,
+                     cfg: SamplerConfig) -> torch.Tensor:
+    """Sample every position of a (B, K, V) logits block -> (B, K).
+
+    The speculative verify chunk scores all K positions in one call and
+    needs a token per position.  At ``temperature == 0`` this is the
+    per-position argmax and draws nothing from ``generator``, which is what
+    pins speculative greedy output to the sequential path."""
+    if cfg.temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    return torch.stack([sample(logits[:, j], generator, cfg)
+                        for j in range(logits.shape[1])], dim=1)

@@ -101,6 +101,27 @@ GEMM_CASES = [
     (192, 200, 77, 1, 37, 37, 1, 100),
     # segments of 30 rows packed two to a tile, odd row strides
     (90, 40, 301, 7, 33, 257, 30, 40),
+    # the Galaxy chunk and verify tiles on the 3:2:2:1 plan: a 128-row chunk
+    # (36-row tiles, the straggler's 20 real rows), the 5-row verify chunk
+    # (2-row tiles of 2 or 1 real rows) and shorter ones (1-row tiles of 1
+    # or 0 real rows: a device with no rows of the chunk)
+    (36, 1536, 1280, 20, 320, 1280, 36, 512),
+    (36, 1280, 1920, 36, 1280, 1280, 36, 1280),
+    (2, 1536, 1280, 2, 640, 1280, 2, 512),
+    (2, 1536, 1280, 1, 128, 1280, 2, 512),
+    (2, 1280, 512, 1, 1280, 320, 2, 1280),
+    (2, 1920, 1280, 0, 1280, 1280, 2, 1920),
+    (1, 1280, 1920, 0, 1280, 640, 1, 1280),
+    (1, 1536, 1280, 1, 320, 1280, 1, 512),
+    (1, 1920, 1280, 1, 1920, 1280, 1, 1920),
+    # the one-device DistilBERT draft (d 768, 12 heads, d_ff 3072): a
+    # prefill and a 4-slot decode step
+    (304, 2304, 768, 304, 768, 768, 304, 768),
+    (304, 768, 3072, 304, 768, 3072, 304, 768),
+    (4, 3072, 768, 1, 3072, 768, 1, 3072),
+    (4, 768, 768, 1, 768, 768, 1, 768),
+    # Megatron's replicated full sequence (256 rows, no row padding)
+    (256, 1536, 1280, 256, 320, 1280, 256, 512),
 ]
 
 
@@ -450,6 +471,25 @@ def test_connective_group_matches_plain_per_shard(cuda, d, rows, rate, dtype):
     assert fused_connective_group.launches == launches + 1
     assert fused_connective_group.paths["warp"] == before["warp"] + 1
     for out, ref in zip(outs, fused_connective_group_plain(*args, rate=rate)):
+        _assert_connective_close(out, ref, dtype)
+
+
+# the connective sites of the chunk and verify paths: four shards of the
+# padded tile (36, 2 or 1 rows, some holding no real row; the kernel does
+# not know which), and the one-device draft's single shard at d 768
+NEW_SITES = [((36, 36, 36, 36), 1280), ((2, 2, 2, 2), 1280), ((1, 1, 1, 1), 1280),
+             ((304,), 768), ((1,), 768)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES3)
+@pytest.mark.parametrize("rows,d", NEW_SITES)
+def test_connective_group_at_chunk_verify_and_draft_sites(cuda, rows, d, dtype):
+    args = _connective_group(rows, d, 0.0, dtype, cuda, seed=sum(rows) + d)
+    launches = fused_connective_group.launches
+    outs = fused_connective_group(*args, rate=0.0)
+    torch.cuda.synchronize()
+    assert fused_connective_group.launches == launches + 1
+    for out, ref in zip(outs, fused_connective_group_plain(*args, rate=0.0)):
         _assert_connective_close(out, ref, dtype)
 
 

@@ -97,7 +97,7 @@ def _check_paged_against_reference_stack(plan: ExecPlan):
     lt, et, ref_logits = _stack()
     page, width = 8, 4
     block_row = np.arange(1, 1 + width)
-    pages = hmp.make_paged_kv_cache(1 + width, page, 3, plan)
+    pages = hmp.make_kv_cache(1 + width, page, 3, plan)
     layers = [hmp.shard_layer_params(plan, p) for p in lt]
     toks = [3, 14, 15, 9, 26, 5, 35, 8, 9, 7, 9, 32, 38]
     s = len(toks)

@@ -37,6 +37,23 @@ def test_import_leaves_jax_and_reference_out():
     assert int(res.stdout.strip()) >= 20  # every submodule was imported
 
 
+@pytest.mark.parametrize("module", ["repro_torch.serving.spec", "repro_torch.serving.galaxy",
+                                    "repro_torch.core.hmp", "repro_torch.launch.serve"])
+def test_module_alone_leaves_jax_and_reference_out(module):
+    """Each module of the Galaxy serving path, imported alone in a fresh
+    interpreter, pulls in neither ``jax`` nor ``repro``."""
+    code = (
+        f"import importlib, sys\nimportlib.import_module({module!r})\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr + res.stdout
+
+
 def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
@@ -52,7 +69,7 @@ def test_no_source_imports_jax_or_reference():
                 assert not _is_forbidden(name), f"{path}: imports {name}"
 
 
-@pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main"])
+@pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main", "spec_main"])
 def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
     """Without CUDA, the serving entry points raise unless device='cpu'."""
     from repro_torch import resolve_device
@@ -64,6 +81,8 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
             serve.serve()
         elif entry == "main":
             serve.main(["--requests", "1"])
+        elif entry == "spec_main":
+            serve.main(["--draft-model", "distilbert", "--spec-k", "2", "--requests", "1"])
         elif entry == "zoo_main":
             serve.main(["--executor", "zoo", "--model", "recurrentgemma-9b",
                         "--reduce", "--requests", "1"])

@@ -132,7 +132,27 @@ and depth, their three kernels' calls logged at ``kernels/ops.py``:
              and ``megatron`` on the 3:2:2:1 plan's kernel backend, ``sp``
              on the even plan, each within 0.05 of the fp32
              ``reference_layer``; each one's per-layer device time.
-17. replay — every distinct call of phases 12-16 to the three Galaxy
+17. telemetry — serving observability (``repro_torch.obs``): the
+             prefix + chunk serve of phase 13 with a ``Tracer``, the drift
+             monitor (``make_step_pricer`` over the served plan) and
+             ``record_times`` on, then all three off, then ``record_times``
+             alone: tokens bitwise equal, no open span, each request's
+             spans covering >= 0.95 of it, ``ttft_s`` n = requests, the
+             pages still used at the end exactly the prefix tree's, the
+             ``ring_wire_*`` gauges equal to ``wire_stats()``, drift
+             records of ``decode`` and ``prefill_chunk`` (finite, > 0),
+             launch counts exact and every GEMM and attention on the
+             tensor cores; the trace written and parsed back; tok/s, TTFT
+             p50 and drift p50 per kind printed.  A traced speculative
+             serve (2 requests, k 4, 8 new): its spec spans closed and a
+             ``spec_verify`` drift record.  A traced zoo serve of
+             qwen1.5-0.5b at full size (bf16, prefix cache, 256-token
+             chunks, 4 requests on 2 slots; the dense flash kernel at hd
+             64) between two untraced ones: tokens equal, drift records
+             of both kinds.  ``HostProfiler`` (GPT2-L, seq 256, 20
+             iterations) on the card beside
+             ``AnalyticProfiler``'s capacity of a Jetson Nano-L.
+18. replay — every distinct call of phases 12-17 to the three Galaxy
              kernels (GEMM shapes and valid counts, attention layouts,
              connective sites) replayed on fresh inputs with garbage pads
              in fp32, fp16 and bf16 against the plain versions, on the
@@ -539,14 +559,9 @@ def phase_serve(torch, rec, dtype="float16", n_req=8, max_new=16):
     if counts["fused_connective"] != expect["fused_connective"]:
         raise AssertionError(f"fused_connective: {counts['fused_connective']} launches, not "
                              "one per connective site")
+    check_galaxy_paths(ops, "served")
     paths = ops.path_counts()
-    want = {"tiled_gemm_valid": {"mma": counts["tiled_gemm_valid"], "fma": 0},
-            "ragged_flash_attention": {"mma": counts["ragged_flash_attention"], "simt": 0},
-            "fused_connective": {"warp": counts["fused_connective"], "loop": 0}}
-    for name, p in want.items():
-        if paths[name] != p:
-            raise AssertionError(f"served {name} off its fast path: {paths[name]}")
-    log("serve", f"paths: {', '.join(f'{n} {paths[n]}' for n in want)} (every served GEMM "
+    log("serve", f"paths: {', '.join(f'{n} {paths[n]}' for n in GALAXY_KERNELS)} (every served GEMM "
         "and attention on the tensor cores, every connective on the register-row path)")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]}, "
         f"{out['new_tokens']} new tokens in {out['seconds']:.2f} s: "
@@ -745,7 +760,7 @@ def phase_zoo_serve(torch, rec):
     expect["flash_attention"] = cfg.layer_kinds().count("attn") * waves
     expect["rglru_scan"] = cfg.layer_kinds().count("rec") * waves
     for name in ZOO_KERNELS:
-        rec[name].d["launches"] = counts[name]
+        rec[name].d["launches"] += counts[name]
         log("serve", f"{name}: {counts[name]} launches (expected {expect[name]})")
     if counts != expect:
         raise AssertionError(f"zoo launch counts {counts} != {expect}")
@@ -1063,15 +1078,10 @@ def phase_dense_serve(torch, rec):
                              f"{st['cached_prefix_tokens']} != {total} prompt tokens")
     out["pool"].check()
     layers = out["executor"].cfg.num_layers
-    expect = {name: 0 for name in counts}
-    expect["flash_attention"] = layers * (st["prefill_oneshots"] + st["prefill_chunks"])
-    rec["flash_attention"].d["launches"] += counts["flash_attention"]
     log("serve", f"flash_attention: {counts['flash_attention']} launches (expected "
-        f"{expect['flash_attention']} = {layers} x ({st['prefill_oneshots']} one-shot + "
-        f"{st['prefill_chunks']} chunks)); tiled_gemm: {counts['tiled_gemm']}")
-    if counts != expect:
-        raise AssertionError(f"dense launch counts {counts} != {expect}")
-    check_flash_paths(ops, counts, "dense serve")
+        f"{layers} x ({st['prefill_oneshots']} one-shot + {st['prefill_chunks']} chunks)); "
+        f"tiled_gemm: {counts['tiled_gemm']}")
+    check_zoo_flash_counts(ops, rec, out, "dense serve")
     log("serve", f"{n_req} requests, prompts {[len(r.prompt) for r in reqs]} ({total} "
         f"tokens: {st['prefill_tokens']} computed, {st['cached_prefix_tokens']} cached in "
         f"{st['prefix_hits']} hits, peak {st['peak_shared_pages']} shared pages), "
@@ -1153,13 +1163,15 @@ GALAXY_FP16_TOL = 5e-2
 
 
 class CallLog:
-    """The distinct calls the three Galaxy kernels took while the phases
-    inside ``with`` ran: recorded at ``kernels/ops.py``, where every Galaxy
-    launch passes, as kernel arguments (shapes, valid counts, positions),
-    so each can be replayed on fresh inputs against its plain version."""
+    """The distinct calls the three Galaxy kernels and the dense flash
+    kernel took while the phases inside ``with`` ran: recorded at
+    ``kernels/ops.py``, where every launch passes, as kernel arguments
+    (shapes, valid counts, positions; the flash kernel's strides, dtype and
+    masks), so each can be replayed on fresh inputs against its plain
+    version."""
 
     def __init__(self):
-        self.gemm, self.attn, self.conn = set(), set(), set()
+        self.gemm, self.attn, self.conn, self.flash = set(), set(), set(), set()
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -1167,8 +1179,8 @@ class CallLog:
 
         self._ops = ops
         self._orig = (ops.tiled_gemm_valid, ops.ragged_flash_attention,
-                      ops.fused_connective_group)
-        gemm, attn, conn = self._orig
+                      ops.fused_connective_group, ops.flash_attention)
+        gemm, attn, conn, flash = self._orig
 
         def log_gemm(x, w, **kw):
             m, k = x.shape
@@ -1189,14 +1201,21 @@ class CallLog:
             self.conn.add(tuple(tuple(x.shape) for x in xs))
             return conn(xs, ress, keeps, scales, biases, **kw)
 
+        def log_flash(q, k, v, *, causal=True, window=0, backend="kernel"):
+            if backend == "kernel" and q.is_cuda:
+                self.flash.add((tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                                v.stride(), str(q.dtype).removeprefix("torch."),
+                                bool(causal), int(window)))
+            return flash(q, k, v, causal=causal, window=window, backend=backend)
+
         ops.tiled_gemm_valid, ops.ragged_flash_attention = log_gemm, log_attn
-        ops.fused_connective_group = log_conn
+        ops.fused_connective_group, ops.flash_attention = log_conn, log_flash
         return self
 
     def __exit__(self, *exc):
         ops = self._ops
         (ops.tiled_gemm_valid, ops.ragged_flash_attention,
-         ops.fused_connective_group) = self._orig
+         ops.fused_connective_group, ops.flash_attention) = self._orig
         return False
 
 
@@ -1302,6 +1321,51 @@ def check_logged_calls(calls, rec, torch, card):
         f"fp16 and bf16: {len(calls.gemm)} distinct tiled_gemm_valid shapes, "
         f"{len(calls.attn)} ragged_flash_attention, {len(calls.conn)} fused_connective sites; "
         f"max abs err {errs}; every launch on its path ({card})")
+    check_logged_flash(calls, rec, torch, card, g)
+
+
+def strided_randn(shape, stride, dtype, g, torch):
+    """Fresh N(0, 1) values in the memory layout ``shape``/``stride`` (a
+    view of a buffer just large enough to hold it)."""
+    extent = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    base = torch.randn(extent, generator=g, device="cuda").to(getattr(torch, dtype))
+    return base.as_strided(shape, stride)
+
+
+def check_logged_flash(calls, rec, torch, card, g):
+    """Replay every distinct dense flash-attention call of the logged
+    phases (the traced qwen1.5-0.5b serve: hd 64, 256-query chunks right-
+    aligned to their keys) on fresh inputs in the served layout, in its
+    served dtype and the other two, against ``flash_attention_plain`` on
+    its expected path.  The served dtype's error goes into the kernel's
+    record."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    if not calls.flash:
+        raise AssertionError("no flash_attention call was logged")
+    errs, served = {}, set()
+    for (qs, qst, ks, kst, vst, sdt, causal, window) in sorted(calls.flash):
+        served.add(sdt)
+        for dtype in ("float32", "float16", "bfloat16"):
+            q = strided_randn(qs, qst, dtype, g, torch)
+            k = strided_randn(ks, kst, dtype, g, torch)
+            v = strided_randn(ks, vst, dtype, g, torch)
+            before = dict(flash_attention.paths)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            plain = flash_attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            what = f"q {qs} kv {ks} causal {causal} window {window}"
+            e = check_close("flash_attention", out, plain, dtype, what)
+            check_path(flash_attention, before, expected_attention_path(dtype), 1,
+                       f"flash_attention {what} {dtype}")
+            errs[dtype] = max(errs.get(dtype, 0.0), e)
+    for dtype in served:
+        rec["flash_attention"].err(errs[dtype])
+    shapes = sorted({(qs, ks) for (qs, _, ks, *_rest) in calls.flash})
+    log("kernels", f"logged flash_attention calls replayed against flash_attention_plain in "
+        f"fp32, fp16 and bf16: {len(calls.flash)} distinct calls (served in "
+        f"{sorted(served)}), q/kv shapes {shapes}; max abs err {errs}; every launch on its "
+        f"path ({card})")
 
 
 def galaxy_executor(torch, dtype, seed=0, model="gpt2-l", capacities=(3, 2, 2, 1)):
@@ -1636,6 +1700,273 @@ def phase_schedules(torch, rec, card):
         f"{GALAXY_FP16_TOL}), shard compute only: {'; '.join(res)} ({card})")
 
 
+def check_galaxy_paths(ops, what):
+    """Every Galaxy kernel launch since the last reset on its fast path:
+    GEMMs and attention on the tensor cores, connectives in registers."""
+    counts, paths = ops.launch_counts(), ops.path_counts()
+    want = {"tiled_gemm_valid": {"mma": counts["tiled_gemm_valid"], "fma": 0},
+            "ragged_flash_attention": {"mma": counts["ragged_flash_attention"], "simt": 0},
+            "fused_connective": {"warp": counts["fused_connective"], "loop": 0}}
+    for name, p in want.items():
+        if paths[name] != p:
+            raise AssertionError(f"{what}: {name} off its fast path: {paths[name]}")
+
+
+def span_coverage(tracer, reqs):
+    """Per request: the share of its submit-to-retire extent that its
+    phase spans cover."""
+    obj = tracer.to_json()
+    names = {e["tid"]: e["args"]["name"] for e in obj["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    tids = {n: t for t, n in names.items()}
+    spans = [e for e in obj["traceEvents"] if e["ph"] == "X"]
+    cov = {}
+    for r in reqs:
+        track = [e for e in spans if e["tid"] == tids[f"req {r.uid}"]]
+        lo = min(e["ts"] for e in track)
+        hi = max(e["ts"] + e["dur"] for e in track)
+        cov[r.uid] = sum(e["dur"] for e in track) / (hi - lo) if hi > lo else 1.0
+    return cov
+
+
+def check_drift(drift, kinds, what):
+    """Drift records of each of ``kinds``, every ratio finite and > 0;
+    returns the p50 ratio per kind."""
+    import math
+
+    got = {r["kind"] for r in drift.records}
+    if not set(kinds) <= got:
+        raise AssertionError(f"{what}: drift records of {sorted(got)}, not {kinds}")
+    bad = [r for r in drift.records if not (math.isfinite(r["ratio"]) and r["ratio"] > 0)]
+    if bad:
+        raise AssertionError(f"{what}: drift ratios not finite and positive: {bad[:3]}")
+    return {k: s["p50"] for k, s in drift.summary().items()}
+
+
+def check_zoo_flash_counts(ops, rec, out, what):
+    """A paged zoo serve launched the flash kernel exactly once a layer per
+    prefill call (one-shot or chunk), every launch on the tensor cores, and
+    no other kernel.  The count adds to the kernel's record (with ``rec``
+    None, the caller adds the returned count once its calls are checked)."""
+    counts, st = ops.launch_counts(), out["stats"]
+    expect = dict.fromkeys(counts, 0)
+    expect["flash_attention"] = out["executor"].cfg.num_layers * (
+        st["prefill_oneshots"] + st["prefill_chunks"])
+    if counts != expect:
+        raise AssertionError(f"{what}: launch counts {counts} != {expect}")
+    check_flash_paths(ops, counts, what)
+    if rec is not None:
+        rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    return counts["flash_attention"]
+
+
+def phase_telemetry(torch, rec, card):
+    """Serving observability on the card.  (1) The Galaxy prefix + chunk
+    serve (GPT2-L fp16 on 3:2:2:1, 8 requests of one shared 256-token
+    prompt plus 37-300 own tokens, chunks of 128, 16 new) on a warmed
+    executor, three times with a tracer, the drift monitor and
+    ``record_times`` on and three times with all three off, in the order
+    on off off on on off, then once with ``record_times`` alone (its TTFT
+    without the tracer and drift): tokens bitwise equal, no open span,
+    every request's spans covering >= 0.95 of it, the registry's gauges
+    and histograms, drift records of both kinds, launch counts exact, the
+    trace written and parsed back; telemetry's cost on tok/s as the ratio
+    of the medians beside each side's own spread.  (2) A short traced
+    speculative serve (2 requests, k 4, 8 new, the DistilBERT-shaped
+    draft).  (3) A traced zoo serve of qwen1.5-0.5b at full size (bf16,
+    prefix cache, 256-token chunks, 4 requests, 2 slots) between two
+    untraced ones; its flash launches are returned, to be added to the
+    kernel's record once ``check_logged_flash`` has replayed their calls.
+    (4) ``HostProfiler`` on the card beside ``AnalyticProfiler``."""
+    import math
+    import os
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel
+    from repro_torch.core.profiler import AnalyticProfiler, HostProfiler
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import Tracer
+
+    ex = galaxy_executor(torch, "float16")
+    kw = dict(executor=ex, requests=8, prompt_len=(37, 300), shared_prefix=256, max_new=16,
+              max_batch=4, page_size=16, prefix_cache=True, prefill_chunk=128,
+              device="cuda", dtype="float16", seed=0)
+
+    def galaxy_serve(name, tel, **over):
+        """One serve: ``tel`` True = tracer, drift and record_times on;
+        False = all off; None = record_times alone."""
+        tracer = Tracer() if tel else None
+        ops.reset_launch_counts()
+        out = launch_serve.serve("gpt2-l", (3, 2, 2, 1), tracer=tracer, drift=bool(tel),
+                                 record_times=tel is not False, **{**kw, **over})
+        torch.cuda.synchronize()
+        check_galaxy_counts(ops, rec, out["stats"], f"telemetry {name}")
+        check_galaxy_paths(ops, f"telemetry {name}")
+        return out, tracer
+
+    # a short serve first: the allocator and first calls warm up on it
+    galaxy_serve("warm-up", False, requests=2, max_new=2)
+    order = (True, False, False, True, True, False, None)
+    runs = [galaxy_serve({True: "on", False: "off", None: "stamps"}[tel], tel)
+            for tel in order]
+    toks = [[r.output for r in out["requests"]] for out, _ in runs]
+    if any(t != toks[0] for t in toks):
+        raise AssertionError("telemetry changed the served tokens")
+    wire = ex.wire_stats()
+    for (out, tr), tel in zip(runs, order):
+        if not tel:
+            continue
+        if tr.open_spans():
+            raise AssertionError(f"open spans after the serve: {tr.open_spans()}")
+        cov = span_coverage(tr, out["requests"])
+        if min(cov.values()) < 0.95:
+            raise AssertionError(f"span coverage below 0.95: {cov}")
+        snap = out["metrics"].snapshot()
+        n_req = len(out["requests"])
+        # every request retired: the pages still in use are the prefix
+        # tree's, one full page per node
+        if (snap["histograms"]["ttft_s"]["n"] != n_req
+                or snap["gauges"]["kv_pages_used"] != snap["gauges"]["prefix_nodes"]):
+            raise AssertionError(f"ttft_s n {snap['histograms']['ttft_s']['n']} (want "
+                                 f"{n_req}), kv_pages_used {snap['gauges']['kv_pages_used']} "
+                                 f"(want the prefix tree's {snap['gauges']['prefix_nodes']} "
+                                 "pages)")
+        if {k: snap["gauges"][k] for k in wire} != wire:
+            raise AssertionError(f"ring_wire gauges {snap['gauges']} != wire_stats {wire}")
+        check_drift(out["drift"], ("decode", "prefill_chunk"), "Galaxy telemetry serve")
+    tps = {tel: [out["tokens_per_s"] for (out, _), t in zip(runs, order) if t is tel]
+           for tel in (True, False)}
+    on, tracer = runs[0]
+    stamps = runs[-1][0]
+    snap = on["metrics"].snapshot()
+    n_req = len(on["requests"])
+    cov = span_coverage(tracer, on["requests"])
+    p50 = check_drift(on["drift"], ("decode", "prefill_chunk"), "Galaxy telemetry serve")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        tracer.write(path)
+        with open(path) as f:
+            parsed = json.load(f)
+        size = os.path.getsize(path)
+    if parsed != json.loads(json.dumps(tracer.to_json())):
+        raise AssertionError("the written trace does not parse back to the tracer's events")
+    med = {tel: statistics.median(v) for tel, v in tps.items()}
+    spread = {tel: max(v) / min(v) for tel, v in tps.items()}
+    ratio = med[True] / med[False]
+    noise = max(spread.values()) - 1
+    verdict = ("within the serves' own spread: unresolved" if abs(ratio - 1) <= noise
+               else "outside the serves' own spread")
+    pairs = [tps[True][0] / tps[False][0], tps[True][1] / tps[False][1],
+             tps[True][2] / tps[False][2]]
+    log("telemetry", f"Galaxy prefix + chunk serve, GPT2-L fp16 3:2:2:1, {n_req} requests "
+        f"on a warmed executor, order on off off on on off stamps, tokens bitwise equal in "
+        f"all seven: telemetry on (tracer, drift, record_times) tok/s "
+        f"{[round(v, 4) for v in tps[True]]}, median {med[True]:.4f}, max/min "
+        f"{spread[True]:.4f}; off {[round(v, 4) for v in tps[False]]}, median "
+        f"{med[False]:.4f}, max/min {spread[False]:.4f}; on/off ratio of medians "
+        f"{ratio:.4f} (pairs {[round(v, 4) for v in pairs]}), {verdict}; TTFT p50 on "
+        f"{1e3 * on['ttft_p50_s']:.1f} ms (off: not stamped); record_times alone "
+        f"{stamps['tokens_per_s']:.4f} tok/s, TTFT p50 {1e3 * stamps['ttft_p50_s']:.1f} ms "
+        f"({card})")
+    log("telemetry", f"trace: {len(tracer.events)} events, {size} bytes written and parsed "
+        f"back, 0 open spans, span coverage min {min(cov.values()):.4f}; ttft_s n "
+        f"{snap['histograms']['ttft_s']['n']}, itl_s n {snap['histograms']['itl_s']['n']}, "
+        f"kv_pages_peak {snap['gauges']['kv_pages_peak']}, kv_pages_used at the end "
+        f"{snap['gauges']['kv_pages_used']} (the prefix tree's), prefix_hit_rate "
+        f"{snap['gauges']['prefix_hit_rate']:.3f}; wire {wire}")
+    log("telemetry", "drift measured/simulated p50 (edge cluster of Jetson Nano-L over "
+        f"1 Gbit/s priced, this card measured): "
+        + ", ".join(f"{k} {v:.4g} (n {on['drift'].summary()[k]['n']})"
+                    for k, v in p50.items()) + f" ({card})")
+    del runs, on, stamps, tracer
+
+    # (2) a short traced speculative serve
+    draft, _ = launch_serve.build_draft("galaxy", "distilbert", (3, 2, 2, 1),
+                                        device=ex.device, dtype="float16", seed=2)
+    tracer = Tracer()
+    ops.reset_launch_counts()
+    spec = launch_serve.serve("gpt2-l", (3, 2, 2, 1), executor=ex, requests=2,
+                              prompt_len=(37, 300), max_new=8, max_batch=4, page_size=16,
+                              device="cuda", dtype="float16", seed=0, draft_executor=draft,
+                              spec_k=4, tracer=tracer, drift=True)
+    torch.cuda.synchronize()
+    check_galaxy_counts(ops, rec, spec["stats"], "traced spec serve", draft=spec["spec"])
+    check_galaxy_paths(ops, "traced spec serve")
+    names = {e["name"] for e in tracer.events if e["ph"] == "X"}
+    if tracer.open_spans() or not {"spec_round", "draft_propose", "spec_verify"} <= names:
+        raise AssertionError(f"spec spans: open {tracer.open_spans()}, closed {names}")
+    sp50 = check_drift(spec["drift"], ("spec_verify",), "traced spec serve")
+    log("telemetry", f"traced spec serve (k 4, 2 requests, 8 new): "
+        f"{spec['stats']['spec_steps']} verify chunks, acceptance "
+        f"{spec['stats']['spec_acceptance']:.3f}, spans closed; drift p50 "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sp50.items()) + f" ({card})")
+    del spec, draft, ex
+    torch.cuda.empty_cache()
+
+    # (3) a traced zoo serve of qwen1.5-0.5b at full size
+    # two slots: the last two requests are admitted after the first two
+    # published their prompts, so they hit the prefix cache
+    zkw = dict(executor_kind="zoo", requests=4, prompt_len=(64, 512), shared_prefix=1024,
+               max_new=16, max_batch=2, page_size=16, prefix_cache=True, prefill_chunk=256,
+               device="cuda", dtype="bfloat16", seed=0)
+    # off, on, off: the first serve of a fresh model pays its warm-up, so
+    # telemetry on is held against the untraced serves on both sides
+    zruns, qwen_launches = {}, 0
+    for name, tel in (("off", False), ("on", True), ("off again", False)):
+        tracer = Tracer() if tel else None
+        ops.reset_launch_counts()
+        out = launch_serve.serve("qwen1.5-0.5b", tracer=tracer, drift=tel, record_times=tel,
+                                 executor=zruns["off"][0]["executor"] if zruns else None,
+                                 **zkw)
+        torch.cuda.synchronize()
+        qwen_launches += check_zoo_flash_counts(ops, None, out, f"qwen telemetry {name}")
+        zruns[name] = (out, tracer)
+    (zon, ztr), (zoff, _), (zoff2, _) = zruns["on"], zruns["off"], zruns["off again"]
+    if not ([r.output for r in zon["requests"]] == [r.output for r in zoff["requests"]]
+            == [r.output for r in zoff2["requests"]]):
+        raise AssertionError("telemetry changed the qwen1.5-0.5b tokens")
+    if ztr.open_spans() or zon["stats"]["prefix_hits"] < 1:
+        raise AssertionError(f"qwen telemetry: open spans {ztr.open_spans()}, stats "
+                             f"{zon['stats']}")
+    zp50 = check_drift(zon["drift"], ("decode", "prefill_chunk"), "qwen telemetry")
+    log("telemetry", f"{zon['plan']}: 4 requests, prompts "
+        f"{[len(r.prompt) for r in zon['requests']]}, tokens equal traced and untraced; "
+        f"on {zon['tokens_per_s']:.2f} tok/s, TTFT p50 {1e3 * zon['ttft_p50_s']:.1f} ms, "
+        f"off before and after {zoff['tokens_per_s']:.2f} / {zoff2['tokens_per_s']:.2f} "
+        f"tok/s; {len(ztr.events)} trace events; drift p50 "
+        + ", ".join(f"{k} {v:.4g}" for k, v in zp50.items()) + f" ({card})")
+    del zruns, zon, zoff, zoff2
+    torch.cuda.empty_cache()
+
+    # (4) HostProfiler on the card beside the analytic profile: five
+    # measurements of the blocks, each with the capacity it gives
+    # (1 / (MHA + MLP), as capacity() computes it from its own measurement)
+    cfg = get_config("gpt2-l")
+    hp = HostProfiler(cfg, 256, iters=20)
+    meas = [hp.measure_blocks(cfg.num_heads, cfg.d_ff) for _ in range(5)]
+    caps = [1.0 / (b["mha"] + b["mlp"]) for b in meas]
+    cap = hp.capacity()
+    vals = [v for b in meas for v in b.values()] + caps + [cap]
+    if not all(math.isfinite(v) and v > 0 for v in vals):
+        raise AssertionError(f"HostProfiler: {meas}, capacity {cap}")
+    nano = AnalyticProfiler(cfg, 256).capacity(costmodel.jetson_nano("nano-l", 4.0))
+
+    def ms_range(key):
+        v = sorted(1e3 * b[key] for b in meas)
+        return f"{statistics.median(v):.4f} ms (min {v[0]:.4f}, max {v[-1]:.4f})"
+
+    log("telemetry", f"HostProfiler GPT2-L seq 256 fp32 (TF32 off), full blocks (20 heads, "
+        f"5120 columns), 5 measurements of 20 synced iterations, median (min, max): MHA "
+        f"{ms_range('mha')}, MLP {ms_range('mlp')}, connective {ms_range('con')}; capacity "
+        f"V_d from each measurement {[round(c, 1) for c in caps]} /s, median "
+        f"{statistics.median(caps):.1f} /s; capacity() from a sixth measurement {cap:.1f} "
+        f"/s; AnalyticProfiler's Jetson Nano-L {nano:.4f} /s ({card})")
+    return qwen_launches
+
+
 def main() -> int:
     import torch
 
@@ -1702,7 +2033,10 @@ def main() -> int:
         del fp16
         torch.cuda.empty_cache()
         phase_schedules(torch, rec, card)
+        torch.cuda.empty_cache()
+        qwen_launches = phase_telemetry(torch, rec, card)
     check_logged_calls(calls, rec, torch, card)
+    rec["flash_attention"].d["launches"] += qwen_launches
     torch.cuda.empty_cache()
 
     phase_zoo_kernels(rec, torch)

@@ -1,8 +1,12 @@
-"""Analytic device/link cost model (numpy), the planner's input.
+"""Analytic device/link cost model (numpy), the planner's and the
+simulator's input.
 
 Devices and links describe the edge cluster the planner partitions for,
-not the GPU the port runs on; memory footprints are fp16 parameter bytes
-(paper §II-B).
+not the GPU the port runs on.  Calibrated against the paper's own
+measurements (§II-B Table I): Bert-L (24 layers, d 1024) at seq 30 on a
+Nano-M (0.825 GHz) takes 2.43 s, ~8.6 GFLOP/s per GHz of the quad A53,
+and the same constant predicts DistilBert at 0.36 s (paper: 0.37 s).
+Memory footprints are fp16 parameter bytes (paper §II-B).
 """
 from __future__ import annotations
 
@@ -11,6 +15,11 @@ from typing import Dict, List, Sequence, Union
 
 from repro_torch.configs.base import ModelConfig
 
+# --- edge devices ------------------------------------------------------------
+
+GFLOPS_PER_GHZ = 8.6e9           # calibrated vs paper Table I (CPU mode)
+NANO_MEM_BW = 4.0e9              # effective LPDDR4 bandwidth under CPU load
+NANO_GPU_GFLOPS = 120e9          # 128-core Maxwell @460MHz, ~fp16 effective
 BYTES_FP16 = 2
 # The paper's prototype (PyTorch + gloo on CPU) synchronizes fp32 activation
 # tensors even when weights are fp16 — gloo has no fp16 ring collectives.
@@ -23,6 +32,33 @@ class DeviceSpec:
     flops: float            # effective FLOP/s
     mem_bw: float           # effective bytes/s
     memory_budget: float    # bytes usable for weights
+
+
+def jetson_nano(kind: str, memory_budget_gb: float) -> DeviceSpec:
+    freq = {"nano-l": 1.47e9, "nano-m": 0.825e9, "nano-s": 0.403e9}[kind]
+    return DeviceSpec(
+        name=kind,
+        flops=GFLOPS_PER_GHZ * freq / 1e9,
+        mem_bw=NANO_MEM_BW,
+        memory_budget=memory_budget_gb * 1e9,
+    )
+
+
+def jetson_nano_gpu(memory_budget_gb: float = 1.5) -> DeviceSpec:
+    return DeviceSpec("nano-gpu", NANO_GPU_GFLOPS, 12e9, memory_budget_gb * 1e9)
+
+
+def edge_env(env_id: str) -> List[DeviceSpec]:
+    """The paper's edge environments A-F (Table III)."""
+    n = jetson_nano
+    return {
+        "A": [n("nano-m", 1.5)] * 2,
+        "B": [n("nano-m", 1.5)] * 3,
+        "C": [n("nano-m", 1.5)] * 4,
+        "D": [n("nano-l", 1.5), n("nano-m", 1.2)],
+        "E": [n("nano-l", 1.5), n("nano-s", 0.7)],
+        "F": [n("nano-l", 1.5), n("nano-m", 1.2), n("nano-s", 0.7)],
+    }[env_id]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +86,11 @@ def as_ring_links(link: Links, d: int) -> List[LinkSpec]:
     return links
 
 
+def bottleneck_link(link: Links, d: int) -> LinkSpec:
+    """Slowest hop: what gates a synchronized full-tensor ring collective."""
+    return min(as_ring_links(link, d), key=lambda l: l.bandwidth)
+
+
 def t_ring_exchange(tile_bytes: Sequence[float], link: Links) -> float:
     """Total time of one D-1-step ring rotation of (possibly uneven) tiles.
 
@@ -69,6 +110,28 @@ def t_ring_exchange(tile_bytes: Sequence[float], link: Links) -> float:
         )
     return total
 
+
+# --- collective cost (ring algorithms, paper §III-B-5) ------------------------
+
+def t_allgather(n_bytes: float, d: int, link: LinkSpec) -> float:
+    """Ring AllGather of a global tensor of n_bytes (each device holds n/D)."""
+    if d <= 1:
+        return 0.0
+    return (d - 1) / d * n_bytes / link.bandwidth + (d - 1) * link.latency
+
+
+def t_reducescatter(n_bytes: float, d: int, link: LinkSpec) -> float:
+    if d <= 1:
+        return 0.0
+    return (d - 1) / d * n_bytes / link.bandwidth + (d - 1) * link.latency
+
+
+def t_allreduce(n_bytes: float, d: int, link: LinkSpec) -> float:
+    """Ring AllReduce = ReduceScatter + AllGather (paper §III-B-5)."""
+    return t_allgather(n_bytes, d, link) + t_reducescatter(n_bytes, d, link)
+
+
+# --- per-layer workload profile of a paper-style Transformer layer ------------
 
 def layer_profile(cfg: ModelConfig, seq: int) -> Dict[str, float]:
     """FLOPs / bytes of one Transformer layer (Fig. 2) at a sequence length."""
@@ -93,6 +156,22 @@ def layer_profile(cfg: ModelConfig, seq: int) -> Dict[str, float]:
     }
 
 
+def gemm_unit_flops(d_model: int, head_dim: int) -> Dict[str, float]:
+    """Dense GEMM FLOPs one partition unit costs per sequence row.
+
+    One MHA head: its QKV projection columns (3 x 2·d·hd) plus its WO rows
+    (2·hd·d).  One MLP column: its W1 column (2·d) plus its W2 row (2·d).
+    ``ExecPlan.device_gemm_flops`` prices units with this.
+    """
+    return {"head": 8 * d_model * head_dim, "column": 4 * d_model}
+
+
+def model_memory_bytes(cfg: ModelConfig) -> float:
+    prof = layer_profile(cfg, 1)
+    embed = cfg.vocab_size * cfg.d_model * BYTES_FP16
+    return cfg.num_layers * (prof["m_att"] + prof["m_mlp"]) + embed
+
+
 # --- speculative decoding (serving/spec.py) -----------------------------------
 
 def spec_expected_tokens(acceptance: float, k: int) -> float:
@@ -111,3 +190,32 @@ def spec_expected_tokens(acceptance: float, k: int) -> float:
     if acceptance == 1.0:
         return float(k + 1)
     return (1.0 - acceptance ** (k + 1)) / (1.0 - acceptance)
+
+
+# --- calibration hooks --------------------------------------------------------
+
+# constants a measured-vs-simulated loop may override; TILE_OVERHEAD belongs
+# to the simulator (which imports this module), so it is resolved lazily
+_CALIBRATABLE = ("GFLOPS_PER_GHZ", "NANO_MEM_BW", "BYTES_ACT", "TILE_OVERHEAD")
+
+
+def apply_calibration(overrides: Dict[str, float]) -> Dict[str, float]:
+    """Override calibratable cost-model constants; returns the previous
+    values so a calibration experiment can restore them (try/finally).
+    Unknown names are refused before anything is touched."""
+    unknown = set(overrides) - set(_CALIBRATABLE)
+    if unknown:
+        raise ValueError(
+            f"{sorted(unknown)} are not calibratable (one of {_CALIBRATABLE})"
+        )
+    previous: Dict[str, float] = {}
+    for name, value in overrides.items():
+        if name == "TILE_OVERHEAD":
+            from repro_torch.core import simulator
+
+            previous[name] = simulator.TILE_OVERHEAD
+            simulator.TILE_OVERHEAD = float(value)
+        else:
+            previous[name] = globals()[name]
+            globals()[name] = float(value)
+    return previous

@@ -27,8 +27,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import planner
-from repro_torch.core.ring import RING_TRANSPORTS, RingSchedule
+from repro_torch.core import costmodel, planner
+from repro_torch.core.ring import BUCKETS_PER_TILE, RING_TRANSPORTS, RingSchedule
 
 #: per-shard compute paths (see module docstring)
 COMPUTE_BACKENDS = ("eager", "kernel")
@@ -83,6 +83,11 @@ class SeqLayout:
         return self.padded_len == self.seq
 
     @functools.cached_property
+    def offsets(self) -> np.ndarray:
+        """(D,) first real position owned by each device."""
+        return np.concatenate([[0], np.cumsum(self.tiles)[:-1]]).astype(int)
+
+    @functools.cached_property
     def rows(self) -> np.ndarray:
         """(seq,) padded-row index of each real position."""
         return np.concatenate(
@@ -126,6 +131,10 @@ class SeqLayout:
         if self.is_dense:
             return y
         return y[:, torch.as_tensor(self.rows, device=y.device)]
+
+    def padding_waste(self) -> float:
+        """Fraction of executed sequence rows that are pad."""
+        return 1.0 - self.seq / self.padded_len
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,6 +259,10 @@ class ExecPlan:
     def padded_ff(self) -> int:
         return self.num_devices * self.pad_columns
 
+    @property
+    def is_even(self) -> bool:
+        return len(set(self.heads)) == 1 and len(set(self.columns)) == 1
+
     # --- sequence geometry (ragged SP axis) -----------------------------------
     @property
     def seq_fractions(self) -> np.ndarray:
@@ -258,6 +271,10 @@ class ExecPlan:
             return np.full(self.num_devices, 1.0 / self.num_devices)
         s = np.asarray(self.seq_shares, float)
         return s / s.sum()
+
+    @property
+    def uneven_seq(self) -> bool:
+        return bool(np.ptp(self.seq_fractions) > 1e-12)
 
     def seq_tiles(self, seq: int) -> Tuple[int, ...]:
         """Integer per-device sequence tiles for a given length (sum = seq)."""
@@ -269,6 +286,14 @@ class ExecPlan:
     def seq_layout(self, seq: int) -> SeqLayout:
         """Padded ragged layout of a ``seq``-row sequence under this plan."""
         return SeqLayout(self.seq_tiles(seq))
+
+    def seq_tile(self, seq: int) -> int:
+        """Per-device sequence rows after padding (= the straggler's tile)."""
+        return self.seq_layout(seq).pad_tile
+
+    def padded_seq(self, seq: int) -> int:
+        """Global rows of the padded ragged layout (= D * seq_tile)."""
+        return self.seq_layout(seq).padded_len
 
     @property
     def seq_grain(self) -> int:
@@ -290,6 +315,33 @@ class ExecPlan:
             layout.tiles, pad_tile=layout.pad_tile, transport=self.transport,
             double_buffer=self.double_buffer, gemm=gemm,
         )
+
+    def wire_fractions(self) -> np.ndarray:
+        """(D,) fraction of the logical sequence each device's hop ships, in
+        the large-seq limit (tiles -> shares).  Padded transport always
+        ships the straggler's ``max(fraction)`` tile; bucketed transport
+        ships each tile rounded up to the ``BUCKETS_PER_TILE`` grain, the
+        rounding ``RingSchedule.ragged`` applies to integer tiles."""
+        f = self.seq_fractions
+        top = float(f.max())
+        if self.transport != "bucketed":
+            return np.full(self.num_devices, top)
+        grain = top / BUCKETS_PER_TILE
+        return np.minimum(top, np.ceil(f / grain - 1e-9) * grain)
+
+    # --- masks ----------------------------------------------------------------
+    def head_mask(self) -> np.ndarray:
+        """Bool (padded_heads,): which padded head slots hold real heads."""
+        m = np.zeros(self.padded_heads, bool)
+        for d, c in enumerate(self.heads):
+            m[d * self.pad_heads : d * self.pad_heads + c] = True
+        return m
+
+    def column_mask(self) -> np.ndarray:
+        m = np.zeros(self.padded_ff, bool)
+        for d, c in enumerate(self.columns):
+            m[d * self.pad_columns : d * self.pad_columns + c] = True
+        return m
 
     # --- parameter materialization --------------------------------------------
     def _counts(self, kind: str) -> Tuple[Sequence[int], int]:
@@ -344,6 +396,92 @@ class ExecPlan:
         if self.is_padded(p):
             return p
         return self.pad_layer_params(p)
+
+    # --- paged KV geometry ----------------------------------------------------
+    def kv_page_bytes(self, page_size: int, dtype_bytes: int = 4) -> int:
+        """Bytes of one K+V pool page for one layer under this plan's padded
+        head layout: page memory scales with ``padded_heads``."""
+        return 2 * page_size * self.padded_heads * self.head_dim * dtype_bytes
+
+    # --- scoring hooks (core/simulator.py) ------------------------------------
+    def compute_fractions(self, padded: bool = False):
+        """(mha_frac, mlp_frac): per-device share of each block's total work.
+
+        ``padded=False`` is the planner's assigned workload (paper Eq. 4/5);
+        ``padded=True`` is what the padded program executes: every device
+        runs ``max(units)`` dense units, zeros included.
+        """
+        if padded:
+            a = np.full(self.num_devices, self.pad_heads / self.num_heads)
+            b = np.full(self.num_devices, self.pad_columns / self.d_ff)
+        else:
+            a = np.asarray(self.heads) / self.num_heads
+            b = np.asarray(self.columns) / self.d_ff
+        return a, b
+
+    def to_planner_plan(self, padded: bool = False) -> planner.Plan:
+        """Re-express as a ``planner.Plan`` for simulator scoring.
+
+        ``padded=True`` is the padded execution view.  With the "eager"
+        backend every device runs ``max(units)`` heads/columns and holds
+        (and ships) the straggler's ``max(fraction)`` sequence tile; the
+        "kernel" backend skips pad blocks, so the compute axes score the
+        assigned units and only the transport/connective side carries the
+        padded sequence tile."""
+        n = self.num_devices
+        shed = padded and self.compute_backend == "kernel"
+        dense = not padded or shed
+        heads = np.asarray(self.heads) if dense else np.full(n, self.pad_heads)
+        cols = np.asarray(self.columns) if dense else np.full(n, self.pad_columns)
+        frac = self.seq_fractions
+        seq = np.full(n, float(frac.max())) if padded else frac
+        # bucketed transport ships bucket-rounded rows whatever the compute
+        # view; padded transport prices whatever ``seq`` carries
+        wire = self.wire_fractions() if self.transport == "bucketed" else None
+        return planner.Plan(
+            mha=heads.astype(int), mlp=cols.astype(int),
+            seq=seq, feasible=True, seq_wire=wire,
+        )
+
+    def device_gemm_flops(self, seq: int = 1, padded: bool = False) -> np.ndarray:
+        """(D,) dense per-shard GEMM FLOPs of one layer over ``seq`` rows,
+        units priced by ``costmodel.gemm_unit_flops``.  ``padded=True`` is
+        every device at ``max(units)``; the default is the assigned
+        workload the kernel backend runs."""
+        unit = costmodel.gemm_unit_flops(self.d_model, self.head_dim)
+        heads = (np.full(self.num_devices, self.pad_heads) if padded
+                 else np.asarray(self.heads))
+        cols = (np.full(self.num_devices, self.pad_columns) if padded
+                else np.asarray(self.columns))
+        return seq * (heads * unit["head"] + cols * unit["column"]).astype(float)
+
+    def prefill_gemm_flops(self, seq: int, cached_prefix: int = 0,
+                           padded: bool = False) -> np.ndarray:
+        """(D,) per-shard GEMM FLOPs of one layer's prefill when the leading
+        ``cached_prefix`` positions are prefix-cache hits: projections and
+        MLP run over the uncached suffix only."""
+        if not 0 <= cached_prefix < seq:
+            raise ValueError(
+                f"cached_prefix {cached_prefix} must lie in [0, seq={seq})"
+            )
+        return self.device_gemm_flops(seq - cached_prefix, padded=padded)
+
+    def flops_shed(self) -> float:
+        """Fraction of padded dense GEMM FLOPs the kernel backend skips."""
+        eff = self.device_gemm_flops().sum()
+        pad = self.device_gemm_flops(padded=True).sum()
+        return 1.0 - eff / pad
+
+    def padding_waste(self) -> float:
+        """Fraction of executed dense units that are zero padding."""
+        real = self.num_heads + self.d_ff
+        executed = self.padded_heads + self.padded_ff
+        return 1.0 - real / executed
+
+    def seq_padding_waste(self) -> float:
+        """Fraction of executed sequence rows that are pad, in the large-seq
+        limit (tiles -> shares): 1 - 1 / (D * max(fraction))."""
+        return 1.0 - 1.0 / (self.num_devices * float(self.seq_fractions.max()))
 
     def describe(self) -> str:
         f = self.seq_fractions

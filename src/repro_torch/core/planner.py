@@ -48,6 +48,9 @@ class Plan:
     seq: np.ndarray        # sequence fractions (S)
     feasible: bool
     reason: str = ""
+    # sequence fraction each ring hop ships per device (bucketed transport,
+    # ``ExecPlan.wire_fractions``); None: the hops ship ``seq``
+    seq_wire: Optional[np.ndarray] = None
 
 
 def _largest_remainder_round(shares: np.ndarray, total: int) -> np.ndarray:
@@ -302,3 +305,30 @@ def plan(
     if np.any(total > np.asarray(budgets)):
         return Plan(a2, b2, seq, False, "OOM persists after redistribution")
     return Plan(a2, b2, seq, True)
+
+
+def block_latency(units: int, total_units: int, total_flops: float, capacity: float) -> float:
+    """L(T, C_d, d): execution latency of a block shard on one device."""
+    return (units / total_units) * total_flops / capacity
+
+
+def plan_latency(
+    plan_: Plan,
+    model: ModelProfile,
+    devices: Sequence[DeviceProfile],
+    mha_flops: float,
+    mlp_flops: float,
+    con_time_full: float,
+) -> float:
+    """Eq. 4/5 objective: per-layer straggler latency under a plan
+    (capacity normalized so total_flops / capacity = seconds)."""
+    t_mha = max(
+        block_latency(int(a), model.num_heads, mha_flops, d.capacity)
+        for a, d in zip(plan_.mha, devices)
+    )
+    t_mlp = max(
+        block_latency(int(b), model.mlp_columns, mlp_flops, d.capacity)
+        for b, d in zip(plan_.mlp, devices)
+    )
+    t_con = con_time_full * float(np.max(plan_.seq))
+    return t_mha + t_mlp + t_con

@@ -38,6 +38,15 @@ model whose weights do not fit one card (qwen1.5-110b) is refused.
 Both executors take the prefix cache and chunks, and ``--scheduler
 wave``.
 
+``--trace OUT.json`` records request and engine spans and writes them as
+Chrome trace-event JSON (``chrome://tracing``, ui.perfetto.dev);
+``--metrics`` prints the metrics registry's snapshot and its Prometheus
+text; ``--drift`` prices every executed step with the planner's simulator
+(``core/simulator.make_step_pricer``: the Galaxy executor's own plan, a
+zoo model as a one-device even plan, on Jetson Nano-L devices over
+1 Gbit/s links) and prints the measured/simulated ratios per step kind.
+Drift syncs the card once per prefill chunk; the tracer never syncs.
+
 ``--draft-model M --spec-k K``: speculative decoding (``serving/spec.py``,
 greedy and continuous scheduler only).  The draft proposes K tokens per
 round and the served model verifies them in one ``prefill_chunk``.  With
@@ -67,7 +76,9 @@ from repro_torch.core import costmodel, hmp
 from repro_torch.core.execplan import ExecPlan
 from repro_torch.core.profiler import AnalyticProfiler
 from repro_torch.core.ring import LocalRing
+from repro_torch.core.simulator import make_step_pricer
 from repro_torch.models.params import init_params
+from repro_torch.obs import DriftMonitor, Tracer
 from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
 from repro_torch.serving.sampler import SamplerConfig
@@ -165,6 +176,21 @@ def make_requests(cfg: ModelConfig, n: int, prompt_len: Tuple[int, int],
             for i, tail in enumerate(tails)]
 
 
+def make_drift(cfg: ModelConfig,
+               executor: Union[GalaxyHMPExecutor, TransformerExecutor]) -> DriftMonitor:
+    """A drift monitor pricing each served step on the simulated edge
+    cluster: the Galaxy executor's own plan, a zoo executor as a
+    one-device even plan, every device a Jetson Nano-L with a 4 GB budget,
+    1 Gbit/s links."""
+    if isinstance(executor, GalaxyHMPExecutor):
+        eplan = executor.plan
+    else:
+        eplan = ExecPlan.even(1, num_heads=cfg.num_heads, d_ff=cfg.d_ff,
+                              head_dim=cfg.head_dim, d_model=cfg.d_model)
+    devices = [costmodel.jetson_nano("nano-l", 4.0) for _ in range(eplan.num_devices)]
+    return DriftMonitor(make_step_pricer(eplan, cfg, devices, costmodel.mbps(1000)))
+
+
 def describe_zoo(cfg: ModelConfig, scheduler: str) -> str:
     pattern = ",".join(cfg.block_pattern)
     return (f"{cfg.name}: {cfg.num_layers} layers ({cfg.num_groups} x [{pattern}] + "
@@ -194,7 +220,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           prefill_chunk: Optional[int] = None, shared_prefix: Optional[int] = None,
           executor: Optional[Union[GalaxyHMPExecutor, TransformerExecutor]] = None,
           draft_model: Optional[str] = None, spec_k: Optional[int] = None,
-          draft_executor=None, temperature: float = 0.0) -> Dict:
+          draft_executor=None, temperature: float = 0.0,
+          tracer: Optional[Tracer] = None, drift: bool = False,
+          record_times: bool = True) -> Dict:
     """Build (or take) the executor, serve random prompts and return the
     finished requests, throughput and latency figures, the engine's stats
     and prefix-cache stats, its pool, and the executor (whose weights a
@@ -207,7 +235,10 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     defaults to the model's serving dtype; ``reduce`` serves the model's
     small variant.  ``draft_model`` (or a built ``draft_executor``) with
     ``spec_k`` turns on speculative decoding; ``temperature`` 0 is
-    greedy."""
+    greedy.  ``tracer`` records the serve's spans, ``drift`` prices each
+    step (``make_drift``; the monitor is returned as ``"drift"``), and
+    ``record_times`` stamps each token (TTFT, the latency histograms); the
+    engine's registry is returned as ``"metrics"``."""
     dev = resolve_device(device)
     if executor_kind not in EXECUTORS:
         raise ValueError(f"unknown executor {executor_kind!r}; one of {EXECUTORS}")
@@ -250,12 +281,15 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         shared_prefix = max_prompt // 2 if prefix_cache else 0
     reqs = make_requests(cfg, requests, prompt_len, max_new, seed, lens=prompt_lens,
                          shared_prefix=shared_prefix)
+    monitor = make_drift(cfg, executor) if drift else None
     engine = ServingEngine(executor=executor, max_batch=max_batch,
                            max_len=shared_prefix + max_prompt + max_new,
-                           record_times=True, scheduler=scheduler, page_size=page_size,
-                           prefix_cache=prefix_cache, prefill_chunk=prefill_chunk,
+                           record_times=record_times, scheduler=scheduler,
+                           page_size=page_size, prefix_cache=prefix_cache,
+                           prefill_chunk=prefill_chunk,
                            sampler=SamplerConfig(temperature=temperature),
-                           draft_executor=draft_executor, spec_k=spec_k)
+                           draft_executor=draft_executor, spec_k=spec_k,
+                           tracer=tracer, drift=monitor)
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -277,6 +311,8 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "tokens_per_s": new_tokens / seconds,
         "ttft_p50_s": float(np.median(ttft)) if ttft else float("nan"),
         "stats": dict(engine.stats),
+        "metrics": engine.metrics,
+        "drift": monitor,
         "prefix_stats": engine.prefix_stats,
         "pool": engine.pool,
         "executor": executor,
@@ -381,17 +417,42 @@ def main(argv=None):
                     help="serve the model's small variant (configs.reduced), "
                          "e.g. for a CPU run")
     add_scheduling_args(ap)
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record request/engine spans and write Chrome trace-event "
+                         "JSON (chrome://tracing, ui.perfetto.dev)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the metrics registry snapshot (TTFT/ITL percentiles, "
+                         "pool occupancy, hit/acceptance rates) and its Prometheus "
+                         "text rendering")
+    ap.add_argument("--drift", action="store_true",
+                    help="price every executed step with the planner's simulator "
+                         "(core/simulator.make_step_pricer) and report "
+                         "measured/simulated drift ratios (syncs once per prefill "
+                         "chunk)")
     args = ap.parse_args(argv)
+    tracer = Tracer() if args.trace is not None else None
     out = serve(args.model, [float(c) for c in args.capacities.split(",")],
                 executor_kind=args.executor, requests=args.requests,
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=args.device, dtype=args.dtype, seed=args.seed,
-                reduce=args.reduce, **scheduling_kwargs(args))
+                reduce=args.reduce, tracer=tracer, drift=args.drift,
+                **scheduling_kwargs(args))
     print(out["plan"])
     print(json.dumps({k: v for k, v in out.items()
                       if k not in ("plan", "requests", "pool", "executor",
-                                   "draft_executor", "spec")}))
+                                   "draft_executor", "spec", "metrics", "drift")}))
+    if tracer is not None:
+        tracer.write(args.trace)
+        print(f"trace: {len(tracer.events)} events -> {args.trace}")
+    if args.metrics:
+        print("metrics snapshot:")
+        print(json.dumps(out["metrics"].snapshot(), indent=2, default=float))
+        print(out["metrics"].to_prometheus(), end="")
+    if args.drift:
+        print("sim-vs-measured drift (measured/simulated ratio):")
+        for kind, s in out["drift"].summary().items():
+            print(f"  {kind}: n={s['n']} p50={s['p50']:.2f} p95={s['p95']:.2f}")
 
 
 if __name__ == "__main__":

@@ -40,9 +40,27 @@ and **speculative decoding** (``draft_executor=``, ``spec_k=``): a draft
 executor proposes ``spec_k`` greedy tokens per live slot and the target
 verifies them in one ``prefill_chunk`` (``serving/spec.py``).
 
-The reference's tracer, drift monitor and metrics registry wait for the
-port of ``obs/``; ``stats`` is a plain dict here, and
-``spec_acceptance`` is filled in at the end of ``run()``.
+Observability (``repro_torch.obs``): every engine owns a
+:class:`~repro_torch.obs.metrics.MetricsRegistry` (``engine.metrics``) and
+``engine.stats`` is a read/write facade over it (:class:`EngineStats`);
+``reset_stats()`` zeroes the run scope while the lifetime scope keeps
+accumulating.  Two opt-in hooks add the costly signals:
+
+* ``tracer=`` (:class:`~repro_torch.obs.trace.Tracer`) records spans for
+  the whole request lifecycle (submit, queued, prefix lookup, each
+  prefill chunk, each decode step or speculative round, rollback,
+  retire) on one track per request and an engine-loop track, exportable
+  as Chrome trace-event JSON.  The tracer never synchronizes the device,
+  and a run without an enabled tracer makes no tracing call.
+* ``drift=`` (:class:`~repro_torch.obs.drift.DriftMonitor`) prices each
+  executed step with the planner's simulator and histograms
+  measured/simulated.  It adds one ``torch.cuda.synchronize()`` per
+  prefill chunk so chunk ratios are wall time (decode steps and verify
+  chunks already sync at sampling).
+
+The TTFT and inter-token-latency histograms (``ttft_s``, ``itl_s``) fill
+from the ``record_times`` stamps at retirement.  Neither hook perturbs
+sampling: greedy tokens are bitwise equal with telemetry on or off.
 """
 from __future__ import annotations
 
@@ -50,6 +68,7 @@ import dataclasses
 import math
 import time
 from collections import defaultdict, deque
+from collections.abc import MutableMapping
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -58,6 +77,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.execplan import COMPUTE_BACKENDS
 from repro_torch.models.transformer import apply_model
+from repro_torch.obs.drift import DriftMonitor
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import RequestTracks, Tracer
 from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -277,32 +299,95 @@ class _PrefillTask:
     next_off: int
 
 
-#: the engine's counters; ``peak_shared_pages`` is a maximum, and
-#: ``prefill_oneshots`` (prefills that ran as one ``prefill_paged`` call,
-#: beside ``prefill_chunks``) and ``prefill_waves`` (wave prefills) are the
-#: port's own.  A speculative round counts one ``decode_steps`` per verified
-#: slot, as in the reference.
-STAT_KEYS = ("requests", "prefill_tokens", "decode_steps", "decode_tokens",
-             "prefill_chunks", "prefill_oneshots", "prefill_waves", "prefix_hits",
-             "cached_prefix_tokens", "peak_shared_pages", "spec_steps",
-             "spec_proposed", "spec_accepted")
+class EngineStats(MutableMapping):
+    """The engine's stats as a mapping, a facade over its registry.
+
+    Counters read and write straight through to the
+    :class:`~repro_torch.obs.metrics.MetricsRegistry`
+    (``stats["prefill_tokens"] += n``), and so does the
+    ``peak_shared_pages`` gauge.  ``prefill_oneshots`` (prefills that ran
+    as one ``prefill_paged`` call, beside ``prefill_chunks``) and
+    ``prefill_waves`` (wave prefills) are the port's own counters.  A
+    speculative round counts one ``decode_steps`` per verified slot, as in
+    the reference.
+
+    Derived keys are computed on read and refuse assignment:
+    ``spec_acceptance`` from the accepted/proposed counters,
+    ``spec_accept_counts`` (accepted drafts per round -> rounds) as the
+    value-count view of the ``spec_accepted_per_round`` histogram.
+    """
+
+    _COUNTERS = ("requests", "prefill_tokens", "decode_steps", "decode_tokens",
+                 "prefill_chunks", "prefill_oneshots", "prefill_waves", "prefix_hits",
+                 "cached_prefix_tokens", "spec_steps", "spec_proposed", "spec_accepted")
+    _KEYS = _COUNTERS + ("peak_shared_pages", "spec_acceptance", "spec_accept_counts")
+
+    def __init__(self, metrics: MetricsRegistry):
+        self._m = metrics
+        for k in self._COUNTERS:
+            metrics.counter(k)
+        metrics.gauge("peak_shared_pages")
+        metrics.histogram("spec_accepted_per_round",
+                          "draft tokens accepted per speculative round")
+
+    def __getitem__(self, key):
+        if key in self._COUNTERS:
+            return self._m.counter(key).value
+        if key == "peak_shared_pages":
+            return int(self._m.gauge(key).value)
+        if key == "spec_acceptance":
+            proposed = self._m.counter("spec_proposed").value
+            return (self._m.counter("spec_accepted").value / proposed
+                    if proposed else 0.0)
+        if key == "spec_accept_counts":
+            return {int(v): n for v, n in sorted(
+                self._m.histogram("spec_accepted_per_round").value_counts().items())}
+        raise KeyError(key)
+
+    def __setitem__(self, key, value):
+        if key in self._COUNTERS:
+            self._m.counter(key).set_run(value)
+        elif key == "peak_shared_pages":
+            self._m.gauge(key).set(int(value))
+        else:
+            raise TypeError(f"stats[{key!r}] is derived from the metrics registry "
+                            f"and cannot be assigned")
+
+    def __delitem__(self, key):
+        raise TypeError("engine stats keys are fixed")
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+    def __eq__(self, other):
+        if isinstance(other, (dict, MutableMapping)):
+            return dict(self) == dict(other)
+        return NotImplemented
 
 
 class ServingEngine:
-    """Serving engine over an executor.  ``stats`` counts requests,
-    computed prompt tokens (the uncached suffix under prefix hits), decode
-    steps and tokens, prefill calls, prefix-cache hits and speculative
-    rounds of the engine's runs, with ``spec_accept_counts`` (accepted
-    drafts per round -> rounds) and ``spec_acceptance`` (accepted /
-    proposed, set at the end of each run); ``prefix_stats`` holds the
-    prefix tree's own stats after a run with ``prefix_cache=True``."""
+    """Serving engine over an executor.  ``stats`` (:class:`EngineStats`)
+    counts requests, computed prompt tokens (the uncached suffix under
+    prefix hits), decode steps and tokens, prefill calls, prefix-cache hits
+    and speculative rounds of the engine's runs since the last
+    ``reset_stats()``; ``metrics`` is the registry behind it, with the
+    gauges and histograms; ``prefix_stats`` holds the prefix tree's own
+    stats after a run with ``prefix_cache=True``."""
 
     def __init__(self, executor, *, max_batch: int = 8, max_len: int = 512,
                  sampler: SamplerConfig = SamplerConfig(), rng_seed: int = 0,
                  scheduler: str = "auto", page_size: int = 16,
                  num_pages: Optional[int] = None, record_times: bool = False,
                  prefix_cache: bool = False, prefill_chunk: Optional[int] = None,
-                 draft_executor=None, spec_k: Optional[int] = None):
+                 draft_executor=None, spec_k: Optional[int] = None,
+                 tracer: Optional[Tracer] = None, drift: Optional[DriftMonitor] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         if scheduler not in ("auto", "continuous", "wave"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if scheduler == "continuous" and not getattr(executor, "supports_paged", False):
@@ -345,18 +430,35 @@ class ServingEngine:
         self.draft_executor = draft_executor
         self.spec_k = spec_k
         self.queue: deque = deque()
-        self.stats: Dict = dict.fromkeys(STAT_KEYS, 0)
-        self.stats["spec_accept_counts"] = {}
-        self.stats["spec_acceptance"] = 0.0
+        # the registry is always live (it is the stats' storage); span
+        # tracing and drift pricing are the opt-in hooks
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.stats = EngineStats(self.metrics)
+        self.tracer = tracer
+        self._trace = tracer if (tracer is not None and tracer.enabled) else None
+        self._tracks = RequestTracks(self._trace) if self._trace is not None else None
+        self.drift = drift
+        if drift is not None and drift.registry is None:
+            drift.registry = self.metrics
         self.pool: Optional[PagedKVPool] = None
         self.spec: Optional[SpeculativeDecoder] = None
         self.prefix_stats: Optional[Dict] = None
+
+    def reset_stats(self) -> None:
+        """Zero the run scope of the stats (counters, gauges, histograms);
+        the lifetime scope (``metrics.snapshot("lifetime")``) keeps
+        accumulating across resets."""
+        self.metrics.reset_run()
+        self.prefix_stats = None
 
     def submit(self, req: Request) -> None:
         if self.record_times:
             req.submit_time = time.perf_counter()
         self.queue.append(req)
         self.stats["requests"] += 1
+        if self._tracks is not None:
+            self._tracks.submit(req.uid)
+        self.metrics.gauge("queue_depth").set(len(self.queue))
 
     def _sample(self, logits) -> np.ndarray:
         return sample(logits, self.generator, self.sampler).cpu().numpy()
@@ -368,7 +470,9 @@ class ServingEngine:
         return sample_positions(logits, self.generator, self.sampler).cpu().numpy()
 
     def _emit(self, r: Request, token: int, limit: int) -> bool:
-        """Append one token; returns True if the request just finished."""
+        """Append one token; returns True if the request just finished.
+        No telemetry call lives here: the TTFT/ITL histograms fill from the
+        ``token_times`` stamps at retirement (:meth:`_retire_obs`)."""
         r.output.append(token)
         if self.record_times:
             r.token_times.append(time.perf_counter())
@@ -377,6 +481,29 @@ class ServingEngine:
             return True
         return False
 
+    def _retire_obs(self, r: Request, **span_args) -> None:
+        """At a request's completion: close its span track and fill the
+        latency histograms from its ``record_times`` stamps (TTFT = first
+        token - submit; ITL = consecutive gaps)."""
+        if self._tracks is not None and self._tracks.is_open(r.uid):
+            self._tracks.finish(r.uid, tokens=len(r.output), **span_args)
+        if r.submit_time is not None and r.token_times:
+            self.metrics.histogram("ttft_s", "time to first token (s)").observe(
+                r.token_times[0] - r.submit_time)
+            itl = self.metrics.histogram("itl_s", "inter-token latency (s)")
+            ts = r.token_times
+            for a, b in zip(ts, ts[1:]):
+                itl.observe(b - a)
+
+    def _pool_gauges(self, pool: PagedKVPool) -> None:
+        """KV-pool gauges, updated at admission and retirement boundaries."""
+        m = self.metrics
+        used = pool.used_pages
+        m.gauge("kv_pages_used").set(used)
+        m.gauge("kv_pool_occupancy", "used / usable pool pages").set(pool.occupancy())
+        m.gauge("kv_pages_peak", "peak pages used").set_max(used)
+        m.gauge("kv_shared_pages").set(pool.shared_page_count())
+
     def run(self) -> List[Request]:
         """Drain the queue; returns all completed requests."""
         mode = self.scheduler
@@ -384,12 +511,7 @@ class ServingEngine:
             mode = ("continuous"
                     if getattr(self.executor, "supports_paged", False) else "wave")
         if mode == "continuous":
-            out = self._run_continuous()
-            st = self.stats
-            st["spec_accept_counts"] = dict(sorted(st["spec_accept_counts"].items()))
-            st["spec_acceptance"] = (st["spec_accepted"] / st["spec_proposed"]
-                                     if st["spec_proposed"] else 0.0)
-            return out
+            return self._run_continuous()
         if self.spec_k is not None:
             raise ValueError("speculative decoding requires the continuous scheduler, "
                              "but this executor only supports the wave path")
@@ -411,6 +533,16 @@ class ServingEngine:
         storage = ex.make_pool(total_pages, ps)
         pcache = PrefixCache(pool, grain=grain) if self.prefix_cache else None
         self.pool = pool  # introspection (tests / benches)
+        # telemetry locals: `tr is None` short-circuits every tracing call
+        # site below, so a run without a tracer makes no tracing call
+        tr = self._trace
+        tracks = self._tracks
+        drift = self.drift
+        wire_stats = getattr(ex, "wire_stats", None)
+        if wire_stats is not None:
+            for name, value in wire_stats().items():
+                self.metrics.gauge(name).set(value)
+        self._pool_gauges(pool)
         spec = None
         if self.spec_k is not None:
             # the draft pool mirrors the target pool's geometry, so slot
@@ -436,6 +568,9 @@ class ServingEngine:
                     else min(chunk_tokens, t.s_pad - off))
             block_row = pool.block_table[t.slot].copy()
             chunk = t.tokens[:, off:off + size]
+            if tr is not None:
+                tr.begin("engine", "prefill_chunk", uid=t.req.uid, offset=off, rows=size)
+            t0 = time.perf_counter() if drift is not None else 0.0
             if off == 0 and size == t.s_pad:
                 # one-shot (no context gather): the path without chunking
                 logits, storage = ex.prefill_paged(chunk, storage, block_row, length=t.s)
@@ -447,6 +582,16 @@ class ServingEngine:
                 # the last *real* prompt token's row
                 logits = logits[:, max(0, min(t.s - 1 - off, size - 1))]
                 self.stats["prefill_chunks"] += 1
+            if drift is not None:
+                # a prefill has no sync point of its own: pricing its wall
+                # time costs one synchronize here (the tracer alone never
+                # syncs)
+                if logits.is_cuda:
+                    torch.cuda.synchronize(logits.device)
+                drift.observe("prefill_chunk", time.perf_counter() - t0,
+                              rows=size, context=off + size)
+            if tr is not None:
+                tr.end("engine")
             # computed prompt tokens: the suffix only under prefix hits
             self.stats["prefill_tokens"] += max(0, min(t.s, off + size) - off)
             t.next_off = off + size
@@ -460,8 +605,12 @@ class ServingEngine:
             if self._emit(t.req, tok, t.limit):
                 pool.retire(t.slot)
                 finished.append(t.req)
+                self._retire_obs(t.req)
+                self._pool_gauges(pool)
             else:
                 slots[t.slot] = _Slot(t.req, tok, t.s, t.limit)
+                if tracks is not None:
+                    tracks.phase(t.req.uid, "decode")
                 if spec is not None:
                     spec.admit(t.slot, t.tokens, t.s,
                                max_positions=max(t.s_pad, t.s + t.limit))
@@ -481,13 +630,19 @@ class ServingEngine:
                     self.queue.popleft()
                     r.done = True
                     finished.append(r)
+                    self._retire_obs(r, rejected=True)
+                    self.metrics.gauge("queue_depth").set(len(self.queue))
                     continue
                 s_pad = _roundup(s, grain)
                 max_positions = max(s_pad, s + limit)
                 shared: List[int] = []
                 cached = 0
                 if pcache is not None:
+                    if tr is not None:
+                        tr.begin("engine", "prefix_lookup", uid=r.uid)
                     shared, cached = pcache.lookup(r.prompt)
+                    if tr is not None:
+                        tr.end("engine", cached_tokens=cached, shared_pages=len(shared))
                 if not pool.can_admit(max_positions, shared=len(shared)):
                     if pcache is not None:
                         need = (pool.pages_for(max_positions) - len(shared)
@@ -500,6 +655,10 @@ class ServingEngine:
                 self.queue.popleft()
                 pool.admit(slot, initial_positions=s_pad,
                            max_positions=max_positions, shared_pages=shared)
+                self.metrics.gauge("queue_depth").set(len(self.queue))
+                if tracks is not None:
+                    tracks.phase(r.uid, "prefill", slot=slot, cached_tokens=cached)
+                self._pool_gauges(pool)
                 if shared:
                     self.stats["prefix_hits"] += 1
                     self.stats["cached_prefix_tokens"] += cached
@@ -547,6 +706,9 @@ class ServingEngine:
                 for i, req in done:
                     slots[i] = None
                     finished.append(req)
+                    self._retire_obs(req)
+                if done:
+                    self._pool_gauges(pool)
             elif live:
                 tokens = np.zeros((n_slots, 1), np.int64)
                 positions = np.zeros(n_slots, np.int64)
@@ -559,23 +721,39 @@ class ServingEngine:
                 # non-live rows (idle or mid-prefill) decode against the
                 # null page: their dummy write must not touch real pages
                 bt = np.where(live_mask[:, None], pool.block_table, 0)
+                if tr is not None:
+                    tr.begin("engine", "decode_step", live=len(live))
+                t0 = time.perf_counter() if drift is not None else 0.0
                 logits, storage = ex.decode_paged(tokens, storage, bt, positions)
                 self.stats["decode_steps"] += 1
                 self.stats["decode_tokens"] += len(live)
                 toks = self._sample(logits)
+                if drift is not None:
+                    # sampling copied the tokens to the host, which synced
+                    # the step: the measured time is wall time
+                    drift.observe("decode", time.perf_counter() - t0, rows=1,
+                                  context=int(positions[live].max()) + 1)
+                if tr is not None:
+                    tr.end("engine")
+                retired = False
                 for i in live:
                     sl = slots[i]
                     if self._emit(sl.req, int(toks[i]), sl.limit):
                         pool.retire(i)
                         slots[i] = None
                         finished.append(sl.req)
+                        self._retire_obs(sl.req)
+                        retired = True
                     else:
                         sl.last_token = int(toks[i])
                         sl.next_index += 1
+                if retired:
+                    self._pool_gauges(pool)
             admit()  # freed slots refill immediately — continuous batching
         if pcache is not None:
             pool.check()  # the refcount algebra at the end of the run
             self.prefix_stats = pcache.stats()
+            pcache.publish(self.metrics)
         else:
             self.prefix_stats = None
         return finished
@@ -605,16 +783,20 @@ class ServingEngine:
             wave = self._next_wave()
             if not wave:
                 break
+            self.metrics.gauge("queue_depth").set(len(self.queue))
             finished.extend(self._run_wave(wave))
         return finished
 
     def _run_wave(self, wave: List[Request]) -> List[Request]:
+        tr = self._trace
+        tracks = self._tracks
         # zero-budget requests (max_new_tokens=0, prompt filling or exceeding
         # max_len) never emit and never prefill: the cache only holds
         # max_len positions
         for r in wave:
             if min(r.max_new_tokens, self.max_len - len(r.prompt)) <= 0:
                 r.done = True
+                self._retire_obs(r, rejected=True)
         live = [r for r in wave if not r.done]
         if not live:
             return wave
@@ -630,12 +812,24 @@ class ServingEngine:
         for i, r in enumerate(live):
             tokens[i, : lengths[i]] = r.prompt
         cache = ex.make_cache(b, self.max_len)
+        if tracks is not None:
+            for r in live:
+                tracks.phase(r.uid, "prefill", wave=True)
+        if tr is not None:
+            tr.begin("engine", "wave_prefill", batch=b, s_pad=s_pad)
         if uniform:
             logits, cache = ex.prefill(tokens, cache)
         else:
             logits, cache = ex.prefill(tokens, cache, lengths=lengths)
+        if tr is not None:
+            tr.end("engine")
         self.stats["prefill_tokens"] += int(lengths.sum())
         self.stats["prefill_waves"] += 1
+        if tracks is not None:
+            # the wave decodes in lockstep: its requests' decode phases open
+            # together once the joint prefill is dispatched
+            for r in live:
+                tracks.phase(r.uid, "decode")
 
         active = np.ones(b, bool)
         for step in range(budget):
@@ -643,6 +837,7 @@ class ServingEngine:
             for i, r in enumerate(live):
                 if active[i] and self._emit(r, int(next_tok[i]), int(limits[i])):
                     active[i] = False
+                    self._retire_obs(r)
             if not active.any():
                 break
             if uniform:
@@ -651,9 +846,15 @@ class ServingEngine:
                 # clamp retired rows that out-ran their own length budget;
                 # their writes land in a dead cache row and are never read
                 index = np.minimum(lengths + step, self.max_len - 1)
+            if tr is not None:
+                tr.begin("engine", "decode_step", live=int(active.sum()))
             logits, cache = ex.decode(next_tok[:, None], cache, index)
+            if tr is not None:
+                tr.end("engine")
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += int(active.sum())
-        for r in live:
+        for i, r in enumerate(live):
             r.done = True
+            if active[i]:  # budget exhausted before _emit finished it
+                self._retire_obs(r)
         return wave

@@ -23,7 +23,7 @@ attending, so bucket-padding positions are never read.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +61,26 @@ class GalaxyHMPExecutor:
         """Plan-derived prompt bucketing grain.  The ragged SP layout makes
         any length correct; bucketing only bounds the distinct shapes."""
         return self.plan.seq_grain
+
+    def wire_stats(self, seq: Optional[int] = None) -> Dict[str, float]:
+        """Ring-transport gauges for the engine's metrics registry.
+
+        Prices one full ring rotation of this plan's :class:`RingSchedule`
+        at ``seq`` rows (default: one bucketing grain, the smallest shape
+        serving ever ships): rows and activation bytes on the wire, and the
+        shipped fraction of what padded transport would move.  Static per
+        plan: the engine sets them once per run."""
+        seq = self.plan.seq_grain if seq is None else seq
+        rs = self.plan.ring_schedule(seq)
+        row_bytes = self.plan.d_model * self.embed.element_size()
+        rows = rs.total_wire_rows()
+        return {
+            "ring_wire_seq": float(seq),
+            "ring_wire_rows": float(rows),
+            "ring_wire_rows_padded": float(rs.padded_wire_rows()),
+            "ring_wire_bytes": float(rows * row_bytes),
+            "ring_wire_fraction": float(rs.wire_fraction()),
+        }
 
     def _tensor(self, a) -> torch.Tensor:
         if not isinstance(a, torch.Tensor):

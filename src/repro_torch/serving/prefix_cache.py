@@ -213,3 +213,16 @@ class PrefixCache:
         s["nodes"] = self._n_nodes
         s["hit_rate"] = (s["hits"] / s["lookups"]) if s["lookups"] else 0.0
         return s
+
+    def publish(self, registry) -> None:
+        """Mirror :meth:`stats` into a ``repro_torch.obs.MetricsRegistry``
+        (the serving engine calls this at the end of a run)."""
+        s = self.stats()
+        registry.gauge(
+            "prefix_hit_rate", "prefix-cache hits / lookups").set(s["hit_rate"])
+        registry.gauge(
+            "prefix_nodes", "radix-tree nodes (one full page each)",
+        ).set(s["nodes"])
+        registry.gauge(
+            "prefix_hit_tokens", "prompt tokens served from shared pages",
+        ).set(s["hit_tokens"])

@@ -39,11 +39,14 @@ next round replays that token first (``gap_tokens``).
 Expected emitted tokens per round at per-position acceptance ``a`` is
 ``1 + a + ... + a^k`` (``core/costmodel.spec_expected_tokens``).
 
-The reference's tracer spans and drift pricing around the draft and the
-verify chunk are left out until ``obs/`` is ported.
+With a tracer, a round is a ``spec_round`` span holding a
+``draft_propose`` span and one ``spec_verify`` span per slot, and a
+rejection marks a ``spec_rollback`` event on the request's track; a drift
+monitor prices each verify chunk (``"spec_verify"``).
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -179,6 +182,9 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
     pairs that completed this round (their pages already retired on both
     sides)."""
     ex = engine.executor
+    tr = engine._trace
+    tracks = engine._tracks
+    drift = engine.drift
     k_eff, catchup, last, posns = {}, {}, {}, {}
     for i in live:
         sl = slots[i]
@@ -189,7 +195,12 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
         catchup[i] = spec.gap_tokens(i, sl.next_index, sl.req.output, len(sl.req.prompt))
         last[i] = sl.last_token
         posns[i] = sl.next_index
+    if tr is not None:
+        tr.begin("engine", "spec_round", live=len(live))
+        tr.begin("engine", "draft_propose")
     drafts = spec.propose(live, last, posns, k_eff, catchup)
+    if tr is not None:
+        tr.end("engine")
 
     st = engine.stats
     finished = []
@@ -200,11 +211,21 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
         chunk[0, 0] = sl.last_token
         chunk[0, 1:] = drafts[i][:ke]
         pool.ensure(i, sl.next_index + ke)
+        if tr is not None:
+            tr.begin("engine", "spec_verify", uid=sl.req.uid, k=ke)
+        t0 = time.perf_counter() if drift is not None else 0.0
         logits, storage = ex.prefill_chunk(
             chunk, storage, pool.block_table[i].copy(), offset=sl.next_index,
             length=sl.next_index + ke + 1)
         toks = engine._sample_positions(logits)[0]  # (ke + 1,)
         accepted = longest_accepted_prefix(drafts[i][:ke], toks[:ke])
+        if drift is not None:
+            # per-position sampling copied the tokens to the host, which
+            # synced the chunk: the measured time is wall time
+            drift.observe("spec_verify", time.perf_counter() - t0,
+                          rows=ke + 1, context=sl.next_index + ke + 1)
+        if tr is not None:
+            tr.end("engine", accepted=accepted)
 
         emitted, done = 0, False
         for j in range(accepted):
@@ -219,8 +240,9 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
         st["spec_steps"] += 1
         st["spec_proposed"] += ke
         st["spec_accepted"] += accepted
-        counts = st["spec_accept_counts"]
-        counts[accepted] = counts.get(accepted, 0) + 1
+        # stats["spec_accept_counts"] reads this histogram back as a
+        # value-count dict: observing it is the one write path
+        engine.metrics.histogram("spec_accepted_per_round").observe(accepted)
         st["decode_steps"] += 1
         st["decode_tokens"] += emitted
 
@@ -233,6 +255,10 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
             sl.last_token = int(toks[accepted])
             sl.next_index = new_next
             if accepted < ke:
+                if tracks is not None:
+                    tracks.event(sl.req.uid, "spec_rollback", rejected=ke - accepted)
                 pool.truncate(i, new_next)
             spec.observe(i, new_next)
+    if tr is not None:
+        tr.end("engine")  # spec_round
     return storage, finished

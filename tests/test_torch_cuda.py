@@ -767,3 +767,57 @@ def test_dense_paged_protocol_kernel_matches_eager(cuda):
         for name, leaf in leaves.items():
             torch.testing.assert_close(leaf, out["eager"][3]["groups"][key][name],
                                        **TOL[torch.float32])
+
+
+def test_host_profiler_times_the_card(cuda, monkeypatch):
+    """``HostProfiler`` on the card: positive block times, each block's
+    timed loop between two ``torch.cuda.synchronize()`` (after a warm-up
+    call), and a positive capacity."""
+    from repro_torch.core.profiler import HostProfiler
+
+    syncs = []
+    orig = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (syncs.append(1), orig(*a, **k))[1])
+    hp = HostProfiler(get_config("gpt2-l"), 256, iters=3)
+    assert hp.device.type == "cuda"
+    t = hp.measure_blocks(heads=8, columns=1920)
+    assert set(t) == {"mha", "mlp", "con"} and all(v > 0 for v in t.values())
+    assert len(syncs) == 2 * 3  # warm-up sync + end-of-loop sync, per block
+    assert hp.capacity() > 0
+
+
+def test_traced_galaxy_serve_tokens_equal_untraced(cuda):
+    """A short traced Galaxy serve (tracer, drift, record_times) on the
+    uneven 3:2:2:1 plan on the card, fp32 kernel backend: no open span,
+    drift records of both kinds, tokens equal to the untraced serve."""
+    from repro_torch.core import hmp
+    from repro_torch.core.execplan import ExecPlan
+    from repro_torch.core.ring import LocalRing
+    from repro_torch.obs import DriftMonitor, Tracer
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.galaxy import GalaxyHMPExecutor
+
+    plan = ExecPlan(heads=(6, 4, 4, 2), columns=(24, 16, 16, 8), head_dim=2, d_model=32,
+                    seq_shares=(3.0, 2.0, 2.0, 1.0), compute_backend="kernel")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layers = hmp.init_stack_params(2, 32, 16, 64, generator=gen, device=cuda)
+    embed = torch.randn(300, 32, generator=gen, device=cuda) * 0.5
+    ex = GalaxyHMPExecutor(layers, embed, plan, LocalRing(4))
+
+    def run(tracer, drift):
+        eng = ServingEngine(ex, max_batch=2, max_len=40, scheduler="continuous",
+                            page_size=8, prefill_chunk=8, tracer=tracer, drift=drift,
+                            record_times=tracer is not None)
+        for i in range(4):
+            eng.submit(Request(uid=i, prompt=[1 + (i * 5 + j) % 250 for j in range(6 + 4 * i)],
+                               max_new_tokens=6 if i % 2 == 0 else 3))
+        return eng, {r.uid: r.output for r in eng.run()}
+
+    tracer, drift = Tracer(), DriftMonitor(lambda kind, *, rows, context: 1e-3)
+    eng, traced = run(tracer, drift)
+    _, plain = run(None, None)
+    assert traced == plain
+    assert tracer.open_spans() == [] and tracer.to_json()["traceEvents"]
+    assert {r["kind"] for r in drift.records} == {"decode", "prefill_chunk"}
+    assert eng.metrics.snapshot()["histograms"]["ttft_s"]["n"] == 4

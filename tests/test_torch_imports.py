@@ -38,9 +38,13 @@ def test_import_leaves_jax_and_reference_out():
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.spec", "repro_torch.serving.galaxy",
-                                    "repro_torch.core.hmp", "repro_torch.launch.serve"])
+                                    "repro_torch.core.hmp", "repro_torch.launch.serve",
+                                    "repro_torch.obs", "repro_torch.obs.metrics",
+                                    "repro_torch.obs.trace", "repro_torch.obs.drift",
+                                    "repro_torch.core.simulator",
+                                    "repro_torch.core.profiler"])
 def test_module_alone_leaves_jax_and_reference_out(module):
-    """Each module of the Galaxy serving path, imported alone in a fresh
+    """Each module of the Galaxy serving path and its telemetry, imported alone in a fresh
     interpreter, pulls in neither ``jax`` nor ``repro``."""
     code = (
         f"import importlib, sys\nimportlib.import_module({module!r})\n"
@@ -69,7 +73,8 @@ def test_no_source_imports_jax_or_reference():
                 assert not _is_forbidden(name), f"{path}: imports {name}"
 
 
-@pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main", "spec_main"])
+@pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main", "spec_main",
+                                   "telemetry_main", "host_profiler"])
 def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
     """Without CUDA, the serving entry points raise unless device='cpu'."""
     from repro_torch import resolve_device
@@ -83,6 +88,13 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
             serve.main(["--requests", "1"])
         elif entry == "spec_main":
             serve.main(["--draft-model", "distilbert", "--spec-k", "2", "--requests", "1"])
+        elif entry == "telemetry_main":
+            serve.main(["--requests", "1", "--trace", "unused.json", "--metrics", "--drift"])
+        elif entry == "host_profiler":
+            from repro_torch.configs import get_config
+            from repro_torch.core.profiler import HostProfiler
+
+            HostProfiler(get_config("distilbert"), 8)
         elif entry == "zoo_main":
             serve.main(["--executor", "zoo", "--model", "recurrentgemma-9b",
                         "--reduce", "--requests", "1"])

@@ -158,6 +158,41 @@ and depth, their three kernels' calls logged at ``kernels/ops.py``:
              in fp32, fp16 and bf16 against the plain versions, on the
              expected paths.
 
+The MoE and xLSTM families run last, after StableLM's serve:
+
+19. moe kernels — the flash kernel at an olmoe-1b-7b prefill chunk (256
+             queries at offset 1024, 16 heads of 128, MHA) and a
+             granite-moe-3b-a800m one-shot prefill (512 queries, 24 heads
+             on 8 KV heads of 64), fp32, bf16 and fp16 against the plain
+             version, timed (bf16) beside it, SDPA and the bound.
+20. moe routing — one MoE sub-layer (norm, router, experts, residual) at
+             olmoe's width (64 experts) and granite's (40 in 48 padded),
+             fp32, 512 tokens from a seed, on the card and on the CPU:
+             the same experts for every token, never a pad expert, the
+             output within 1e-4 of the largest, equal aux values;
+             ``moe_drop_frac`` printed.
+21. xlstm parity — xlstm-350m's width cut to 2 layers (one mLSTM, one
+             sLSTM), fp32, gates and norm scales random: a 256-token
+             prefill (the chunked mLSTM path) and 2 decode steps against
+             one pass over all 258 tokens (the step path), and the two
+             paths at S 256; each within 1e-4 of the largest logit.
+22. olmoe serve — olmoe-1b-7b at full width and depth in bf16 with the
+             StableLM traffic (8 requests of one shared 1024-token prompt
+             plus 64-512 own, 16 new, ``max_batch`` 4, page 16, prefix
+             cache, 256-token chunks): flash launched exactly 16 x
+             prefill calls, on the tensor cores, no other kernel; the
+             last request's prefill calls replayed on both backends (the
+             same MoE token groups as served): the kernel replay gives
+             the served first token, the eager replay's argmax agrees up
+             to a tie gap of 0.1.
+23. granite serve — granite-moe-3b-a800m the same way, 4 requests of
+             64-512 tokens, one-shot prefills: flash exactly 32 x prefill
+             calls, at hd 64 on 3 query heads a KV head.
+24. xlstm serve — xlstm-350m at full width and depth in bf16 in waves of
+             4 x 256 and 2 x 300 tokens, 16 new: no kernel launched, 12
+             mLSTM prefills on each path; the 256-token wave's first
+             tokens against a pass on the step path (tie gap 0.1).
+
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
 ``python -m repro_torch.launch.trace_serve``.
@@ -810,9 +845,8 @@ def check_zoo_served_tokens(out, torch):
 
 def phase_dense_kernels(rec, torch):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.tiled_gemm import tiled_gemm, tiled_gemm_plain
-    from repro_torch.launch.kernel_timing import time_ms, window_pairs
+    from repro_torch.launch.kernel_timing import time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
@@ -879,8 +913,21 @@ def phase_dense_kernels(rec, torch):
 
     # the flash kernel at a StableLM-12B prefill chunk: 256 queries at
     # offset 1024 over a gathered view of 97 pages of 16
-    b, h, hkv, sq, hd, off, view = 1, 32, 8, 256, 160, 1024, 97 * 16
-    sk = off + sq
+    check_time_flash(rec, torch, g, "dense chunk", 1, 32, 8, 256, 1024 + 256, 160, 97 * 16)
+
+
+def check_time_flash(rec, torch, g, what, b, h, hkv, sq, sk, hd, view):
+    """The flash kernel at one served prefill shape: ``sq`` queries
+    right-aligned to ``sk`` keys, ``h`` heads on ``hkv`` KV heads of dim
+    ``hd``, as strided views of a (gathered page) view of ``view``
+    positions: fp32, bf16 and fp16 against the plain version, each on its
+    path, then timed (bf16) beside its plain version, SDPA and its bound,
+    added to the kernel's record."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.launch.kernel_timing import time_ms, window_pairs
+
+    dev = torch.device("cuda")
+    off = sk - sq
     for dtype in ("float32", "bfloat16", "float16"):
         tdt = getattr(torch, dtype)
         q = torch.randn(b, sq, h, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
@@ -891,7 +938,7 @@ def phase_dense_kernels(rec, torch):
         out = flash_attention(q, k, v, causal=True)
         plain = flash_attention_plain(q, k, v, causal=True)
         torch.cuda.synchronize()
-        err = check_close("flash_attention", out, plain, dtype, "dense chunk")
+        err = check_close("flash_attention", out, plain, dtype, what)
         apath = expected_attention_path(dtype)
         check_path(flash_attention, before, apath, 1, f"flash_attention {dtype}")
         log("kernels", f"flash_attention {dtype} q ({b},{h},{sq},{hd}) kv ({b},{hkv},{sk},{hd}) "
@@ -910,7 +957,7 @@ def phase_dense_kernels(rec, torch):
         flops = 4.0 * window_pairs(sq, sk, 0) * hd * h * b
         rec["flash_attention"].timed(ms, plain_ms, lib_ms, nbytes, flops, dtype)
         bms, by = bound(nbytes, flops, dtype)
-        log("kernels", f"flash_attention bf16 dense chunk: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log("kernels", f"flash_attention bf16 {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
 
 
@@ -1967,6 +2014,274 @@ def phase_telemetry(torch, rec, card):
     return qwen_launches
 
 
+# --- the MoE and xLSTM families -------------------------------------------------
+
+def phase_moe_kernels(rec, torch):
+    """The flash kernel at the MoE serves' prefill shapes: an olmoe chunk
+    (256 queries at offset 1024, 16 heads of 128, MHA, in the gathered
+    view of 97 pages) and a granite one-shot prefill (512 queries, 24
+    heads on 8 KV heads of 64)."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(12)
+    check_time_flash(rec, torch, g, "olmoe chunk", 1, 16, 16, 256, 1024 + 256, 128, 97 * 16)
+    check_time_flash(rec, torch, g, "granite one-shot", 1, 24, 8, 512, 512, 64, 512)
+
+
+def moe_sublayer_params(cfg, torch, g):
+    """Random fp32 weights of one MoE sub-layer (norm, router, experts) of
+    ``cfg``, drawn on the CPU from ``g``, pad experts included."""
+    from repro_torch.models.params import model_spec
+
+    spec = model_spec(cfg)["groups"]["b0_attn"]
+    p = {"ln2": {"scale": 0.1 * torch.randn(spec["ln2"]["scale"].shape, generator=g)}}
+    p["moe"] = {n: torch.randn(ps.shape, generator=g) / ps.shape[-2] ** 0.5
+                for n, ps in spec["moe"].items()}
+    return p
+
+
+def phase_moe_routing(torch, card):
+    """One MoE sub-layer at olmoe's and granite's full widths in fp32 (TF32
+    off) on 512 tokens, the card against the CPU: the same experts chosen
+    for every token (granite: never one of its 8 pad experts), outputs
+    within 1e-4 of the largest, equal aux values."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import connective_norm
+    from repro_torch.models.moe import _group_size, moe_block, moe_route
+
+    dev = torch.device("cuda")
+    for model in ("olmoe-1b-7b", "granite-moe-3b-a800m"):
+        cfg = dataclasses.replace(get_config(model), dtype="float32", param_dtype="float32")
+        g = torch.Generator().manual_seed(13)
+        p = moe_sublayer_params(cfg, torch, g)
+        x = torch.randn(1, 512, cfg.d_model, generator=g)
+        pc = {k: {n: t.to(dev) for n, t in v.items()} for k, v in p.items()}
+        t = _group_size(512)
+        res = {}
+        for where, pp, xx in (("cpu", p, x), ("cuda", pc, x.to(dev))):
+            out, aux = moe_block(pp, xx, cfg)
+            xn = connective_norm(xx, pp["ln2"], cfg.norm).view(-1, t, cfg.d_model)
+            _, _, idx = moe_route(pp["moe"], xn, cfg)
+            res[where] = (out.cpu(), {k: v.item() for k, v in aux.items()}, idx.cpu())
+        (out, aux, idx), (out_c, aux_c, idx_c) = res["cpu"], res["cuda"]
+        e_pad = pc["moe"]["router"].shape[1]
+        if not torch.equal(idx, idx_c):
+            n = int((idx != idx_c).sum())
+            raise AssertionError(f"{model} MoE routing: {n} expert choices differ card vs CPU")
+        if int(idx_c.max()) >= cfg.num_experts:
+            raise AssertionError(f"{model}: a pad expert was selected ({int(idx_c.max())})")
+        err = (out_c - out).abs().max().item()
+        scale = out.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{model} MoE sub-layer card vs CPU: max abs err {err} > "
+                                 f"1e-4 x {scale}")
+        for k in aux:
+            if not abs(aux_c[k] - aux[k]) <= 1e-4 * max(1.0, abs(aux[k])):
+                raise AssertionError(f"{model} {k}: card {aux_c[k]} vs CPU {aux[k]}")
+        log("moe", f"{model} MoE sub-layer fp32, d {cfg.d_model}, {cfg.num_experts} experts "
+            f"in {e_pad} (top {cfg.experts_per_token}), 512 tokens in groups of {t}: expert "
+            f"choices equal card vs CPU, none a pad expert; output max abs err {err:.3g} "
+            f"(largest {scale:.3g}); moe_drop_frac card {aux_c['moe_drop_frac']:.6f} / CPU "
+            f"{aux['moe_drop_frac']:.6f}, lb {aux_c['moe_lb_loss']:.6f}, z "
+            f"{aux_c['moe_z_loss']:.6f} ({card})")
+
+
+def phase_xlstm_parity(torch, card):
+    """xlstm-350m at full width cut to 2 layers (one mLSTM, one sLSTM) in
+    fp32, gates and norm scales random: a 256-token prefill (the chunked
+    mLSTM path) then 2 decode steps against one forward pass over all 258
+    tokens (the step path), and at S 256 the chunked path against the
+    step path; each within 1e-4 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import apply_model, xlstm
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("xlstm-350m"), num_layers=2, dtype="float32",
+                              param_dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(14)
+    params = init_params(cfg, generator=g, device=dev)
+    for block in params["groups"].values():  # the zero-init gates and scales
+        for name in ("w_if", "b_if", "b_in"):
+            if name in block:
+                block[name].copy_(0.5 * torch.randn(block[name].shape, generator=g, device=dev))
+        block["mh_norm"]["scale"].copy_(
+            0.1 * torch.randn(block["mh_norm"]["scale"].shape, generator=g, device=dev))
+    b, s, steps = 2, 256, 2
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + steps), device=dev, generator=g)
+    ex = TransformerExecutor(params, cfg)
+    tol = 1e-4
+
+    def close(what, got, want):
+        # the real vocabulary only: the pad columns are -1e30 on both sides
+        got, want = got[..., :cfg.vocab_size], want[..., :cfg.vocab_size]
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        if not err <= tol * scale:
+            raise AssertionError(f"xLSTM {what}: max abs err {err} > {tol} x {scale}")
+        return err
+
+    xlstm.reset_mlstm_paths()
+    full, _ = apply_model(params, cfg, tokens=tokens)
+    lg, cache = ex.prefill(tokens[:, :s], ex.make_cache(b, s + steps))
+    errs = [close("prefill vs one pass", lg, full[:, s - 1])]
+    for step in range(steps):
+        lg, cache = ex.decode(tokens[:, s + step:s + step + 1], cache, s + step)
+        errs.append(close(f"decode step {step} vs one pass", lg, full[:, s + step]))
+    paths = dict(xlstm.MLSTM_PATHS)
+    if paths != {"chunked": 1, "step": 1}:
+        raise AssertionError(f"xLSTM parity mLSTM paths {paths}")
+    chunked, _ = apply_model(params, cfg, tokens=tokens[:, :s])
+    step, _ = apply_model(params, dataclasses.replace(cfg, mlstm_chunk=2 * s),
+                          tokens=tokens[:, :s])
+    cerr = close("chunked vs step at S 256", chunked, step)
+    if dict(xlstm.MLSTM_PATHS) != {"chunked": 2, "step": 2}:
+        raise AssertionError(f"xLSTM parity mLSTM paths {xlstm.MLSTM_PATHS}")
+    log("xlstm", f"xlstm-350m width (d {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{2 * cfg.d_model // cfg.num_heads}), 2 layers fp32: {s}-token prefill (chunked) + "
+        f"{steps} decode steps vs one {s + steps}-token pass (step) max abs err "
+        f"{max(errs):.3g} (largest logit {full[..., :cfg.vocab_size].abs().max().item():.3g}); "
+        f"chunked vs step "
+        f"at S {s} max abs err {cerr:.3g}; tolerance {tol} of the largest ({card})")
+
+
+def phase_moe_serve(torch, rec, card, model, **traffic):
+    """``launch.serve --executor zoo`` with an MoE model at full width and
+    depth in bf16 on the continuous scheduler, ``max_batch`` 4, page 16:
+    every request finished, the prefix-cache identities when it is on,
+    and the flash kernel exactly once a layer per prefill call, on the
+    tensor cores, and no other kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = launch_serve.serve(model, executor_kind="zoo", max_new=16, max_batch=4,
+                             page_size=16, device="cuda", dtype="bfloat16", seed=0, **traffic)
+    torch.cuda.synchronize()
+    reqs, st, cfg = out["requests"], out["stats"], out["executor"].cfg
+    log("serve", out["plan"])
+    if len(reqs) != traffic["requests"] or any(len(r.output) != 16 for r in reqs):
+        raise AssertionError(f"unfinished {model} requests: {[len(r.output) for r in reqs]}")
+    total = sum(len(r.prompt) for r in reqs)
+    if traffic.get("prefix_cache"):
+        if st["prefix_hits"] < 1 or st["prefill_chunks"] < 1:
+            raise AssertionError(f"{model} serve took no prefix hit or no chunk: {st}")
+        out["pool"].check()
+    if st["prefill_tokens"] + st["cached_prefix_tokens"] != total:
+        raise AssertionError(f"computed {st['prefill_tokens']} + cached "
+                             f"{st['cached_prefix_tokens']} != {total} prompt tokens")
+    n = check_zoo_flash_counts(ops, rec, out, f"{model} serve")
+    log("serve", f"{model} flash_attention: {n} launches = {cfg.num_layers} layers x "
+        f"({st['prefill_oneshots']} one-shot + {st['prefill_chunks']} chunks) at hd "
+        f"{cfg.head_dim}, {cfg.num_heads} heads on {cfg.num_kv_heads} KV heads")
+    log("serve", f"{model}: {len(reqs)} requests, prompts {[len(r.prompt) for r in reqs]} "
+        f"({total} tokens: {st['prefill_tokens']} computed, {st['cached_prefix_tokens']} "
+        f"cached in {st['prefix_hits']} hits), {st['decode_steps']} decode steps, "
+        + serve_line(out, torch, card))
+    return out
+
+
+def check_moe_served_token(out, torch, chunk=None, cached=0):
+    """The last request's first token, replayed at full depth in bf16 on the
+    kernel and the eager backend through the paged protocol with the served
+    call sequence (the prefix's chunks, then the suffix's; or one one-shot
+    prefill), so every MoE call routes the same token groups as served: the
+    kernel replay gives the served token, and that token is the eager
+    replay's argmax up to the bf16 disagreement."""
+    import numpy as np
+
+    from repro_torch.serving.engine import TransformerExecutor
+
+    kern = out["executor"]
+    req = out["requests"][-1]
+    s, page = len(req.prompt), 16
+    s_pad = -(-s // page) * page
+    tokens = np.zeros((1, s_pad), np.int64)
+    tokens[0, :s] = req.prompt
+    row = list(range(1, 1 + s_pad // page))
+    if chunk is None:
+        calls = [(0, s_pad)]
+    else:
+        calls = ([(o, chunk) for o in range(0, cached, chunk)]
+                 + [(o, min(chunk, s_pad - o)) for o in range(cached, s_pad, chunk)])
+    logits = {}
+    for backend in ("kernel", "eager"):
+        ex = TransformerExecutor(kern.params, kern.cfg, backend=backend)
+        pool = ex.make_pool(1 + len(row), page)
+        for off, size in calls:
+            if (off, size) == (0, s_pad):
+                lg, pool = ex.prefill_paged(tokens, pool, row, length=s)
+            else:
+                lg, pool = ex.prefill_chunk(tokens[:, off:off + size], pool, row,
+                                            offset=off, length=s)
+                lg = lg[:, min(s - 1 - off, size - 1)] if off <= s - 1 < off + size else None
+            if lg is not None:
+                logits[backend] = lg.float()[0]
+    lk, le = logits["kernel"], logits["eager"]
+    err = (lk - le).abs().max().item()
+    gap = (le.max() - le[req.output[0]]).item()
+    tol = 1e-1  # bf16 through every layer: flash vs plain attention sums
+    if not torch.isfinite(le).all() or int(lk.argmax()) != req.output[0] or gap > tol:
+        raise AssertionError(f"{kern.cfg.name} served token {req.output[0]}: kernel replay "
+                             f"argmax {int(lk.argmax())}, eager argmax {int(le.argmax())}, "
+                             f"gap {gap}, err {err}")
+    log("serve", f"{kern.cfg.name} request {req.uid} ({s} tokens, {len(calls)} prefill calls "
+        f"replayed, {kern.cfg.num_layers} layers bf16): served first token {req.output[0]} "
+        f"== kernel replay argmax; eager argmax {int(le.argmax())} (logit gap {gap:.3g}, "
+        f"kernel vs eager max abs err {err:.3g})")
+
+
+def phase_xlstm_serve(torch, card):
+    """``launch.serve --executor zoo`` with xlstm-350m at full width and
+    depth in bf16 (fp32 recurrent states), in waves: 4 x 256 tokens (the
+    chunked mLSTM path) and 2 x 300 (the step path), 16 new each.  No
+    kernel is on this path.  The 256-token wave's first served tokens
+    against a bf16 pass over the same prompts on the step path, up to the
+    bf16 disagreement."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import apply_model, xlstm
+
+    torch.cuda.reset_peak_memory_stats()
+    lens = [256] * 4 + [300] * 2
+    ops.reset_launch_counts()
+    xlstm.reset_mlstm_paths()
+    out = launch_serve.serve("xlstm-350m", executor_kind="zoo", prompt_lens=lens, max_new=16,
+                             max_batch=4, device="cuda", dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    reqs, st, ex = out["requests"], out["stats"], out["executor"]
+    paths = dict(xlstm.MLSTM_PATHS)
+    log("serve", out["plan"])
+    if len(reqs) != len(lens) or any(len(r.output) != 16 for r in reqs):
+        raise AssertionError(f"unfinished xLSTM requests: {[len(r.output) for r in reqs]}")
+    if st["prefill_waves"] != 2 or any(ops.launch_counts().values()):
+        raise AssertionError(f"xLSTM serve: {st['prefill_waves']} waves, launches "
+                             f"{ops.launch_counts()}")
+    layers = ex.cfg.count_kind("mlstm")
+    if paths != {"chunked": layers, "step": layers}:
+        raise AssertionError(f"xLSTM serve mLSTM prefills by path {paths}, expected "
+                             f"{layers} each")
+    log("serve", f"xlstm-350m mLSTM prefills by path: {paths} (the 256-token wave chunked, "
+        f"the 300-token wave step by step); {st['decode_steps']} decode steps, "
+        + serve_line(out, torch, card))
+    wave = [r for r in reqs if len(r.prompt) == 256]
+    tokens = torch.as_tensor(np.array([r.prompt for r in wave]), device=ex.device)
+    step_cfg = dataclasses.replace(ex.cfg, mlstm_chunk=512)
+    le, _ = apply_model(ex.params, step_cfg, tokens=tokens, rows=255)
+    le = le.float()
+    served = torch.tensor([r.output[0] for r in wave], device=ex.device)
+    gap = (le.max(-1).values - le.gather(1, served[:, None])[:, 0]).max().item()
+    tol = 1e-1  # bf16 through 24 layers: the fp32 recurrences summed in another order
+    if not torch.isfinite(le).all() or gap > tol:
+        raise AssertionError(f"xLSTM served tokens {served.tolist()}: step-path argmax "
+                             f"{le.argmax(-1).tolist()}, gap {gap}")
+    log("serve", f"xlstm-350m {len(wave)} x 256 tokens, {ex.cfg.num_layers} layers bf16: "
+        f"served first tokens "
+        f"{served.tolist()}, step-path pass argmax {le.argmax(-1).tolist()} (largest logit "
+        f"gap {gap:.3g})")
+
+
 def main() -> int:
     import torch
 
@@ -2055,6 +2370,24 @@ def main() -> int:
     out = phase_dense_serve(torch, rec)
     check_dense_served_token(out, torch)
     measure_decode_gather(out, torch)
+    del out  # StableLM's 24 GiB go before the MoE models are drawn
+    torch.cuda.empty_cache()
+
+    phase_moe_kernels(rec, torch)
+    phase_moe_routing(torch, card)
+    phase_xlstm_parity(torch, card)
+    torch.cuda.empty_cache()
+    out = phase_moe_serve(torch, rec, card, "olmoe-1b-7b", requests=8, prompt_len=(64, 512),
+                          shared_prefix=1024, prefix_cache=True, prefill_chunk=256)
+    check_moe_served_token(out, torch, chunk=256, cached=1024)
+    del out
+    torch.cuda.empty_cache()
+    out = phase_moe_serve(torch, rec, card, "granite-moe-3b-a800m", requests=4,
+                          prompt_len=(64, 512))
+    check_moe_served_token(out, torch)
+    del out
+    torch.cuda.empty_cache()
+    phase_xlstm_serve(torch, card)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,19 +1,24 @@
 """Model configurations the port serves: the Galaxy paper's Table IV models
-(Galaxy HMP path) and the model zoo's architectures (RecurrentGemma-9B in
-waves; the dense GQA stacks through the paged continuous scheduler)."""
+(Galaxy HMP path) and the model zoo's architectures (RecurrentGemma-9B and
+xLSTM-350M in waves; the dense GQA stacks and the MoE stacks, OLMoE and
+Granite-MoE, through the paged continuous scheduler)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
 from repro_torch.configs.codeqwen1_5_7b import CONFIG as CODEQWEN1_5_7B
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE_3B_A800M
+from repro_torch.configs.olmoe_1b_7b import CONFIG as OLMOE_1B_7B
 from repro_torch.configs.paper_models import PAPER_MODELS
 from repro_torch.configs.qwen1_5_0_5b import CONFIG as QWEN1_5_0_5B
 from repro_torch.configs.qwen1_5_110b import CONFIG as QWEN1_5_110B
 from repro_torch.configs.recurrentgemma_9b import CONFIG as RECURRENTGEMMA_9B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
+from repro_torch.configs.xlstm_350m import CONFIG as XLSTM_350M
 
 #: the zoo architectures the port serves, by their public ids
 ZOO_MODELS = {c.name: c for c in (RECURRENTGEMMA_9B, QWEN1_5_0_5B, CODEQWEN1_5_7B,
-                                  STABLELM_12B, QWEN1_5_110B)}
+                                  STABLELM_12B, QWEN1_5_110B, OLMOE_1B_7B,
+                                  GRANITE_MOE_3B_A800M, XLSTM_350M)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,21 +1,23 @@
 """Model configuration: the fields of the reference ``ModelConfig`` that the
 port reads — the Galaxy serving path (dims, numerics) and the model zoo
-(block pattern, norm, positions, window, RG-LRU widths).
+(block pattern, norm, positions, window, RG-LRU widths, MoE experts,
+xLSTM projections).
 
 ``block_pattern`` is the repeating unit of the layer stack, e.g.
-``("attn",)`` for a dense stack or ``("rec", "rec", "attn")`` for
-RecurrentGemma.  ``num_layers`` need not be a multiple of its length: the
-remainder (``tail_pattern``) runs as individual blocks after the groups
-(see ``models/transformer.py``).
+``("attn",)`` for a dense or MoE stack, ``("rec", "rec", "attn")`` for
+RecurrentGemma or ``("mlstm", "slstm")`` for xLSTM.  ``num_layers``
+need not be a multiple of its length: the remainder (``tail_pattern``)
+runs as individual blocks after the groups (see
+``models/transformer.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
-# block kinds the port's zoo implements (the reference also has xattn,
-# mlstm and slstm: ROADMAP queue 1, item 11)
-BLOCK_KINDS = ("attn", "rec")
+# block kinds the port's zoo implements (the reference also has xattn:
+# ROADMAP queue 1, item 7)
+BLOCK_KINDS = ("attn", "rec", "mlstm", "slstm")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -26,13 +28,13 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     name: str
     source: str  # citation for the config (paper / model card)
-    family: str = "dense"  # dense | hybrid
+    family: str = "dense"  # dense | moe | hybrid | ssm
 
     num_layers: int = 12
     d_model: int = 768
     num_heads: int = 12
     num_kv_heads: int = 12
-    d_ff: int = 3072
+    d_ff: int = 3072          # dense MLP width; for MoE: per-expert width
     vocab_size: int = 32000
     head_dim: int = 0          # 0 -> d_model // num_heads
 
@@ -45,8 +47,16 @@ class ModelConfig:
     rope_theta: float = 10000.0
 
     window: int = 0            # 0 = full causal; >0 = sliding window
+
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 2.0   # GShard capacity
+
     lru_width: int = 0         # 0 -> d_model
     conv_width: int = 4
+
+    proj_factor: float = 2.0   # up-projection inside m/sLSTM blocks
+    mlstm_chunk: int = 128     # chunkwise-parallel scan chunk
 
     input_mode: str = "token"  # token ids (the only mode the port serves)
     dtype: str = "float16"     # serving dtype
@@ -67,9 +77,20 @@ class ModelConfig:
         if self.num_heads % max(self.num_kv_heads, 1) != 0:
             raise ValueError("num_heads must be divisible by num_kv_heads")
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
     def padded_vocab(self, multiple: int = 256) -> int:
         """Vocab rounded up to ``multiple``."""
         return _round_up(self.vocab_size, multiple)
+
+    def padded_experts(self, multiple: int) -> int:
+        """Experts rounded up to ``multiple`` (pad experts get -1e30 router
+        logits and are never selected); 0 without experts."""
+        if not self.is_moe:
+            return 0
+        return _round_up(self.num_experts, multiple)
 
     @property
     def num_groups(self) -> int:
@@ -84,9 +105,13 @@ class ModelConfig:
         """Kind of every layer, in order."""
         return self.block_pattern * self.num_groups + self.tail_pattern
 
-    def param_count(self) -> int:
+    def count_kind(self, kind: str) -> int:
+        return sum(1 for k in self.layer_kinds() if k == kind)
+
+    def param_count(self, active_only: bool = False) -> int:
         """Approximate parameter count (embedding + blocks + head), as the
-        reference counts it."""
+        reference counts it: real experts only (not the padded ones), and
+        with ``active_only`` the ``experts_per_token`` a token reaches."""
         d, hd = self.d_model, self.head_dim
         h, kv = self.num_heads, self.num_kv_heads
         n = 0
@@ -98,19 +123,29 @@ class ModelConfig:
         for kind in self.layer_kinds():
             if kind == "attn":
                 n += d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d  # qkvo
-                if self.d_ff > 0:
+                if self.is_moe:
+                    e = self.experts_per_token if active_only else self.num_experts
+                    n += e * gate_mats * d * self.d_ff + d * self.num_experts
+                elif self.d_ff > 0:
                     n += gate_mats * d * self.d_ff
             elif kind == "rec":
                 w = self.lru_width
                 n += 2 * d * w + w * d          # in/out projections (gated)
                 n += self.conv_width * w + 3 * w  # conv + lru gates
                 n += gate_mats * d * self.d_ff    # hybrid blocks keep MLP
+            elif kind == "mlstm":
+                di = int(d * self.proj_factor)
+                n += 2 * d * di + di * d + 3 * di * di // max(self.num_heads, 1)
+            elif kind == "slstm":
+                di = int(d * self.proj_factor)
+                n += d * 4 * di + di * 4 * di + di * d  # in, recurrent, out
         return int(n)
 
 
 def reduced(cfg: ModelConfig, d_model: int = 256, vocab: int = 512) -> ModelConfig:
     """Smoke-test variant: one pattern group of layers (>=2 for dense),
-    d_model <= 512 — the same code paths, CPU-runnable."""
+    d_model <= 512, <= 4 experts of which 2 per token — the same code
+    paths, CPU-runnable."""
     pat = cfg.block_pattern
     layers = max(2, len(pat))
     heads = min(cfg.num_heads, 4)
@@ -127,6 +162,8 @@ def reduced(cfg: ModelConfig, d_model: int = 256, vocab: int = 512) -> ModelConf
         head_dim=0,
         d_ff=0 if cfg.d_ff == 0 else max(64, d_model * 2),
         vocab_size=vocab,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_token=min(cfg.experts_per_token, 2),
         lru_width=0,
         window=min(cfg.window, 32) if cfg.window else 0,
         dtype="float32",

@@ -9,6 +9,11 @@ model of the zoo through the continuous scheduler or waves.
   PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
       --model stablelm-12b --requests 8 --prompt-len 64-512 \\
       --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
+      --model olmoe-1b-7b --requests 8 --prompt-len 64-512 \\
+      --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
+      --model xlstm-350m --prompt-lens 256,256,256,256,300,300 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --model gpt2-l \\
       --draft-model distilbert --spec-k 4 --requests 4 --max-new 16
 
@@ -24,9 +29,10 @@ from ``--seed``; prompts are random token ids with lengths drawn from
 ``--executor zoo``: the model zoo (``models/``) at the model's full width
 and depth, weights drawn on the device from ``--seed``, behind
 ``TransformerExecutor``.  ``--scheduler auto`` (the default) serves the
-full-causal attention stacks (qwen1.5, codeqwen1.5, stablelm) by
-continuous batching over the paged pool and RecurrentGemma in waves of
-same-length prompts (recurrent and windowed caches are not pages).
+full-causal attention stacks (qwen1.5, codeqwen1.5, stablelm and the MoE
+stacks olmoe and granite-moe) by continuous batching over the paged pool,
+and RecurrentGemma and xLSTM in waves of same-length prompts (recurrent
+and windowed caches are not pages).
 ``--prefix-cache on`` shares page-aligned prompt prefixes through the
 radix-tree prefix cache and ``--prefill-chunk N`` interleaves N-token
 prefill chunks with decode steps (continuous scheduler only).  With the
@@ -34,7 +40,8 @@ prefix cache on, every request's prompt is a shared system prompt of
 ``--shared-prefix`` random tokens (default: half the longest drawn
 prompt, the reference's split) ahead of its own drawn tail.  ``--reduce``
 serves the model's small variant (``configs.reduced``), for CPU runs.  A
-model whose weights do not fit one card (qwen1.5-110b) is refused.
+model whose weights do not fit one card (qwen1.5-110b) is refused; the
+count includes the padded vocabulary and experts.
 Both executors take the prefix cache and chunks, and ``--scheduler
 wave``.
 
@@ -77,7 +84,7 @@ from repro_torch.core.execplan import ExecPlan
 from repro_torch.core.profiler import AnalyticProfiler
 from repro_torch.core.ring import LocalRing
 from repro_torch.core.simulator import make_step_pricer
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, param_bytes
 from repro_torch.obs import DriftMonitor, Tracer
 from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
@@ -193,17 +200,20 @@ def make_drift(cfg: ModelConfig,
 
 def describe_zoo(cfg: ModelConfig, scheduler: str) -> str:
     pattern = ",".join(cfg.block_pattern)
+    experts = (f" x {cfg.num_experts} experts (top {cfg.experts_per_token})"
+               if cfg.is_moe else "")
     return (f"{cfg.name}: {cfg.num_layers} layers ({cfg.num_groups} x [{pattern}] + "
             f"{len(cfg.tail_pattern)} tail), d {cfg.d_model}, {cfg.num_heads} heads on "
             f"{cfg.num_kv_heads} kv x {cfg.head_dim}, window {cfg.window}, lru "
-            f"{cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
-            f"{scheduler} scheduler")
+            f"{cfg.lru_width}, d_ff {cfg.d_ff}{experts}, vocab {cfg.vocab_size}, "
+            f"{cfg.dtype}; {scheduler} scheduler")
 
 
 def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
-    """Refuse a model whose weights alone exceed one card's memory."""
+    """Refuse a model whose weights alone exceed one card's memory (the
+    parameter tree's bytes: padded vocabulary and experts, norms, biases)."""
     dt = dtype or cfg.param_dtype
-    need = cfg.param_count() * getattr(torch, dt).itemsize
+    need = param_bytes(dataclasses.replace(cfg, param_dtype=dt))
     if need > CARD_BYTES:
         raise ValueError(
             f"{cfg.name} needs {need / 1e9:.1f} GB of {dt} weights, more than one "
@@ -394,7 +404,8 @@ def main(argv=None):
     ap.add_argument("--executor", choices=EXECUTORS, default="galaxy",
                     help="galaxy: a paper model through the HMP plan; zoo: a "
                          "zoo model (stablelm-12b, qwen1.5-0.5b, ..., "
-                         "recurrentgemma-9b)")
+                         "recurrentgemma-9b, olmoe-1b-7b, granite-moe-3b-a800m, "
+                         "xlstm-350m)")
     ap.add_argument("--model", default="gpt2-l",
                     help=f"galaxy: one of {sorted(PAPER_MODELS)}; zoo: one of "
                          f"{sorted(ZOO_MODELS)}")
@@ -412,7 +423,7 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None)
     ap.add_argument("--dtype", choices=("float16", "bfloat16", "float32"), default=None,
                     help="default: the model's serving dtype (gpt2-l float16, "
-                         "recurrentgemma-9b bfloat16)")
+                         "the zoo bfloat16)")
     ap.add_argument("--reduce", action="store_true",
                     help="serve the model's small variant (configs.reduced), "
                          "e.g. for a CPU run")

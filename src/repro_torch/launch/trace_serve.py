@@ -8,13 +8,19 @@
   PYTHONPATH=src python -m repro_torch.launch.trace_serve --executor zoo \\
       --model stablelm-12b --requests 8 --prompt-len 64-512 \\
       --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.trace_serve --executor zoo \\
+      --model olmoe-1b-7b --requests 8 --prompt-len 64-512 \\
+      --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 Builds the same executor as ``launch.serve`` (random weights from
 ``--seed``) and serves the same requests three times: once to build and
 warm the kernels, once unprofiled for the wall time, and once under the
 profiler for the device time by kernel.  Prints the wall times, the
-device-busy time and its share of each wall time, and the kernels that
-took the most device time.  The profiler adds host time, so the idle
+device-busy time and its share of each wall time, the kernels that took
+the most device time, and the PyTorch operators whose own launches took
+the most (an operator's self device time, so an ``aten::einsum`` counts
+the ``aten::bmm`` under it apart; the hand-written kernels launch
+outside any operator and show only as kernels).  The profiler adds host time, so the idle
 share against the profiled wall is an upper bound; the share against the
 unprofiled wall is the closer estimate.  Runs on ``cuda`` unless
 ``--device cpu`` is given (where no device time is recorded).
@@ -61,14 +67,17 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         traced = serve(model, capacities, **kw)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
     return {
         "plan": plain["plan"],
         "wall_ms": 1e3 * plain["seconds"],
         "profiled_wall_ms": 1e3 * traced["seconds"],
         "busy_ms": sum(e.device_time_total for e in kernels) / 1e3,
         "kernels": sorted(kernels, key=lambda e: -e.device_time_total),
+        "ops": sorted(ops, key=lambda e: -e.self_device_time_total),
         "stats": plain["stats"],
         "ttft_p50_ms": 1e3 * plain["ttft_p50_s"],
     }
@@ -94,7 +103,7 @@ def main(argv=None):
     ap.add_argument("--reduce", action="store_true",
                     help="the model's small variant (configs.reduced), e.g. on the CPU")
     ap.add_argument("--top", type=int, default=10,
-                    help="kernels to list, by device time")
+                    help="kernels and operators to list, by device time")
     add_scheduling_args(ap)
     args = ap.parse_args(argv)
     out = trace(args.model, [float(c) for c in args.capacities.split(",")],
@@ -119,6 +128,9 @@ def main(argv=None):
           f"the profiled wall")
     for e in kernels[:args.top]:
         print(f"  {e.device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+    print("operators by the device time of their own launches:")
+    for e in out["ops"][:args.top]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The model zoo on one device: parameters, blocks and ``apply_model``
-(counterpart of ``src/repro/models/``).  The port serves RecurrentGemma
-(``attn`` and ``rec`` blocks); MoE, xLSTM and cross-attention are ROADMAP
-queue 1, item 11."""
+(counterpart of ``src/repro/models/``).  The port serves ``attn``, ``rec``,
+``mlstm`` and ``slstm`` blocks, dense or MoE FFNs; cross-attention is
+ROADMAP queue 1, item 7."""
 from repro_torch.models.params import init_params, model_spec, params_from_numpy
 from repro_torch.models.transformer import apply_model
 

@@ -17,7 +17,7 @@ Rows of the view past the chunk (stale pages) are never read.
 
 Caches are updated in place (the engine owns one cache per wave, and the
 paged executor one gathered view per call) and returned.  Cross-attention
-is not on this path: ROADMAP queue 1, item 11.
+is not on this path: ROADMAP queue 1, item 7.
 """
 from __future__ import annotations
 

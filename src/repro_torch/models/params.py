@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.xlstm import xlstm_dims
 
+EXPERT_PAD = 16   # the reference's expert-parallel degree the expert dim divides by
 VOCAB_PAD = 256
 
 
@@ -34,6 +36,16 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return cfg.padded_vocab(VOCAB_PAD) if cfg.vocab_size >= VOCAB_PAD else cfg.vocab_size
 
 
+def padded_experts(cfg: ModelConfig) -> int:
+    """Experts in the parameter tree: padded to ``EXPERT_PAD`` from 16
+    experts up (granite's 40 -> 48), as the reference lays them out."""
+    if not cfg.is_moe:
+        return 0
+    if cfg.num_experts >= EXPERT_PAD:
+        return cfg.padded_experts(EXPERT_PAD)
+    return cfg.num_experts
+
+
 # --- per-block specs ----------------------------------------------------------
 
 def _norm_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
@@ -43,11 +55,24 @@ def _norm_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
     return {"scale": PSpec((d,), "ones"), "bias": PSpec((d,), "zeros")}
 
 
+def _inner_norm_spec(width: int) -> Dict[str, PSpec]:
+    return {"scale": PSpec((width,), "zeros")}
+
+
 def _mlp_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, ff = cfg.d_model, cfg.d_ff
     out = {"w_up": PSpec((d, ff)), "w_down": PSpec((ff, d))}
     if cfg.activation in ("swiglu", "geglu"):
         out["w_gate"] = PSpec((d, ff))
+    return out
+
+
+def _moe_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
+    d, ff = cfg.d_model, cfg.d_ff
+    e = padded_experts(cfg)
+    out = {"router": PSpec((d, e)), "we_up": PSpec((e, d, ff)), "we_down": PSpec((e, ff, d))}
+    if cfg.activation in ("swiglu", "geglu"):
+        out["we_gate"] = PSpec((e, d, ff))
     return out
 
 
@@ -65,7 +90,9 @@ def _attn_spec(cfg: ModelConfig) -> Dict:
         p["bq"] = PSpec((h, hd), "zeros")
         p["bk"] = PSpec((kv, hd), "zeros")
         p["bv"] = PSpec((kv, hd), "zeros")
-    if cfg.d_ff > 0:
+    if cfg.is_moe:
+        p["moe"] = _moe_spec(cfg)
+    elif cfg.d_ff > 0:
         p["mlp"] = _mlp_spec(cfg)
     return p
 
@@ -92,7 +119,38 @@ def _rec_spec(cfg: ModelConfig) -> Dict:
     return p
 
 
-_BLOCK_SPECS = {"attn": _attn_spec, "rec": _rec_spec}
+def _mlstm_spec(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    di, nh, dh = xlstm_dims(cfg)
+    return {
+        "ln": _norm_spec(cfg),
+        "w_up": PSpec((d, 2 * di)),
+        "wq": PSpec((nh, dh, dh)),
+        "wk": PSpec((nh, dh, dh)),
+        "wv": PSpec((nh, dh, dh)),
+        "w_if": PSpec((nh, dh, 2), "zeros"),
+        "b_if": PSpec((nh, 2), "zeros"),
+        "mh_norm": _inner_norm_spec(di),
+        "w_down": PSpec((di, d)),
+    }
+
+
+def _slstm_spec(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    di, nh, dh = xlstm_dims(cfg)
+    return {
+        "ln": _norm_spec(cfg),
+        "w_in": PSpec((d, 4, nh, dh)),
+        "b_in": PSpec((4, nh, dh), "zeros"),
+        # block-diagonal (per-head) recurrent matrix R: raw_t += h_{t-1} R
+        "w_rec": PSpec((nh, dh, 4, dh), "normal", 0.01),
+        "mh_norm": _inner_norm_spec(di),
+        "w_down": PSpec((di, d)),
+    }
+
+
+_BLOCK_SPECS = {"attn": _attn_spec, "rec": _rec_spec, "mlstm": _mlstm_spec,
+                "slstm": _slstm_spec}
 
 
 def model_spec(cfg: ModelConfig) -> Dict:
@@ -111,6 +169,15 @@ def model_spec(cfg: ModelConfig) -> Dict:
     for i, kind in enumerate(cfg.tail_pattern):
         spec["tail"][f"t{i}_{kind}"] = _BLOCK_SPECS[kind](cfg)
     return spec
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    """Bytes of the parameter tree in ``cfg.param_dtype``, padded vocab and
+    padded experts included, from the spec alone (nothing is drawn)."""
+    g = cfg.num_groups
+    n = sum(math.prod(ps.shape) * (g if path[0] == "groups" else 1)
+            for path, ps in _leaves(model_spec(cfg)))
+    return n * getattr(torch, cfg.param_dtype).itemsize
 
 
 def _leaves(tree: Dict, path=()):

@@ -22,8 +22,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import self_attention_block
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.mlp import mlp_block
+from repro_torch.models.moe import AUX_KEYS, moe_block
 from repro_torch.models.params import group_params, padded_vocab
 from repro_torch.models.rglru import rglru_block
+from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 
 def _maybe_cast(tree, cfg: ModelConfig):
@@ -57,18 +59,29 @@ def compute_logits(params, cfg: ModelConfig, x):
 
 
 def _apply_block(kind: str, p: Dict, x, cfg: ModelConfig, *, mode: str, cache,
-                 positions, cache_index, backend: str):
+                 positions, cache_index, backend: str, aux: Optional[Dict]):
     if kind == "attn":
         x, new_cache = self_attention_block(
             p, x, cfg, mode=mode, window=cfg.window, cache=cache,
             positions=positions, cache_index=cache_index, backend=backend)
     elif kind == "rec":
         x, new_cache = rglru_block(p, x, cfg, mode=mode, cache=cache, backend=backend)
+    elif kind == "mlstm":
+        x, new_cache = mlstm_block(p, x, cfg, mode=mode, cache=cache)
+    elif kind == "slstm":
+        x, new_cache = slstm_block(p, x, cfg, mode=mode, cache=cache)
     else:
         raise ValueError(kind)
-    # FFN sub-layer (rec blocks keep Griffin's MLP)
-    if cfg.d_ff > 0:
-        x = mlp_block(p, x, cfg)
+    # FFN sub-layer of attention blocks (rec blocks keep Griffin's MLP; the
+    # xLSTM blocks hold their projections inside)
+    if kind in ("attn", "rec"):
+        if cfg.is_moe:
+            x, a = moe_block(p, x, cfg)
+            if aux is not None:
+                for name in AUX_KEYS:
+                    aux[name] = aux[name] + a[name]
+        elif cfg.d_ff > 0:
+            x = mlp_block(p, x, cfg)
     return x, new_cache
 
 
@@ -90,6 +103,7 @@ def apply_model(
     cache_index=None,
     backend: str = "kernel",
     rows=None,
+    aux: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits, new_cache).
 
@@ -101,13 +115,15 @@ def apply_model(
     "eager" the plain versions on any device.  rows: None for logits of
     every position, (B, S, V); else an int or a (B,) tensor naming one
     row per batch entry, for (B, V) logits of those rows only — the same
-    numbers without the (B, S, V) buffer.
+    numbers without the (B, S, V) buffer.  aux: a dict that, when given,
+    receives the MoE aux values summed over the layers (``moe_lb_loss``,
+    ``moe_z_loss``, ``moe_drop_frac``; zeros for a model without experts).
     """
-    if cfg.input_mode != "token":
-        raise NotImplementedError(f"input_mode {cfg.input_mode!r} is not ported")
-    if cfg.pos_embedding not in ("rope", "none"):
+    if cfg.input_mode != "token" or cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(
-            f"pos_embedding {cfg.pos_embedding!r} is not ported to the zoo")
+            f"{cfg.name}: input_mode {cfg.input_mode!r}, pos_embedding "
+            f"{cfg.pos_embedding!r}: the zoo has not ported the 'embed' input mode, "
+            f"xattn blocks or sinusoidal positions")
     if mode in ("prefill", "decode") and cache is None:
         raise ValueError(f"{mode} needs a cache from serving.kvcache.make_cache")
     if mode == "decode" and cache_index is None:
@@ -136,7 +152,10 @@ def apply_model(
     if isinstance(cache_index, torch.Tensor):
         cache_index = cache_index.to(dev)
 
-    kw = dict(mode=mode, positions=positions, cache_index=cache_index, backend=backend)
+    if aux is not None:
+        aux.update({name: torch.zeros((), device=dev) for name in AUX_KEYS})
+    kw = dict(mode=mode, positions=positions, cache_index=cache_index, backend=backend,
+              aux=aux)
     for g in range(cfg.num_groups):
         gparams = _maybe_cast(group_params(params, g), cfg)
         for i, kind in enumerate(cfg.block_pattern):

@@ -1,6 +1,9 @@
 """Dense serving caches of the model zoo: KV caches (full or
-sliding-window) and RG-LRU states, mirroring the grouped parameter tree
-(a leading ``num_groups`` dim on ``"groups"`` entries).
+sliding-window) and recurrent states (RG-LRU, mLSTM, sLSTM), mirroring the
+grouped parameter tree (a leading ``num_groups`` dim on ``"groups"``
+entries).  Recurrent states are fp32 whatever the model dtype; the
+xLSTM stabilizers start at ``m = -1e30`` and the sLSTM normalizer at
+``n = 1e-6`` (``_INIT_SPECIAL``), every other leaf at zero.
 
 The same tree is the paged pool of the continuous scheduler:
 ``make_cache(cfg, num_pages, page_size)`` read as (page, in-page slot),
@@ -14,6 +17,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.xlstm import xlstm_dims
 
 
 def _attn_shapes(cfg: ModelConfig, batch: int, cache_len: int):
@@ -28,7 +32,21 @@ def _rec_shapes(cfg: ModelConfig, batch: int, cache_len: int):
     return {"h": ((batch, w), "float32"), "conv": ((batch, cw - 1, w), cfg.dtype)}
 
 
-_SHAPES = {"attn": _attn_shapes, "rec": _rec_shapes}
+def _mlstm_shapes(cfg: ModelConfig, batch: int, cache_len: int):
+    _, nh, dh = xlstm_dims(cfg)
+    return {"c": ((batch, nh, dh, dh), "float32"), "n": ((batch, nh, dh), "float32"),
+            "m": ((batch, nh), "float32")}
+
+
+def _slstm_shapes(cfg: ModelConfig, batch: int, cache_len: int):
+    _, nh, dh = xlstm_dims(cfg)
+    return {k: ((batch, nh, dh), "float32") for k in ("h", "c", "n", "m")}
+
+
+_SHAPES = {"attn": _attn_shapes, "rec": _rec_shapes, "mlstm": _mlstm_shapes,
+           "slstm": _slstm_shapes}
+
+_INIT_SPECIAL = {("mlstm", "m"): -1e30, ("slstm", "m"): -1e30, ("slstm", "n"): 1e-6}
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
@@ -46,9 +64,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None) -> Dict:
-    """The zeroed cache tree for ``apply_model(mode="prefill"|"decode")``."""
-    return {part: {key: {n: torch.zeros(shape, dtype=getattr(torch, dt), device=device)
-                         for n, (shape, dt) in leaves.items()}
+    """The fresh cache tree for ``apply_model(mode="prefill"|"decode")``."""
+    def leaf(key, name, shape, dt):
+        kind = key.split("_", 1)[1]
+        return torch.full(shape, _INIT_SPECIAL.get((kind, name), 0.0),
+                          dtype=getattr(torch, dt), device=device)
+
+    return {part: {key: {n: leaf(key, n, shape, dt) for n, (shape, dt) in leaves.items()}
                    for key, leaves in blocks.items()}
             for part, blocks in cache_shapes(cfg, batch, cache_len).items()}
 

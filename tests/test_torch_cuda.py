@@ -821,3 +821,50 @@ def test_traced_galaxy_serve_tokens_equal_untraced(cuda):
     assert tracer.open_spans() == [] and tracer.to_json()["traceEvents"]
     assert {r["kind"] for r in drift.records} == {"decode", "prefill_chunk"}
     assert eng.metrics.snapshot()["histograms"]["ttft_s"]["n"] == 4
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_routing_on_the_card_equals_the_cpu(cuda, arch):
+    """One MoE sub-layer at the model's full width (granite: 48 padded
+    experts) on 256 tokens in fp32: the card routes every token to the
+    experts the CPU does, never to a pad expert, and the output and aux
+    values agree within 1e-4 relative."""
+    from repro_torch.models.moe import moe_apply, moe_route
+
+    from repro_torch.models.params import _moe_spec
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", param_dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    p = {n: torch.randn(ps.shape, generator=g) / ps.shape[-2] ** 0.5
+         for n, ps in _moe_spec(cfg).items()}
+    x = torch.randn(2, 128, cfg.d_model, generator=g)
+    pc = {n: t.to(cuda) for n, t in p.items()}
+    out, aux = moe_apply(p, x, cfg)
+    out_c, aux_c = moe_apply(pc, x.to(cuda), cfg)
+    _, _, idx = moe_route(p, x.view(2, 128, -1), cfg)
+    _, _, idx_c = moe_route(pc, x.to(cuda).view(2, 128, -1), cfg)
+    assert torch.equal(idx_c.cpu(), idx) and bool((idx < cfg.num_experts).all())
+    scale = out.abs().max()
+    assert (out_c.cpu() - out).abs().max() <= 1e-4 * scale
+    for name, val in aux.items():
+        torch.testing.assert_close(aux_c[name].cpu(), val, atol=1e-4, rtol=1e-4)
+
+
+def test_xlstm_chunked_equals_step_scan_on_the_card(cuda):
+    """The mLSTM's chunked form and its step scan at S 256 on the card, at
+    xlstm-350m's head width (4 heads of 512), from a fresh state: within
+    1e-4 of the largest output."""
+    from repro_torch.models import xlstm
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, s, nh, dh = 2, 256, 4, 512
+    q, k, v = (torch.randn(b, s, nh, dh, generator=g, device=cuda) for _ in range(3))
+    k = k / dh ** 0.5
+    i_raw = torch.randn(b, s, nh, generator=g, device=cuda)
+    f_raw = torch.randn(b, s, nh, generator=g, device=cuda) + 2.0
+    cfg = get_config("xlstm-350m")
+    st = tuple(xlstm.init_mlstm_cache(cfg, b, device=cuda).values())
+    h_scan, st_scan = xlstm.mlstm_scan(q, k, v, i_raw, f_raw, st)
+    h_chunk, st_chunk = xlstm.mlstm_chunked(q, k, v, i_raw, f_raw, st, 128)
+    for a, want in zip((h_chunk,) + st_chunk, (h_scan,) + st_scan):
+        assert (a - want).abs().max() <= 1e-4 * want.abs().max()

@@ -42,10 +42,12 @@ def test_import_leaves_jax_and_reference_out():
                                     "repro_torch.obs", "repro_torch.obs.metrics",
                                     "repro_torch.obs.trace", "repro_torch.obs.drift",
                                     "repro_torch.core.simulator",
-                                    "repro_torch.core.profiler"])
+                                    "repro_torch.core.profiler",
+                                    "repro_torch.models.moe", "repro_torch.models.xlstm"])
 def test_module_alone_leaves_jax_and_reference_out(module):
-    """Each module of the Galaxy serving path and its telemetry, imported alone in a fresh
-    interpreter, pulls in neither ``jax`` nor ``repro``."""
+    """Each module of the Galaxy serving path and its telemetry, and the zoo's MoE and
+    xLSTM blocks, imported alone in a fresh interpreter, pulls in neither ``jax`` nor
+    ``repro``."""
     code = (
         f"import importlib, sys\nimportlib.import_module({module!r})\n"
         "bad = sorted(n for n in sys.modules\n"

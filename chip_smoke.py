@@ -193,6 +193,44 @@ The MoE and xLSTM families run last, after StableLM's serve:
              mLSTM prefills on each path; the 256-token wave's first
              tokens against a pass on the step path (tie gap 0.1).
 
+The training path and the rest of the zoo run after them:
+
+25. train kernels — q, k, v gradients through ``FlashAttentionFn`` (the
+             kernel forward, a torch-ops backward) against autograd
+             through the plain version, causal, at qwen1.5-0.5b's (8, 16,
+             128, 64) and llama-3.2-vision's (1, 64, 256, 128) on 8 KV
+             heads, fp32 (1e-4 of the largest gradient) and bf16 (2e-2);
+             the bare kernel's output carries no gradient (the fault the
+             Function repairs).  a, b, h0 through ``RGLRUScanFn`` (the
+             kernel forward and, on reversed time, backward: 2 launches)
+             at (4, 300, 4096) fp32, nonzero h0, within 1e-5.  Times the
+             forward kernel, the backward and plain autograd.
+26. train — ``launch.train`` with qwen1.5-0.5b at full width and depth
+             (bf16, remat on), 8 x 128 tokens, 20 steps: finite losses,
+             the last 5 steps' mean below the first step's, flash
+             launched exactly 2 x 24 a step (forward and remat's
+             recompute) and no other kernel; median step, tokens/s and
+             peak memory.  Then one fp32 step at full width cut to 4
+             layers, kernel vs eager backend from the same weights and
+             batch (``STEP_TOL``).
+27. train zoo — musicgen-medium at full width and depth (48 layers,
+             embed input, 4 codebooks, sinusoidal), 5 steps with finite
+             losses; RecurrentGemma-9B at full width cut to one group,
+             one fp32 step kernel vs eager (the scan 6 launches: forward,
+             recompute, backward for each rec layer); olmoe-1b-7b at
+             full width cut to 2 layers, one bf16 step (the aux losses
+             in the loss, gradients into the router and the experts);
+             qwen1.5-0.5b at 4 layers, bf16: 3 steps, a checkpoint,
+             restored into fresh tensors, 3 steps, bitwise equal to 6
+             uninterrupted steps.
+28. xattn — llama-3.2-vision-90b at full width cut to one group (4 attn
+             + 1 xattn, 1024 image tokens), bf16: a 2 x 128-token
+             prefill and 8 decode steps fed the eager backend's greedy
+             tokens, kernel vs eager logits within ``XATTN_TOL`` and
+             greedy tokens equal except where the eager top-2 gap is
+             below it; musicgen-medium at full width cut to 4 layers,
+             fp32: prefill then decode against its train-mode forward.
+
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
 ``python -m repro_torch.launch.trace_serve``.
@@ -206,6 +244,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2282,6 +2321,439 @@ def phase_xlstm_serve(torch, card):
         f"gap {gap:.3g})")
 
 
+# --- the training path and the rest of the zoo --------------------------------
+
+# kernel-forward gradients against plain autograd, relative to each
+# gradient's largest: fp32 sums in another order; bf16 inputs and outputs
+# round the same fp32 math on both sides
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# one fp32 train step, kernel vs eager backend: loss and grad norm sum the
+# same fp32 terms in another order; an updated parameter moves by
+# lr * g / (|g| + eps), so only an element whose gradient is at the noise
+# floor (|g| ~ eps) can move by a share of a step: half a step bounds it,
+# and the 2-norm of the difference of the updates stays within 1e-3 of
+# the updates' own
+STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "param_steps": 0.5, "update_norm": 1e-3}
+# bf16 logits through the llama-3.2-vision group (d 8192, |logits| ~5),
+# kernel vs eager: the two residual streams part by a bf16 unit at each
+# attention (the kernel's P in two bf16 parts against the plain fp32 P)
+# and carry it through the decode's K/V caches; between the MoE replays'
+# 0.1 (<= 32 layers of d <= 2048) and the bf16 Galaxy serve's 0.4.  A
+# greedy token may differ only where the eager top-2 gap is below it
+XATTN_TOL = 0.25
+
+
+def _grad_pair(fn, inputs, weights):
+    """Gradients of sum(out * w) over ``fn``'s outputs at fresh leaf copies
+    of ``inputs``."""
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+    return [t.grad for t in ts]
+
+
+def _max_rel(got, want):
+    return max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _tree_pairs(a, b):
+    for k in a:
+        if isinstance(a[k], dict):
+            yield from _tree_pairs(a[k], b[k])
+        else:
+            yield a[k], b[k]
+
+
+def phase_train_kernels(torch, card):
+    """The two kernels of the training path with their gradients: q, k, v
+    through ``FlashAttentionFn`` (kernel forward, torch-ops backward) and
+    a, b, h0 through ``RGLRUScanFn`` (kernel forward, kernel backward on
+    reversed time) against autograd through the plain versions.  The bare
+    flash wrapper's output carries no gradient: the fault the Function
+    repairs.  Times the forward kernel, the backward and plain autograd
+    (forward and backward)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention, flash_attention_backward, flash_attention_plain)
+    from repro_torch.kernels.rglru_scan import (
+        RGLRUScanFn, rglru_scan, rglru_scan_backward, rglru_scan_plain)
+    from repro_torch.launch.kernel_timing import time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    for model, (b, h, hkv, s, hd) in (("qwen1.5-0.5b", (8, 16, 16, 128, 64)),
+                                      ("llama-3.2-vision-90b", (1, 64, 8, 256, 128))):
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q = torch.randn(b, s, h, hd, generator=g, device=dev).to(tdt)
+            k, v = (torch.randn(b, s, hkv, hd, generator=g, device=dev).to(tdt)
+                    for _ in range(2))
+            w = torch.randn(b, h, s, hd, generator=g, device=dev)
+
+            def views(f):
+                return lambda q, k, v: f(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2))
+
+            bare = flash_attention(*(t.detach().requires_grad_().transpose(1, 2)
+                                     for t in (q, k, v)))
+            if bare.requires_grad:
+                raise AssertionError("the bare flash kernel output carries a gradient")
+            got = _grad_pair(views(lambda *a: FlashAttentionFn.apply(*a, True, 0)),
+                             (q, k, v), (w,))
+            want = _grad_pair(views(lambda *a: flash_attention_plain(*a, causal=True)),
+                              (q, k, v), (w,))
+            err = _max_rel(got, want)
+            if not err <= GRAD_TOL[dtype]:
+                raise AssertionError(f"flash_attention gradient {model} {dtype}: max rel err "
+                                     f"{err} > {GRAD_TOL[dtype]}")
+            line = (f"flash_attention grad {model} q ({b},{h},{s},{hd}) kv {hkv} causal "
+                    f"{dtype}: dq/dk/dv max err {err:.3g} of the largest (tolerance "
+                    f"{GRAD_TOL[dtype]}); the bare kernel output has no grad_fn")
+            if dtype == "bfloat16":
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                out = flash_attention(qt, kt, vt, causal=True)
+                dout = w.to(tdt)
+                fwd = time_ms(lambda: flash_attention(qt, kt, vt, causal=True))
+                bwd = time_ms(lambda: flash_attention_backward(qt, kt, vt, out, dout,
+                                                               causal=True))
+                plain = time_ms(lambda: _grad_pair(
+                    views(lambda *a: flash_attention_plain(*a, causal=True)), (q, k, v), (w,)),
+                    iters=10)
+                line += (f"; kernel forward {fwd:.4f} ms, torch-ops backward {bwd:.4f} ms, "
+                         f"plain autograd {plain:.4f} ms; {card}")
+            log("train", line)
+
+    b, s, w = 4, 300, 4096
+    a = 0.5 + 0.499 * torch.rand(b, s, w, generator=g, device=dev)
+    bb = torch.randn(b, s, w, generator=g, device=dev)
+    h0 = torch.randn(b, w, generator=g, device=dev)
+    w1 = torch.randn(b, s, w, generator=g, device=dev)
+    w2 = torch.randn(b, w, generator=g, device=dev)
+    before = ops.launch_counts()["rglru_scan"]
+    got = _grad_pair(RGLRUScanFn.apply, (a, bb, h0), (w1, w2))
+    if ops.launch_counts()["rglru_scan"] != before + 2:
+        raise AssertionError("RGLRUScanFn: not one forward and one backward launch")
+    want = _grad_pair(rglru_scan_plain, (a, bb, h0), (w1, w2))
+    err = _max_rel(got, want)
+    if not err <= 1e-5:
+        raise AssertionError(f"rglru_scan gradient: max rel err {err} > 1e-5")
+    hs, _ = rglru_scan(a, bb, h0)
+    fwd = time_ms(lambda: rglru_scan(a, bb, h0))
+    bwd = time_ms(lambda: rglru_scan_backward(a, h0, hs, w1, w2))
+    plain = time_ms(lambda: _grad_pair(rglru_scan_plain, (a, bb, h0), (w1, w2)), iters=3)
+    log("train", f"rglru_scan grad ({b},{s},{w}) fp32 nonzero h0: da/db/dh0 max err "
+        f"{err:.3g} of the largest (tolerance 1e-5), 2 launches; kernel forward {fwd:.4f} "
+        f"ms, backward (kernel on reversed time) {bwd:.4f} ms, plain autograd {plain:.4f} "
+        f"ms; {card}")
+
+
+def check_train_counts(ops, cfg, steps, what, scan_bwd=True):
+    """Launches of a training run on the kernel backend: per step and
+    layer, flash twice (the forward and remat's recompute) and the scan
+    three times (forward, recompute, backward on reversed time); no other
+    kernel."""
+    counts = ops.launch_counts()
+    remat = 2 if cfg.remat else 1
+    expect = {name: 0 for name in counts}
+    expect["flash_attention"] = remat * cfg.count_kind("attn") * steps
+    expect["rglru_scan"] = (remat + int(scan_bwd)) * cfg.count_kind("rec") * steps
+    if counts != expect:
+        raise AssertionError(f"{what}: launch counts {counts} != {expect}")
+    return counts
+
+
+def train_step_pair(torch, cfg, what, card, batch=8, seq=128, seed=31):
+    """One fp32 train step on the kernel and the eager backend from the
+    same weights and batch: loss, grad norm and the updated params within
+    ``STEP_TOL``.  Returns the kernel run's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.params import init_params
+
+    dev = torch.device("cuda")
+    p0 = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    lr = 1e-3
+    runs = {}
+    for backend in ("kernel", "eager"):
+        ops.reset_launch_counts()
+        runs[backend] = launch_train.train(
+            cfg, steps=1, batch=batch, seq=seq, lr=lr, warmup=1, device=dev,
+            backend=backend, params=_clone_tree(p0), log=lambda m: None)
+        if backend == "kernel":
+            counts = check_train_counts(ops, cfg, 1, what)
+        torch.cuda.empty_cache()
+    k, e = runs["kernel"], runs["eager"]
+    loss_err = abs(k["losses"][0] - e["losses"][0]) / abs(e["losses"][0])
+    gn_err = abs(k["grad_norms"][0] - e["grad_norms"][0]) / e["grad_norms"][0]
+    pmax, num, den = 0.0, 0.0, 0.0
+    for (pk, pe), (_, p) in zip(_tree_pairs(k["params"], e["params"]),
+                                _tree_pairs(k["params"], p0)):
+        pmax = max(pmax, (pk - pe).abs().max().item())
+        num += (pk - pe).double().square().sum().item()
+        den += (pe - p).double().square().sum().item()
+    upd = (num / den) ** 0.5
+    if not (loss_err <= STEP_TOL["loss"] and gn_err <= STEP_TOL["grad_norm"]
+            and pmax <= STEP_TOL["param_steps"] * lr and upd <= STEP_TOL["update_norm"]):
+        raise AssertionError(f"{what} train step kernel vs eager: loss rel err {loss_err}, "
+                             f"grad norm rel err {gn_err}, params max abs err {pmax} "
+                             f"(lr {lr}), update 2-norm rel err {upd}; tolerances {STEP_TOL}")
+    log("train", f"{what}: one fp32 step kernel vs eager: loss {k['losses'][0]:.6f} vs "
+        f"{e['losses'][0]:.6f} (rel err {loss_err:.3g}), grad norm rel err {gn_err:.3g}, "
+        f"updated params max abs err {pmax:.3g} (lr {lr}), update 2-norm rel err {upd:.3g} "
+        f"(tolerances {STEP_TOL}); launches {counts}; {card}")
+    del runs, p0
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train(torch, rec, card):
+    """``launch.train`` for qwen1.5-0.5b at full width and depth (bf16,
+    remat on), batch 8 x 128 tokens, 20 steps: finite losses, the last 5
+    steps' mean below the first step's, flash launches exactly 2 x 24 a
+    step and no other kernel; step time (median), tokens/s, peak memory.
+    Then one fp32 step at full width cut to 4 layers, kernel vs eager."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config("qwen1.5-0.5b")
+    steps, batch, seq = 20, 8, 128
+    ops.reset_launch_counts()
+    out = launch_train.train(cfg, steps=steps, batch=batch, seq=seq, device="cuda",
+                             log=lambda m: log("train", m))
+    counts = check_train_counts(ops, cfg, steps, "qwen1.5-0.5b training")
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    losses = out["losses"]
+    tail = sum(losses[-5:]) / 5
+    if not all(math.isfinite(x) for x in losses) or not tail < losses[0]:
+        raise AssertionError(f"qwen1.5-0.5b losses {losses}: not finite or not falling")
+    log("train", f"qwen1.5-0.5b full width and depth ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, bf16, remat), {batch} x {seq} tokens, "
+        f"{steps} steps: loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; median step "
+        f"{1e3 * out['median_step_s']:.2f} ms, {out['tokens_per_s']:.0f} tok/s, peak memory "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB; flash launches {counts['flash_attention']} "
+        f"(2 x {cfg.count_kind('attn')} x {steps}); {card}")
+    del out
+    torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, num_layers=4, dtype="float32", param_dtype="float32")
+    counts = train_step_pair(torch, cfg4, "qwen1.5-0.5b width, 4 layers", card)
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+
+
+def phase_train_zoo(torch, rec, card):
+    """musicgen-medium at full width and depth (5 steps, bf16); a
+    RecurrentGemma-9B group at full width, one fp32 step kernel vs eager
+    (the scan's backward on the card); an olmoe-1b-7b step at full width
+    cut to 2 layers (the aux losses in the loss, gradients into the router
+    and the experts); a qwen1.5-0.5b checkpoint at step 3 resumed
+    bitwise."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.params import init_params
+    from repro_torch.training import (AdamW, cosine_schedule, make_train_step,
+                                      restore_checkpoint, save_checkpoint)
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import batch_to_device, loss_fn
+
+    dev = torch.device("cuda")
+    cfg = get_config("musicgen-medium")
+    steps = 5
+    ops.reset_launch_counts()
+    out = launch_train.train(cfg, steps=steps, batch=8, seq=128, device=dev,
+                             log=lambda m: log("train", m))
+    counts = check_train_counts(ops, cfg, steps, "musicgen-medium training")
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"musicgen-medium losses {out['losses']}")
+    log("train", f"musicgen-medium full width and depth ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_codebooks} codebooks, embed input, sinusoidal, "
+        f"{cfg.param_count() / 1e9:.2f}e9 params, bf16, remat), 8 x 128, {steps} steps: "
+        f"losses {[round(x, 4) for x in out['losses']]}; median step "
+        f"{1e3 * out['median_step_s']:.2f} ms, {out['tokens_per_s']:.0f} tok/s, peak memory "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB; {card}")
+    del out
+    torch.cuda.empty_cache()
+
+    rg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3, dtype="float32",
+                             param_dtype="float32")
+    counts = train_step_pair(torch, rg, "recurrentgemma-9b width, one group", card, batch=4)
+    for name in ZOO_KERNELS:
+        rec[name].d["launches"] += counts[name]
+
+    moe = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=2)
+    params = init_params(moe, generator=torch.Generator(device=dev).manual_seed(41),
+                         device=dev)
+    pipe = LMDataPipeline(moe, DataConfig(batch_size=8, seq_len=128))
+    batch = batch_to_device(next(iter(pipe)), dev)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    ops.reset_launch_counts()
+    loss, m = loss_fn(params, batch, moe)
+    grads = dict(zip(("router", "we_up"), torch.autograd.grad(
+        loss, [params["groups"]["b0_attn"]["moe"][n] for n in ("router", "we_up")])))
+    for t in leaves:
+        t.requires_grad_(False)
+    counts = check_train_counts(ops, moe, 1, "olmoe-1b-7b step")
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    want = (m["ce_loss"] + moe.load_balance_loss_weight * m["moe_lb_loss"]
+            + 1e-3 * m["moe_z_loss"])
+    gn = {n: g.float().norm().item() for n, g in grads.items()}
+    if not (torch.isfinite(loss) and torch.allclose(loss, want, rtol=1e-6)
+            and loss > m["ce_loss"] and all(v > 0 and math.isfinite(v) for v in gn.values())):
+        raise AssertionError(f"olmoe step: loss {loss}, metrics {m}, grad norms {gn}")
+    log("train", f"olmoe-1b-7b width, 2 layers, bf16, one step: loss {loss.item():.4f} = ce "
+        f"{m['ce_loss'].item():.4f} + {moe.load_balance_loss_weight} x lb "
+        f"{m['moe_lb_loss'].item():.4f} + 1e-3 x z {m['moe_z_loss'].item():.3f}; drop frac "
+        f"{m['moe_drop_frac'].item():.3f}; router grad norm {gn['router']:.3g}, experts' "
+        f"w_up grad norm {gn['we_up']:.3g}; {card}")
+    del params, leaves, grads, loss, m
+    torch.cuda.empty_cache()
+
+    q4 = dataclasses.replace(get_config("qwen1.5-0.5b"), num_layers=4)
+    opt = AdamW(cosine_schedule(1e-3, 2, 6))
+    step = make_train_step(q4, opt)
+    data = [batch_to_device(b, dev) for b, _ in
+            zip(LMDataPipeline(q4, DataConfig(batch_size=8, seq_len=128)), range(6))]
+
+    def run(params, st, batches):
+        losses = []
+        for b in batches:
+            params, st, mt = step(params, st, b)
+            losses.append(mt["loss"])
+        return params, st, torch.stack(losses)
+
+    def fresh(seed):
+        return init_params(q4, generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+
+    p = fresh(51)
+    full, _, full_losses = run(p, opt.init(p), data)
+    p = fresh(51)
+    p, st, first = run(p, opt.init(p), data[:3])
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 3, p, st, {"arch": q4.name})
+        tmpl = fresh(52)
+        del p, st
+        manifest, p, st = restore_checkpoint(d, tmpl, opt.init(tmpl))
+    p, _, rest = run(p, st, data[3:])
+    same = all(torch.equal(a, b) for a, b in _tree_pairs(full, p))
+    if not (same and manifest["step"] == 3 and torch.equal(torch.cat([first, rest]),
+                                                           full_losses)):
+        raise AssertionError("qwen1.5-0.5b checkpoint resume is not bitwise the "
+                             "uninterrupted run")
+    log("train", f"qwen1.5-0.5b width, 4 layers, bf16: 3 steps, checkpoint, restore into "
+        f"fresh tensors, 3 steps: params and losses bitwise equal to 6 uninterrupted steps "
+        f"(losses {[round(x, 4) for x in full_losses.tolist()]})")
+    del full, p, tmpl, data
+    torch.cuda.empty_cache()
+
+
+def phase_xattn(torch, rec, card):
+    """llama-3.2-vision-90b at full width cut to one group (4 attn + 1
+    xattn, d 8192, 64 heads on 8 KV, 1024 image tokens), bf16: prefill 2
+    x 128 tokens, then 8 decode steps fed the eager backend's greedy
+    tokens, kernel vs eager backend.  Then musicgen-medium at full width
+    cut to 4 layers, fp32: prefill then decode against its train-mode
+    forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import apply_model
+    from repro_torch.models.params import init_params, padded_vocab
+    from repro_torch.serving.kvcache import make_cache
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), num_layers=5)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(61), device=dev)
+    g = torch.Generator(device=dev).manual_seed(62)
+    b, s, steps = 2, 128, 8
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    img = torch.randn(b, cfg.num_image_tokens, cfg.d_model, generator=g, device=dev) * 0.1
+    caches, logits = {}, {}
+    for backend in ("kernel", "eager"):
+        ops.reset_launch_counts()
+        caches[backend] = make_cache(cfg, b, s + steps, device=dev)
+        logits[backend], _ = apply_model(params, cfg, tokens=tokens, img_embeds=img,
+                                         mode="prefill", cache=caches[backend],
+                                         backend=backend, rows=s - 1)
+        counts = ops.launch_counts()
+        expect = {n: 0 for n in counts}
+        expect["flash_attention"] = cfg.count_kind("attn") if backend == "kernel" else 0
+        if counts != expect:
+            raise AssertionError(f"llama-vision prefill ({backend}) launches {counts}")
+        if backend == "kernel":
+            rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    errs, gaps, scale = [], [], 0.0
+    for step in range(steps + 1):
+        lk, le = logits["kernel"].float(), logits["eager"].float()
+        errs.append((lk - le).abs().max().item())
+        scale = max(scale, le[:, :cfg.vocab_size].abs().max().item())
+        top = le.topk(2, dim=-1).values
+        gap = (top[:, 0] - top[:, 1])
+        differ = lk.argmax(-1) != le.argmax(-1)
+        if bool(differ.any()):
+            gaps.append(gap[differ].max().item())
+        if not (torch.isfinite(lk).all() and errs[-1] <= XATTN_TOL
+                and bool((gap[differ] < XATTN_TOL).all())):
+            raise AssertionError(f"llama-vision step {step}: kernel vs eager max abs err "
+                                 f"{errs[-1]}, greedy tokens differ with top-2 gaps "
+                                 f"{gap[differ].tolist()} (tolerance {XATTN_TOL})")
+        if step == steps:
+            break
+        tok = le.argmax(-1)[:, None]
+        for backend in ("kernel", "eager"):
+            lg, _ = apply_model(params, cfg, tokens=tok, mode="decode",
+                                cache=caches[backend], cache_index=s + step, backend=backend)
+            logits[backend] = lg[:, 0]
+    log("xattn", f"llama-3.2-vision-90b width, one group ({cfg.block_pattern}, "
+        f"{cfg.param_count() / 1e9:.2f}e9 params bf16, {cfg.num_image_tokens} image tokens): "
+        f"{b} x {s}-token prefill and {steps} decode steps, kernel vs eager logits max abs "
+        f"err {max(errs):.3g} (tolerance {XATTN_TOL}, largest logit {scale:.3g}); greedy "
+        f"tokens equal"
+        + (f" except near-ties (top-2 gaps {gaps})" if gaps else "") + f"; {card}")
+    del params, caches, logits, img
+    torch.cuda.empty_cache()
+
+    mg = dataclasses.replace(get_config("musicgen-medium"), num_layers=4, dtype="float32",
+                             param_dtype="float32")
+    params = init_params(mg, generator=torch.Generator(device=dev).manual_seed(63), device=dev)
+    s0, steps = 256, 8
+    embeds = torch.randn(b, s0 + steps, mg.d_model, generator=g, device=dev) * 0.3
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        ref, _ = apply_model(params, mg, embeds=embeds, mode="train")
+        cache = make_cache(mg, b, s0 + steps, device=dev)
+        pl, cache = apply_model(params, mg, embeds=embeds[:, :s0], mode="prefill", cache=cache)
+        errs = [(pl - ref[:, :s0]).abs().max().item()]
+        for t in range(s0, s0 + steps):
+            dl, cache = apply_model(params, mg, embeds=embeds[:, t:t + 1], mode="decode",
+                                    cache=cache, cache_index=t)
+            errs.append((dl[:, 0] - ref[:, t]).abs().max().item())
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != 2 * mg.num_layers:
+        raise AssertionError(f"musicgen forward + prefill launches {counts}")
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    tol = 1e-4 * max(1.0, ref[..., :mg.vocab_size].abs().max().item())
+    if not max(errs) <= tol or tuple(ref.shape) != (b, s0 + steps, 4, padded_vocab(mg)):
+        raise AssertionError(f"musicgen prefill/decode vs forward: errs {errs} > {tol}, "
+                             f"logits {tuple(ref.shape)}")
+    log("xattn", f"musicgen-medium width, 4 layers, fp32: {s0}-token prefill and {steps} "
+        f"decode steps against the train-mode forward ({tuple(ref.shape)} codebook logits): "
+        f"max abs err {max(errs):.3g} (tolerance {tol:.3g}); {card}")
+    del params, ref, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2388,6 +2860,13 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
     phase_xlstm_serve(torch, card)
+    torch.cuda.empty_cache()
+
+    phase_train_kernels(torch, card)
+    torch.cuda.empty_cache()
+    phase_train(torch, rec, card)
+    phase_train_zoo(torch, rec, card)
+    phase_xattn(torch, rec, card)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

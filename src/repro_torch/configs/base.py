@@ -1,11 +1,13 @@
 """Model configuration: the fields of the reference ``ModelConfig`` that the
-port reads — the Galaxy serving path (dims, numerics) and the model zoo
+port reads — the Galaxy serving path (dims, numerics), the model zoo
 (block pattern, norm, positions, window, RG-LRU widths, MoE experts,
-xLSTM projections).
+xLSTM projections, the stubbed multimodal frontends) and training
+(dropout, the MoE load-balance weight, rematerialization).
 
 ``block_pattern`` is the repeating unit of the layer stack, e.g.
 ``("attn",)`` for a dense or MoE stack, ``("rec", "rec", "attn")`` for
-RecurrentGemma or ``("mlstm", "slstm")`` for xLSTM.  ``num_layers``
+RecurrentGemma or ``("mlstm", "slstm")`` for xLSTM, ``("attn",) * 4 + ("xattn",)`` for
+Llama-3.2-Vision (cross-attention to image embeddings every 5th layer).  ``num_layers``
 need not be a multiple of its length: the remainder (``tail_pattern``)
 runs as individual blocks after the groups (see
 ``models/transformer.py``).
@@ -15,9 +17,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-# block kinds the port's zoo implements (the reference also has xattn:
-# ROADMAP queue 1, item 7)
-BLOCK_KINDS = ("attn", "rec", "mlstm", "slstm")
+ATTN_KINDS = ("attn", "xattn")
+RECURRENT_KINDS = ("rec", "mlstm", "slstm")
+BLOCK_KINDS = ATTN_KINDS + RECURRENT_KINDS
 
 
 def _round_up(x: int, m: int) -> int:
@@ -28,7 +30,7 @@ def _round_up(x: int, m: int) -> int:
 class ModelConfig:
     name: str
     source: str  # citation for the config (paper / model card)
-    family: str = "dense"  # dense | moe | hybrid | ssm
+    family: str = "dense"  # dense | moe | hybrid | ssm | vlm | audio
 
     num_layers: int = 12
     d_model: int = 768
@@ -45,11 +47,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     pos_embedding: str = "rope"  # rope | sinusoidal | none
     rope_theta: float = 10000.0
+    dropout_rate: float = 0.0  # the connective block's dropout (training only)
 
     window: int = 0            # 0 = full causal; >0 = sliding window
 
     num_experts: int = 0
     experts_per_token: int = 0
+    load_balance_loss_weight: float = 0.01
     moe_capacity_factor: float = 2.0   # GShard capacity
 
     lru_width: int = 0         # 0 -> d_model
@@ -58,9 +62,18 @@ class ModelConfig:
     proj_factor: float = 2.0   # up-projection inside m/sLSTM blocks
     mlstm_chunk: int = 128     # chunkwise-parallel scan chunk
 
-    input_mode: str = "token"  # token ids (the only mode the port serves)
-    dtype: str = "float16"     # serving dtype
+    # "token": inputs are int token ids; "embed": precomputed frontend
+    # embeddings (B, S, d_model) — the stubbed audio / vision frontends
+    input_mode: str = "token"
+    num_image_tokens: int = 0  # vlm: patch embeddings fed to cross-attention
+    num_codebooks: int = 0     # audio: parallel codebook heads (0 = one head)
+
+    dtype: str = "float16"     # compute dtype
     param_dtype: str = "float16"
+    remat: bool = True         # recompute each block group in training's backward
+    # "full" recomputes everything, "none" keeps every activation (the
+    # reference's "dots", which keeps the matmul outputs, is not ported)
+    remat_policy: str = "full"
     # the reference's query-chunked prefill attention (0 = off), which caps
     # its (S, S) score buffer; the port's prefill runs the flash kernel,
     # which never holds that buffer, so the zoo needs no chunking
@@ -118,10 +131,10 @@ class ModelConfig:
         if self.input_mode == "token":
             n += self.vocab_size * d
         if not self.tie_embeddings:
-            n += self.vocab_size * d
+            n += self.vocab_size * d * max(1, self.num_codebooks)
         gate_mats = {"swiglu": 3, "geglu": 3, "gelu": 2}[self.activation]
         for kind in self.layer_kinds():
-            if kind == "attn":
+            if kind in ATTN_KINDS:
                 n += d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d  # qkvo
                 if self.is_moe:
                     e = self.experts_per_token if active_only else self.num_experts
@@ -144,8 +157,8 @@ class ModelConfig:
 
 def reduced(cfg: ModelConfig, d_model: int = 256, vocab: int = 512) -> ModelConfig:
     """Smoke-test variant: one pattern group of layers (>=2 for dense),
-    d_model <= 512, <= 4 experts of which 2 per token — the same code
-    paths, CPU-runnable."""
+    d_model <= 512, <= 4 experts of which 2 per token, <= 16 image tokens,
+    no rematerialization — the same code paths, CPU-runnable."""
     pat = cfg.block_pattern
     layers = max(2, len(pat))
     heads = min(cfg.num_heads, 4)
@@ -166,6 +179,8 @@ def reduced(cfg: ModelConfig, d_model: int = 256, vocab: int = 512) -> ModelConf
         experts_per_token=min(cfg.experts_per_token, 2),
         lru_width=0,
         window=min(cfg.window, 32) if cfg.window else 0,
+        num_image_tokens=min(cfg.num_image_tokens, 16),
         dtype="float32",
         param_dtype="float32",
+        remat=False,
     )

@@ -8,6 +8,13 @@ kernel of ``csrc/flash_attention.cu``; on a CPU tensor it runs
 :func:`flash_attention_plain`.  It replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py:flash_attention``.
 
+:class:`FlashAttentionFn` gives it a gradient for training: the forward is
+:func:`flash_attention` (the kernel on CUDA tensors), the backward
+(:func:`flash_attention_backward`) the gradient XLA derives from the
+reference's plain attention, written out in torch ops from the saved q,
+k, v and output.  The reference has no backward kernel, so neither does
+the port yet.
+
 :func:`ragged_flash_attention` is the prefill self-attention of the
 kernel backend: queries and keys sit in a padded ragged order
 (``positions[r]`` is the real position of padded row ``r``, -1 for a pad
@@ -128,26 +135,80 @@ def dense_key_blocks(q_tile: int, sq: int, sk: int, *, causal: bool, window: int
     return range(k_lo // block_k, k_hi // block_k + 1)
 
 
+def _probs(qg, k, *, causal: bool, window: int):
+    """fp32 softmax(q k^T / sqrt(hd)) under the dense kernel's mask: q
+    grouped (B, Hkv, g, Sq, hd), k (B, Hkv, Sk, hd) -> (B, Hkv, g, Sq,
+    Sk), queries right-aligned to the keys."""
+    sq, hd = qg.shape[-2:]
+    sk = k.shape[2]
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / hd ** 0.5
+    q_pos = torch.arange(sq, device=qg.device)[:, None] + (sk - sq)
+    k_pos = torch.arange(sk, device=qg.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=qg.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=qg.device))
+    return torch.softmax(scores, dim=-1)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     """Plain PyTorch version of :func:`flash_attention`: fp32 scores,
     softmax and PV over the whole masked score matrix, output in
     ``q.dtype``."""
     b, h, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    g = h // hkv
-    qg = q.float().reshape(b, hkv, g, sq, hd)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / hd ** 0.5
-    q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    k_pos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
-    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(scores, dim=-1)
+    hkv = k.shape[1]
+    p = _probs(q.float().reshape(b, hkv, h // hkv, sq, hd), k, causal=causal, window=window)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return out.reshape(b, h, sq, hd).to(q.dtype)
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at (q, k, v) with
+    output ``out``, for the output gradient ``dout``, in fp32 torch ops
+    and cast to the inputs' dtypes.  P is recomputed from q and k (never
+    saved); then dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dO * O)),
+    dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd), dK and dV summed over
+    the query heads of each KV head.  Holds the (B, H, Sq, Sk) fp32 P and
+    dP: quadratic in the sequence, as the reference's XLA gradient is."""
+    b, h, sq, hd = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    qg = q.float().reshape(b, hkv, g, sq, hd)
+    kf, vf = k.float(), v.float()
+    p = _probs(qg, k, causal=causal, window=window)
+    do = dout.float().reshape(b, hkv, g, sq, hd)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, do)
+    dp = torch.einsum("bkgsd,bktd->bkgst", do, vf)
+    delta = (do * out.float().reshape(b, hkv, g, sq, hd)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    scale = 1.0 / hd ** 0.5
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
+    return dq.reshape(b, h, sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient.  Forward: the kernel on
+    CUDA tensors (its plain version on CPU tensors), counted as a launch;
+    backward: :func:`flash_attention_backward`, torch ops that launch no
+    kernel of this repository.  Saves q, k, v and the output (which the
+    output projection keeps alive anyway), never P."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

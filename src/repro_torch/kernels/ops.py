@@ -15,7 +15,11 @@ hold.
 model calls (the zoo's projections stay ``torch.matmul``, as they are
 einsums outside any kernel in the reference): ``backend="kernel"``
 launches the kernel (its plain version on a CPU tensor),
-``backend="eager"`` runs the plain version on any device.
+``backend="eager"`` runs the plain version on any device.  When an input
+of :func:`flash_attention` or :func:`rglru_scan` requires a gradient (a
+train step), the kernel backend goes through the kernel's
+``torch.autograd.Function``, whose forward is the same launch; with no
+gradient (every serving call) it launches the wrapper directly.
 """
 from __future__ import annotations
 
@@ -64,6 +68,10 @@ def _check_backend(backend: str) -> None:
     if backend not in COMPUTE_BACKENDS:
         raise ValueError(f"unknown compute backend {backend!r}; "
                          f"one of {COMPUTE_BACKENDS}")
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _mask(t: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
@@ -138,8 +146,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     causal and sliding-window masks: the flash kernel, or its plain
     version on ``backend="eager"``."""
     _check_backend(backend)
-    fn = _flash.flash_attention if backend == "kernel" else _flash.flash_attention_plain
-    return fn(q, k, v, causal=causal, window=window)
+    if backend == "eager":
+        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    if _needs_grad(q, k, v):
+        return _flash.FlashAttentionFn.apply(q, k, v, causal, window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def rglru_scan(a, b, h0, *, backend: str = "kernel"):
@@ -147,8 +158,11 @@ def rglru_scan(a, b, h0, *, backend: str = "kernel"):
     kernel, or its plain version on ``backend="eager"``.  Returns
     ``(h_seq, h_last)``."""
     _check_backend(backend)
-    fn = _scan.rglru_scan if backend == "kernel" else _scan.rglru_scan_plain
-    return fn(a, b, h0)
+    if backend == "eager":
+        return _scan.rglru_scan_plain(a, b, h0)
+    if _needs_grad(a, b, h0):
+        return _scan.RGLRUScanFn.apply(a, b, h0)
+    return _scan.rglru_scan(a, b, h0)
 
 
 def tiled_gemm(x, w, *, block_m: int = 256, block_n: int = 256, block_k: int = 512,

@@ -10,6 +10,14 @@ aligned inputs: 32-column strips streamed through a TMA ring of shared
 memory) and ``"simt"`` (any other shape: one thread per column).  Both
 give fp32 results bitwise equal to the plain version.  It replaces the
 TPU kernel ``src/repro/kernels/rglru_scan.py:rglru_scan_kernel``.
+
+:class:`RGLRUScanFn` gives it a gradient for training.  The backward of
+h_t = a_t h_{t-1} + b_t is the same linear recurrence run backwards,
+g_t = dh_t + a_{t+1} g_{t+1}, so :func:`rglru_scan_backward` launches the
+same kernel on time-reversed operands (torch has no negative strides, so
+the reversed a and dh are copies, and so is the flip of the result back:
+three extra reads and writes of a (B, S, w) tensor), then da = g h_{t-1},
+db = g and dh0 = a_0 g_0 in elementwise torch ops.
 """
 from __future__ import annotations
 
@@ -146,3 +154,44 @@ def rglru_scan(a, b, h0):
 
 rglru_scan.launches = 0
 rglru_scan.paths = {"tma": 0, "simt": 0}
+
+
+def rglru_scan_backward(a, h0, h_seq, dh_seq, dh_last):
+    """Gradients (da, db, dh0) of :func:`rglru_scan` at (a, h0) with
+    output ``h_seq``, for the output gradients ``dh_seq`` (B, S, w) and
+    ``dh_last`` (B, w).
+
+    g_t = dh_t + a_{t+1} g_{t+1} with dh_last added into g_{S-1} is the
+    forward recurrence on reversed time: A_r = a_{S-r} (A_0 unused: the
+    carry starts at 0), B_r = dh_{S-1-r}; :func:`rglru_scan` runs it (the
+    kernel on CUDA tensors).  Then db_t = g_t, da_t = g_t h_{t-1} with
+    h_{-1} = h0, and dh0 = a_0 g_0."""
+    bsz, s, w = a.shape
+    a_rev = torch.zeros_like(a)
+    a_rev[:, 1:] = a[:, 1:].flip(1)
+    b_rev = dh_seq.to(a.dtype).flip(1)  # flip copies: b_rev is contiguous and ours
+    b_rev[:, 0] += dh_last.to(a.dtype)
+    g_rev, _ = rglru_scan(a_rev, b_rev,
+                          torch.zeros((bsz, w), dtype=torch.float32, device=a.device))
+    g = g_rev.flip(1)
+    h_prev = torch.cat([h0.to(h_seq.dtype)[:, None], h_seq[:, :-1]], dim=1)
+    da = g * h_prev
+    dh0 = (a[:, 0].float() * g[:, 0].float()).to(h0.dtype)
+    return da, g, dh0
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """:func:`rglru_scan` with a gradient.  Forward and backward each run
+    the scan once: the kernel on CUDA tensors (each a counted launch),
+    the plain version on CPU tensors.  Saves a, h0 and h_seq."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h_seq, h_last = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h_seq)
+        return h_seq, h_last
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_last):
+        a, h0, h_seq = ctx.saved_tensors
+        return rglru_scan_backward(a, h0, h_seq, dh_seq, dh_last)

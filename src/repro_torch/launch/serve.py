@@ -41,7 +41,10 @@ prefix cache on, every request's prompt is a shared system prompt of
 prompt, the reference's split) ahead of its own drawn tail.  ``--reduce``
 serves the model's small variant (``configs.reduced``), for CPU runs.  A
 model whose weights do not fit one card (qwen1.5-110b) is refused; the
-count includes the padded vocabulary and experts.
+count includes the padded vocabulary and experts.  The stubbed-frontend
+archs are refused: musicgen-medium takes frame embeddings, not token ids
+(as the reference's serve refuses it), and serving feeds no image
+embeddings to llama-3.2-vision-90b; both train through ``launch.train``.
 Both executors take the prefix cache and chunks, and ``--scheduler
 wave``.
 
@@ -78,7 +81,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import PAPER_MODELS, ZOO_MODELS, ModelConfig, get_config, reduced
+from repro_torch.configs import (
+    FRONTEND_STUB_MODELS,
+    PAPER_MODELS,
+    ZOO_MODELS,
+    ModelConfig,
+    get_config,
+    reduced,
+)
 from repro_torch.core import costmodel, hmp
 from repro_torch.core.execplan import ExecPlan
 from repro_torch.core.profiler import AnalyticProfiler
@@ -209,6 +219,19 @@ def describe_zoo(cfg: ModelConfig, scheduler: str) -> str:
             f"{cfg.dtype}; {scheduler} scheduler")
 
 
+def refuse_frontend_stub(model: str) -> None:
+    """Serving feeds token ids only: refuse the trainer's stubbed-frontend
+    architectures, as the reference's serve does."""
+    cfg = FRONTEND_STUB_MODELS.get(model)
+    if cfg is None:
+        return
+    if cfg.input_mode != "token":
+        raise ValueError(f"{model} is a stub-frontend arch ({cfg.input_mode} input); "
+                         "serve the token archs")
+    raise ValueError(f"{model} cross-attends to image embeddings, and serving feeds no "
+                     "image embeddings; train it with launch.train")
+
+
 def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
     """Refuse a model whose weights alone exceed one card's memory (the
     parameter tree's bytes: padded vocabulary and experts, norms, biases)."""
@@ -252,6 +275,7 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     dev = resolve_device(device)
     if executor_kind not in EXECUTORS:
         raise ValueError(f"unknown executor {executor_kind!r}; one of {EXECUTORS}")
+    refuse_frontend_stub(model)
     known = PAPER_MODELS if executor_kind == "galaxy" else ZOO_MODELS
     if model not in known:
         raise ValueError(f"the {executor_kind} executor serves {sorted(known)}, "

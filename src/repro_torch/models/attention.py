@@ -1,5 +1,6 @@
-"""Self-attention block: GQA/MQA, rope, full-causal or sliding-window, with
-a KV cache for serving.
+"""Attention blocks: GQA/MQA self-attention (rope, full-causal or
+sliding-window, with a KV cache for serving) and cross-attention to image
+embeddings (the VLM's image layers).
 
 One-shot prefill (and train) attention runs the dense flash kernel
 (``kernels/flash_attention.py``) on (B, H, S, hd) views of the
@@ -16,8 +17,12 @@ row ``j`` sits at position ``offset + j``, which is the reference's mask.
 Rows of the view past the chunk (stale pages) are never read.
 
 Caches are updated in place (the engine owns one cache per wave, and the
-paged executor one gathered view per call) and returned.  Cross-attention
-is not on this path: ROADMAP queue 1, item 7.
+paged executor one gathered view per call) and returned.
+
+Cross-attention (:func:`cross_attention_block`) attends every text row to
+every image token, unmasked.  It stays torch ops, as it stays XLA in the
+reference: the flash kernel takes Sq <= Sk only, and a text prefill is
+often longer than the image tokens.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import connective_norm, connective_residual, rope
+from repro_torch.models.layers import apply_norm, connective_norm, connective_residual, rope
 
 NEG_INF = -1e30
 
@@ -67,17 +72,18 @@ def _window_cache_positions(cache_index, window: int, device):
     return torch.where(t >= 0, t, -1)
 
 
-def _cache_attention(q, k_cache, v_cache, mask):
-    """Decode attention against the cache.  q: (B, S, H, hd); caches (B, L,
-    KV, hd); mask (B, 1, S, L).  Scores in the model dtype, softmax in
-    fp32, probabilities cast to ``v``'s dtype before PV, as the
-    reference."""
+def _cache_attention(q, k_cache, v_cache, mask=None):
+    """Attention in torch ops against a cache (decode) or the image K/V
+    (cross-attention).  q: (B, S, H, hd); k/v (B, L, KV, hd); mask (B, 1,
+    S, L), or None for none.  Scores in the model dtype, softmax in fp32,
+    probabilities cast to ``v``'s dtype before PV, as the reference."""
     b, s, h, hd = q.shape
     kv = k_cache.shape[2]
     qg = q.reshape(b, s, kv, h // kv, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k_cache) / math.sqrt(hd)
-    scores = torch.where(mask[:, :, None], scores.float(),
-                         torch.full((), NEG_INF, device=q.device))
+    scores = scores.float()
+    if mask is not None:
+        scores = torch.where(mask[:, :, None], scores, torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
     return out.reshape(b, s, h, hd)
@@ -190,3 +196,42 @@ def _write_prefill_cache(cache: Dict, k, v, window: int):
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
     return cache
+
+
+def cross_attention_block(p: Dict, x, cfg: ModelConfig, *, mode: str, img_embeds,
+                          cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Cross-attention to the (stubbed) vision patch embeddings: norm ->
+    q from the text, K/V from ``kv_norm(img_embeds)`` -> full softmax ->
+    out-projection gated by ``tanh(xgate)`` -> residual.  Returns (x,
+    new_cache).
+
+    The image K/V are computed once, in train and prefill; prefill writes
+    them into the cache (in place, ``(B, num_image_tokens, kv, hd)``) and
+    decode reads them back frozen.  ``img_embeds``: (B, I, d) in the model
+    dtype; unused in decode."""
+    xn = connective_norm(x, p["ln1"], cfg.norm)
+    b, s, d = xn.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (xn @ p["wq"].reshape(d, -1)).view(b, s, h, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if mode == "decode":
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    else:
+        imgs = apply_norm(img_embeds, p["kv_norm"], cfg.norm)
+        n = imgs.shape[1]
+        k = (imgs @ p["wk"].reshape(d, -1)).view(b, n, cfg.num_kv_heads, hd)
+        v = (imgs @ p["wv"].reshape(d, -1)).view(b, n, cfg.num_kv_heads, hd)
+        if cfg.qkv_bias:
+            k = k + p["bk"]
+            v = v + p["bv"]
+        new_cache = None
+        if mode == "prefill":
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+            new_cache = cache
+    out = _cache_attention(q, k, v)
+    proj = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1)
+    proj = torch.tanh(p["xgate"].float()).to(proj.dtype) * proj
+    return connective_residual(x, proj), new_cache

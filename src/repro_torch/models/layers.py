@@ -1,9 +1,10 @@
-"""Shared layer primitives: norms, rotary positions, activations and the
-Galaxy "connective block" (residual add + norm).
+"""Shared layer primitives: norms, rotary and sinusoidal positions,
+activations and the Galaxy "connective block" (residual add + norm).
 
 On one device there is no sequence sharding, so the reference's
 ``constrain`` calls around the connective block drop out; serving runs
-with dropout off, so the residual is a plain add.
+and trains with dropout off (``models/transformer.py`` refuses a config
+with ``dropout_rate > 0``), so the residual is a plain add.
 """
 from __future__ import annotations
 
@@ -56,10 +57,20 @@ def rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
+    """Sinusoidal position embeddings (B, S, d_model): sines of the first
+    half of the frequencies, then cosines."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # --- the Galaxy connective block ------------------------------------------------
 
 def connective_residual(residual, sublayer_out):
-    """Residual add of a sub-layer's output (dropout is off when serving)."""
+    """Residual add of a sub-layer's output (dropout is off)."""
     return residual + sublayer_out
 
 

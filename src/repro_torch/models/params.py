@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +76,7 @@ def _moe_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
     return out
 
 
-def _attn_spec(cfg: ModelConfig) -> Dict:
+def _attn_spec(cfg: ModelConfig, cross: bool = False) -> Dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p: Dict = {
         "ln1": _norm_spec(cfg),
@@ -90,6 +90,9 @@ def _attn_spec(cfg: ModelConfig) -> Dict:
         p["bq"] = PSpec((h, hd), "zeros")
         p["bk"] = PSpec((kv, hd), "zeros")
         p["bv"] = PSpec((kv, hd), "zeros")
+    if cross:
+        p["xgate"] = PSpec((1,), "zeros")
+        p["kv_norm"] = _norm_spec(cfg)
     if cfg.is_moe:
         p["moe"] = _moe_spec(cfg)
     elif cfg.d_ff > 0:
@@ -149,21 +152,22 @@ def _slstm_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-_BLOCK_SPECS = {"attn": _attn_spec, "rec": _rec_spec, "mlstm": _mlstm_spec,
-                "slstm": _slstm_spec}
+_BLOCK_SPECS = {"attn": _attn_spec, "xattn": lambda cfg: _attn_spec(cfg, cross=True),
+                "rec": _rec_spec, "mlstm": _mlstm_spec, "slstm": _slstm_spec}
 
 
 def model_spec(cfg: ModelConfig) -> Dict:
     """PSpec tree.  ``"groups"`` entries are stacked with a leading
     ``cfg.num_groups`` dim when materialized; ``"tail"`` entries are
-    per-layer."""
+    per-layer.  An ``embed``-input model has no token table; an untied
+    head is ``(codebooks, d, V)`` (one codebook for a text model)."""
     d = cfg.d_model
     v = padded_vocab(cfg)
     spec: Dict = {"embed": {}, "groups": {}, "tail": {}, "final_norm": _norm_spec(cfg)}
     if cfg.input_mode == "token":
         spec["embed"]["tok"] = PSpec((v, d), "normal", 0.02)
     if not cfg.tie_embeddings:
-        spec["head"] = {"w": PSpec((1, d, v))}
+        spec["head"] = {"w": PSpec((max(1, cfg.num_codebooks), d, v))}
     for i, kind in enumerate(cfg.block_pattern):
         spec["groups"][f"b{i}_{kind}"] = _BLOCK_SPECS[kind](cfg)
     for i, kind in enumerate(cfg.tail_pattern):
@@ -253,6 +257,18 @@ def params_from_numpy(tree: Dict, *, device=None) -> Dict:
 def group_params(params: Dict, g: int) -> Dict:
     """Group ``g``'s slice of the stacked ``"groups"`` subtree (views)."""
     return {key: _index(sub, g) for key, sub in params["groups"].items()}
+
+
+def group_slices(params: Dict, num_groups: int) -> List[Dict]:
+    """Every group's slice of the stacked ``"groups"`` subtree, from one
+    ``torch.unbind`` per leaf (views).  In training a leaf's gradient is
+    then one stack of its groups' gradients; indexing each group apart
+    would zero-fill and add the whole stacked gradient once per group."""
+    out: List[Dict] = [{} for _ in range(num_groups)]
+    for path, leaf in _leaves(params["groups"]):
+        for g, view in enumerate(torch.unbind(leaf, 0)):
+            _set(out[g], path, view)
+    return out
 
 
 def _index(tree: Dict, g: int) -> Dict:

@@ -1,15 +1,22 @@
-"""Model assembly: embeddings -> block groups -> tail blocks -> norm ->
-logits.
+"""Model assembly: embeddings (token table, or the stubbed frontend's
+embeddings) -> block groups -> tail blocks -> norm -> logits (one head,
+or one per codebook).
 
 The reference runs the groups as a ``jax.lax.scan`` over parameters
 stacked along a leading group dim; here a Python loop walks the same
-stacked tensors group by group (views, no copies).  Remainder layers
+stacked tensors group by group (views from one ``torch.unbind`` per
+leaf, no copies).  Remainder layers
 (``num_layers % len(pattern)``) run after the groups as "tail" blocks.
 
 Modes: "train" (no cache), "prefill" (fills the cache, or with a
 ``cache_index`` offset writes one chunk of it), "decode" (one token per
 row).  Prefill and decode update the cache of
 ``serving/kvcache.py:make_cache`` in place and return it.
+
+In train mode with ``cfg.remat`` each block group runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
+group scan in ``jax.checkpoint``: the backward recomputes the group's
+forward, so the flash and scan kernels launch twice per layer and step.
 """
 from __future__ import annotations
 
@@ -17,13 +24,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import self_attention_block
-from repro_torch.models.layers import apply_norm
+from repro_torch.models.attention import cross_attention_block, self_attention_block
+from repro_torch.models.layers import apply_norm, sinusoidal_pos
 from repro_torch.models.mlp import mlp_block
 from repro_torch.models.moe import AUX_KEYS, moe_block
-from repro_torch.models.params import group_params, padded_vocab
+from repro_torch.models.params import group_slices, padded_vocab
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 
@@ -44,13 +52,15 @@ def embed_tokens(tok_w, tokens):
 
 
 def compute_logits(params, cfg: ModelConfig, x):
-    """x: (..., d) -> logits (..., V_padded) in the model dtype; the pad
-    vocab columns are -1e30."""
+    """x: (..., d) -> logits (..., V_padded) in the model dtype, or (...,
+    cb, V_padded) for a model with ``num_codebooks > 1``; the pad vocab
+    columns are -1e30."""
     vp = padded_vocab(cfg)
     if cfg.tie_embeddings:
         logits = x @ _maybe_cast(params["embed"]["tok"], cfg).T
     else:
-        logits = x @ _maybe_cast(params["head"]["w"], cfg)[0]
+        w = _maybe_cast(params["head"]["w"], cfg)
+        logits = x @ w[0] if w.shape[0] == 1 else torch.einsum("...d,cdv->...cv", x, w)
     if vp != cfg.vocab_size:
         valid = torch.arange(vp, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits,
@@ -59,11 +69,16 @@ def compute_logits(params, cfg: ModelConfig, x):
 
 
 def _apply_block(kind: str, p: Dict, x, cfg: ModelConfig, *, mode: str, cache,
-                 positions, cache_index, backend: str, aux: Optional[Dict]):
+                 positions, cache_index, backend: str, img_embeds):
+    """One block and its FFN.  Returns (x, new_cache, aux): aux is the MoE
+    FFN's aux dict, None for a dense FFN or a block without one."""
     if kind == "attn":
         x, new_cache = self_attention_block(
             p, x, cfg, mode=mode, window=cfg.window, cache=cache,
             positions=positions, cache_index=cache_index, backend=backend)
+    elif kind == "xattn":
+        x, new_cache = cross_attention_block(p, x, cfg, mode=mode, img_embeds=img_embeds,
+                                             cache=cache)
     elif kind == "rec":
         x, new_cache = rglru_block(p, x, cfg, mode=mode, cache=cache, backend=backend)
     elif kind == "mlstm":
@@ -74,15 +89,13 @@ def _apply_block(kind: str, p: Dict, x, cfg: ModelConfig, *, mode: str, cache,
         raise ValueError(kind)
     # FFN sub-layer of attention blocks (rec blocks keep Griffin's MLP; the
     # xLSTM blocks hold their projections inside)
-    if kind in ("attn", "rec"):
+    aux = None
+    if kind in ("attn", "xattn", "rec"):
         if cfg.is_moe:
-            x, a = moe_block(p, x, cfg)
-            if aux is not None:
-                for name in AUX_KEYS:
-                    aux[name] = aux[name] + a[name]
+            x, aux = moe_block(p, x, cfg)
         elif cfg.d_ff > 0:
             x = mlp_block(p, x, cfg)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _store(dst: Dict, src: Dict) -> None:
@@ -93,11 +106,32 @@ def _store(dst: Dict, src: Dict) -> None:
             dst[name].copy_(t)
 
 
+def _check_train(cfg: ModelConfig) -> bool:
+    """Whether train mode recomputes each group in the backward; refuses
+    what the port does not train."""
+    if cfg.dropout_rate > 0:
+        # jax.random dropout masks have no torch twin, and no arch the
+        # trainer offers has dropout
+        raise NotImplementedError(
+            f"{cfg.name}: dropout_rate {cfg.dropout_rate} > 0 is not ported "
+            "(the port trains with dropout off)")
+    if cfg.remat and cfg.remat_policy not in ("full", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy {cfg.remat_policy!r}; the port has 'full' and 'none'")
+    return cfg.remat and cfg.remat_policy == "full"
+
+
+def _input_device(params) -> torch.device:
+    return params["final_norm"]["scale"].device
+
+
 def apply_model(
     params,
     cfg: ModelConfig,
     *,
-    tokens,
+    tokens=None,
+    embeds=None,
+    img_embeds=None,
     mode: str = "train",
     cache: Optional[Dict] = None,
     cache_index=None,
@@ -107,7 +141,14 @@ def apply_model(
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits, new_cache).
 
-    tokens: (B, S) int token ids.  cache_index: decode write position, a
+    tokens: (B, S) int token ids (``input_mode="token"``); embeds: (B, S,
+    d) frontend embeddings (``input_mode="embed"``, the stubbed audio
+    frontend); img_embeds: (B, num_image_tokens, d) for the ``xattn``
+    blocks of a VLM, in train and prefill (decode reads the image K/V
+    from the cache).  Inputs may be numpy arrays; they go to the params'
+    device, and embeddings to the model dtype.
+
+    cache_index: decode write position, a
     host int or a (B,) tensor of per-slot depths; in prefill, a host int
     offset selects chunked prefill at positions ``offset + arange(S)``
     into the cache view (full-causal attention stacks only).  backend: "kernel" runs
@@ -115,15 +156,11 @@ def apply_model(
     "eager" the plain versions on any device.  rows: None for logits of
     every position, (B, S, V); else an int or a (B,) tensor naming one
     row per batch entry, for (B, V) logits of those rows only — the same
-    numbers without the (B, S, V) buffer.  aux: a dict that, when given,
+    numbers without the (B, S, V) buffer.  A codebook head adds a
+    codebook dim before V.  aux: a dict that, when given,
     receives the MoE aux values summed over the layers (``moe_lb_loss``,
     ``moe_z_loss``, ``moe_drop_frac``; zeros for a model without experts).
     """
-    if cfg.input_mode != "token" or cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: input_mode {cfg.input_mode!r}, pos_embedding "
-            f"{cfg.pos_embedding!r}: the zoo has not ported the 'embed' input mode, "
-            f"xattn blocks or sinusoidal positions")
     if mode in ("prefill", "decode") and cache is None:
         raise ValueError(f"{mode} needs a cache from serving.kvcache.make_cache")
     if mode == "decode" and cache_index is None:
@@ -132,13 +169,21 @@ def apply_model(
     if chunked and (cfg.window > 0 or any(k != "attn" for k in cfg.layer_kinds())):
         # checked before any block runs, so no cache is half written
         raise ValueError("chunked prefill requires full-causal attention")
+    remat = mode == "train" and _check_train(cfg)
     dtype = getattr(torch, cfg.dtype)
-    if not isinstance(tokens, torch.Tensor):
-        tokens = torch.tensor(np.asarray(tokens), dtype=torch.long)
-    tokens = tokens.to(params["embed"]["tok"].device).long()
-    x = embed_tokens(_maybe_cast(params["embed"]["tok"], cfg), tokens).to(dtype)
-    bsz, seq = tokens.shape
-    dev = x.device
+    dev = _input_device(params)
+    if cfg.input_mode == "token":
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.tensor(np.asarray(tokens), dtype=torch.long)
+        tokens = tokens.to(dev).long()
+        x = embed_tokens(_maybe_cast(params["embed"]["tok"], cfg), tokens).to(dtype)
+    else:
+        x = torch.as_tensor(embeds).to(device=dev, dtype=dtype)
+    bsz, seq = x.shape[:2]
+    if "xattn" in cfg.block_pattern + cfg.tail_pattern and mode != "decode":
+        if img_embeds is None:
+            raise ValueError(f"{cfg.name}: {mode} needs img_embeds for its xattn blocks")
+        img_embeds = torch.as_tensor(img_embeds).to(device=dev, dtype=dtype)
 
     if mode == "decode":
         if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
@@ -151,26 +196,53 @@ def apply_model(
         positions = torch.arange(seq, device=dev).expand(bsz, seq)
     if isinstance(cache_index, torch.Tensor):
         cache_index = cache_index.to(dev)
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + sinusoidal_pos(positions, cfg.d_model, dtype)
 
-    if aux is not None:
-        aux.update({name: torch.zeros((), device=dev) for name in AUX_KEYS})
     kw = dict(mode=mode, positions=positions, cache_index=cache_index, backend=backend,
-              aux=aux)
-    for g in range(cfg.num_groups):
-        gparams = _maybe_cast(group_params(params, g), cfg)
-        for i, kind in enumerate(cfg.block_pattern):
-            key = f"b{i}_{kind}"
-            c = None if cache is None else {n: t[g] for n, t in cache["groups"][key].items()}
-            x, c_new = _apply_block(kind, gparams[key], x, cfg, cache=c, **kw)
+              img_embeds=img_embeds)
+
+    def run(blocks, x, caches):
+        """Blocks [(kind, params, key)] in order; returns x and, for an
+        MoE model, the aux values they add."""
+        sums = ()
+        for kind, p, key in blocks:
+            c = None if caches is None else caches[key]
+            x, c_new, a = _apply_block(kind, p, x, cfg, cache=c, **kw)
             if c_new is not None:
                 _store(c, c_new)
-    for i, kind in enumerate(cfg.tail_pattern):
-        key = f"t{i}_{kind}"
-        c = None if cache is None else cache["tail"][key]
-        x, c_new = _apply_block(kind, _maybe_cast(params["tail"][key], cfg), x, cfg,
-                                cache=c, **kw)
-        if c_new is not None:
-            _store(c, c_new)
+            if a is not None:
+                vals = tuple(a[name] for name in AUX_KEYS)
+                sums = tuple(s + v for s, v in zip(sums, vals)) if sums else vals
+        return (x,) + sums
+
+    groups = group_slices(params, cfg.num_groups)
+
+    def run_group(g, x):
+        gparams = _maybe_cast(groups[g], cfg)
+        caches = None if cache is None else {
+            key: {n: t[g] for n, t in cache["groups"][key].items()}
+            for key in cache["groups"]}
+        return run([(kind, gparams[f"b{i}_{kind}"], f"b{i}_{kind}")
+                    for i, kind in enumerate(cfg.block_pattern)], x, caches)
+
+    sums = []  # each group's (and the tail's) MoE aux values
+    for g in range(cfg.num_groups):
+        if remat:
+            out = checkpoint(run_group, g, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = run_group(g, x)
+        x, part = out[0], out[1:]
+        sums.append(part)
+    out = run([(kind, _maybe_cast(params["tail"][f"t{i}_{kind}"], cfg), f"t{i}_{kind}")
+               for i, kind in enumerate(cfg.tail_pattern)], x,
+              None if cache is None else cache["tail"])
+    x = out[0]
+    sums.append(out[1:])
+    if aux is not None:
+        zero = torch.zeros((), device=dev)
+        aux.update({name: sum((part[i] for part in sums if part), zero)
+                    for i, name in enumerate(AUX_KEYS)})
 
     if rows is not None:
         if isinstance(rows, torch.Tensor):

@@ -1,6 +1,7 @@
 """Dense serving caches of the model zoo: KV caches (full or
-sliding-window) and recurrent states (RG-LRU, mLSTM, sLSTM), mirroring the
-grouped parameter tree (a leading ``num_groups`` dim on ``"groups"``
+sliding-window, and the cross-attention's frozen image K/V of ``(B,
+num_image_tokens, kv, hd)``) and recurrent states (RG-LRU, mLSTM,
+sLSTM), mirroring the grouped parameter tree (a leading ``num_groups`` dim on ``"groups"``
 entries).  Recurrent states are fp32 whatever the model dtype; the
 xLSTM stabilizers start at ``m = -1e30`` and the sLSTM normalizer at
 ``n = 1e-6`` (``_INIT_SPECIAL``), every other leaf at zero.
@@ -27,6 +28,11 @@ def _attn_shapes(cfg: ModelConfig, batch: int, cache_len: int):
     return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
 
 
+def _xattn_shapes(cfg: ModelConfig, batch: int, cache_len: int):
+    shape = (batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shape, cfg.dtype), "v": (shape, cfg.dtype)}
+
+
 def _rec_shapes(cfg: ModelConfig, batch: int, cache_len: int):
     w, cw = cfg.lru_width, cfg.conv_width
     return {"h": ((batch, w), "float32"), "conv": ((batch, cw - 1, w), cfg.dtype)}
@@ -43,8 +49,8 @@ def _slstm_shapes(cfg: ModelConfig, batch: int, cache_len: int):
     return {k: ((batch, nh, dh), "float32") for k in ("h", "c", "n", "m")}
 
 
-_SHAPES = {"attn": _attn_shapes, "rec": _rec_shapes, "mlstm": _mlstm_shapes,
-           "slstm": _slstm_shapes}
+_SHAPES = {"attn": _attn_shapes, "xattn": _xattn_shapes, "rec": _rec_shapes,
+           "mlstm": _mlstm_shapes, "slstm": _slstm_shapes}
 
 _INIT_SPECIAL = {("mlstm", "m"): -1e30, ("slstm", "m"): -1e30, ("slstm", "n"): 1e-6}
 

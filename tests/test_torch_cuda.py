@@ -868,3 +868,72 @@ def test_xlstm_chunked_equals_step_scan_on_the_card(cuda):
     h_chunk, st_chunk = xlstm.mlstm_chunked(q, k, v, i_raw, f_raw, st, 128)
     for a, want in zip((h_chunk,) + st_chunk, (h_scan,) + st_scan):
         assert (a - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# --- the kernels' gradients (the training path) --------------------------------
+
+def _grads(fn, inputs, weights):
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ts)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+    return outs, [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 16, 16, 128, 64), (1, 64, 8, 256, 128)],
+                         ids=["qwen", "llama_vision"])
+def test_flash_attention_gradient_through_the_kernel(cuda, dtype, shape):
+    """q, k, v gradients with the kernel forward (``FlashAttentionFn``)
+    against autograd through the plain version, causal, on the zoo's
+    transposed (B, S, H, hd) views: within 1e-4 (fp32) or 2e-2 (bf16: both
+    sides' bf16 inputs and outputs round the same fp32 math) of each
+    gradient's largest.  The bare wrapper's output carries no gradient
+    (what training got before the Function): the fault the Function
+    repairs."""
+    b, h, hkv, s, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(b, s, h, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, s, hkv, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    w = torch.randn(b, h, s, hd, generator=g, device=cuda)
+    view = lambda f: lambda q, k, v: f(q.transpose(1, 2), k.transpose(1, 2),  # noqa: E731
+                                       v.transpose(1, 2))
+    bare = flash_attention(*(t.detach().requires_grad_().transpose(1, 2) for t in (q, k, v)))
+    assert not bare.requires_grad
+    before = flash_attention.launches
+    (out,), got = _grads(view(lambda *a: ops.flash_attention(*a, causal=True)), (q, k, v), (w,))
+    assert flash_attention.launches == before + 1
+    (ref,), want = _grads(view(lambda *a: flash_attention_plain(*a, causal=True)),
+                          (q, k, v), (w,))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()
+    for name, a, e in zip("qkv", got, want):
+        assert a.dtype == dtype
+        err = (a.float() - e.float()).abs().max()
+        assert err <= tol * e.float().abs().max(), (name, err.item())
+
+
+def test_rglru_scan_gradient_through_the_kernel(cuda):
+    """da, db, dh0 with the kernel forward and the kernel backward on
+    reversed time (``RGLRUScanFn``: two launches) against autograd through
+    the plain scan, at RecurrentGemma's width, fp32, nonzero h0,
+    gradients into h_seq and h_last: within 1e-5 of each gradient's
+    largest (the same fp32 recurrence, its terms added in another
+    order)."""
+    from repro_torch.kernels.rglru_scan import RGLRUScanFn
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, s, w = 4, 300, 4096
+    a = 0.5 + 0.499 * torch.rand(b, s, w, generator=g, device=cuda)
+    bb = torch.randn(b, s, w, generator=g, device=cuda)
+    h0 = torch.randn(b, w, generator=g, device=cuda)
+    w1, w2 = torch.randn(b, s, w, generator=g, device=cuda), torch.randn(b, w, generator=g,
+                                                                          device=cuda)
+    before = rglru_scan.launches
+    _, got = _grads(RGLRUScanFn.apply, (a, bb, h0), (w1, w2))
+    assert rglru_scan.launches == before + 2
+    _, want = _grads(rglru_scan_plain, (a, bb, h0), (w1, w2))
+    for name, x, e in zip(("a", "b", "h0"), got, want):
+        err = (x - e).abs().max()
+        assert err <= 1e-5 * e.abs().max(), (name, err.item())

@@ -43,11 +43,13 @@ def test_import_leaves_jax_and_reference_out():
                                     "repro_torch.obs.trace", "repro_torch.obs.drift",
                                     "repro_torch.core.simulator",
                                     "repro_torch.core.profiler",
-                                    "repro_torch.models.moe", "repro_torch.models.xlstm"])
+                                    "repro_torch.models.moe", "repro_torch.models.xlstm",
+                                    "repro_torch.data", "repro_torch.training",
+                                    "repro_torch.launch.train"])
 def test_module_alone_leaves_jax_and_reference_out(module):
-    """Each module of the Galaxy serving path and its telemetry, and the zoo's MoE and
-    xLSTM blocks, imported alone in a fresh interpreter, pulls in neither ``jax`` nor
-    ``repro``."""
+    """Each module of the Galaxy serving path and its telemetry, the zoo's MoE and
+    xLSTM blocks, and the training path (data, training, the trainer), imported alone
+    in a fresh interpreter, pulls in neither ``jax`` nor ``repro``."""
     code = (
         f"import importlib, sys\nimportlib.import_module({module!r})\n"
         "bad = sorted(n for n in sys.modules\n"
@@ -76,11 +78,13 @@ def test_no_source_imports_jax_or_reference():
 
 
 @pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main", "spec_main",
-                                   "telemetry_main", "host_profiler"])
+                                   "telemetry_main", "host_profiler", "train_main",
+                                   "train", "trace_train"])
 def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
-    """Without CUDA, the serving entry points raise unless device='cpu'."""
+    """Without CUDA, the serving and training entry points raise unless
+    device='cpu'."""
     from repro_torch import resolve_device
-    from repro_torch.launch import serve, trace_serve
+    from repro_torch.launch import serve, trace_serve, trace_train, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -97,6 +101,14 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
             from repro_torch.core.profiler import HostProfiler
 
             HostProfiler(get_config("distilbert"), 8)
+        elif entry == "train_main":
+            train.main(["--arch", "qwen1.5-0.5b", "--reduce", "--steps", "1"])
+        elif entry == "train":
+            from repro_torch.configs import get_config, reduced
+
+            train.train(reduced(get_config("qwen1.5-0.5b")), steps=1)
+        elif entry == "trace_train":
+            trace_train.main(["--arch", "qwen1.5-0.5b", "--reduce", "--steps", "1"])
         elif entry == "zoo_main":
             serve.main(["--executor", "zoo", "--model", "recurrentgemma-9b",
                         "--reduce", "--requests", "1"])

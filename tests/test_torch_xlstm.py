@@ -226,6 +226,6 @@ def test_chunked_prefill_refused_for_recurrent_stacks(model):
     with pytest.raises(ValueError, match="full-causal"):
         apply_model(model["params"], cfg, tokens=np.zeros((1, 8), np.int64), mode="prefill",
                     cache=make_cache(cfg, 1, 16), cache_index=8)
-    with pytest.raises(NotImplementedError, match="sinusoidal"):
-        apply_model(model["params"], dataclasses.replace(cfg, pos_embedding="sinusoidal"),
+    with pytest.raises(NotImplementedError, match="dropout_rate"):
+        apply_model(model["params"], dataclasses.replace(cfg, dropout_rate=0.1),
                     tokens=np.zeros((1, 8), np.int64))

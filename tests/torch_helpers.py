@@ -1,0 +1,41 @@
+"""Shared inputs of the port's training and multimodal parity tests: the
+reference's parameter tree drawn with numpy, and one numpy batch, handed
+to both packages."""
+import jax
+import numpy as np
+
+from repro.models.params import PSpec as JPSpec
+from repro.models.params import model_spec as j_model_spec
+
+
+def numpy_params(jcfg, seed=0, boost=4.0):
+    """The reference's parameter tree drawn with numpy: matrices at
+    ``boost`` x the init scale, zero- and one-init leaves (norm scales,
+    biases, the cross-attention gate) at seeded random values around
+    their init, so no path is constant; ``lru_a`` by its own rule."""
+    rng = np.random.default_rng(seed)
+
+    def make(path, ps):
+        grouped = getattr(path[0], "key", None) == "groups"
+        shape = ((jcfg.num_groups,) if grouped else ()) + ps.shape
+        if ps.init == "lru_a":
+            u = rng.uniform(0.9, 0.999, shape)
+            return np.log(np.expm1(-np.log(u) / 8.0)).astype(np.float32)
+        if ps.init in ("zeros", "ones"):
+            base = 1.0 if ps.init == "ones" else 0.0
+            spread = 0.5 if path[-1].key == "xgate" else 0.1
+            return (base + spread * rng.standard_normal(shape)).astype(np.float32)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        scale = min(ps.scale, 1.0 / np.sqrt(fan_in))
+        b = 1.0 if path[-1].key == "tok" else boost
+        return (rng.standard_normal(shape) * scale * b).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(
+        make, j_model_spec(jcfg), is_leaf=lambda x: isinstance(x, JPSpec))
+
+
+def flat_tree(tree):
+    """{'/'-joined path: numpy leaf} of a JAX pytree (the checkpoint key
+    names)."""
+    return {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
+            np.asarray(leaf) for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}

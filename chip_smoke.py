@@ -224,12 +224,33 @@ The training path and the rest of the zoo run after them:
              restored into fresh tensors, 3 steps, bitwise equal to 6
              uninterrupted steps.
 28. xattn — llama-3.2-vision-90b at full width cut to one group (4 attn
-             + 1 xattn, 1024 image tokens), bf16: a 2 x 128-token
-             prefill and 8 decode steps fed the eager backend's greedy
-             tokens, kernel vs eager logits within ``XATTN_TOL`` and
-             greedy tokens equal except where the eager top-2 gap is
+             + 1 xattn, 1024 image tokens), bf16 and then fp32: a 2 x
+             128-token prefill and 8 decode steps fed the eager backend's
+             greedy tokens, kernel vs eager logits within ``XATTN_TOL``
+             and greedy tokens equal except where the eager top-2 gap is
              below it; musicgen-medium at full width cut to 4 layers,
              fp32: prefill then decode against its train-mode forward.
+29. dryrun — ``launch.dryrun.run_one`` at full width and depth on fake
+             tensors over the fake process group: qwen1.5-0.5b and
+             granite-moe-3b-a800m (24 heads on the 16-way axis: the SP
+             attention layout; experts) at the four ``SHAPES`` on 16 x
+             16, and qwen1.5-110b's ``decode_32k`` on 2 x 16 x 16.  The
+             card's ``memory_allocated`` must not move; every record has
+             ``useful_flops_ratio`` <= 1.05, a bottleneck and
+             collectives; one line per record; the group is torn down.
+30. roofline — real steps of qwen1.5-0.5b at full width and depth, bf16,
+             on the kernel backend (flash launches counted): one prefill
+             of 4 x 4096 tokens and the train step at 8 x 128, each the
+             median of 7 after 2 warm-ups, beside ``run_one``'s record of
+             the same step on a 1 x 1 mesh: ``roofline_step_s``, the
+             measured seconds, their ratio (<= 1.05, or it fails: no
+             count may claim a step faster than the card allows) and
+             ``mfu``.  The record's argument bytes must equal the live
+             params' (and AdamW moments') bytes; its per-chip peak is
+             printed beside ``max_memory_allocated`` of the same step on
+             the eager backend (after a ``gc.collect()``), and beside what
+             was resident on the card before that step: what each holds
+             above what it was given must agree within 5 %.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -242,6 +263,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -2340,7 +2362,7 @@ STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "param_steps": 0.5, "update_norm": 
 # and carry it through the decode's K/V caches; between the MoE replays'
 # 0.1 (<= 32 layers of d <= 2048) and the bf16 Galaxy serve's 0.4.  A
 # greedy token may differ only where the eager top-2 gap is below it
-XATTN_TOL = 0.25
+XATTN_TOL = {"bfloat16": 0.25, "float32": 1e-4}
 
 
 def _grad_pair(fn, inputs, weights):
@@ -2659,26 +2681,24 @@ def phase_train_zoo(torch, rec, card):
     torch.cuda.empty_cache()
 
 
-def phase_xattn(torch, rec, card):
-    """llama-3.2-vision-90b at full width cut to one group (4 attn + 1
-    xattn, d 8192, 64 heads on 8 KV, 1024 image tokens), bf16: prefill 2
-    x 128 tokens, then 8 decode steps fed the eager backend's greedy
-    tokens, kernel vs eager backend.  Then musicgen-medium at full width
-    cut to 4 layers, fp32: prefill then decode against its train-mode
-    forward."""
+def xattn_group(torch, rec, card, dtype):
+    """The llama-3.2-vision group of :func:`phase_xattn` in ``dtype``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import apply_model
-    from repro_torch.models.params import init_params, padded_vocab
+    from repro_torch.models.params import init_params
     from repro_torch.serving.kvcache import make_cache
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), num_layers=5)
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"), num_layers=5, dtype=dtype,
+                              param_dtype=dtype)
+    tol = XATTN_TOL[dtype]
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(61), device=dev)
     g = torch.Generator(device=dev).manual_seed(62)
     b, s, steps = 2, 128, 8
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
-    img = torch.randn(b, cfg.num_image_tokens, cfg.d_model, generator=g, device=dev) * 0.1
+    img = (torch.randn(b, cfg.num_image_tokens, cfg.d_model, generator=g, device=dev)
+           * 0.1).to(getattr(torch, dtype))
     caches, logits = {}, {}
     for backend in ("kernel", "eager"):
         ops.reset_launch_counts()
@@ -2690,7 +2710,7 @@ def phase_xattn(torch, rec, card):
         expect = {n: 0 for n in counts}
         expect["flash_attention"] = cfg.count_kind("attn") if backend == "kernel" else 0
         if counts != expect:
-            raise AssertionError(f"llama-vision prefill ({backend}) launches {counts}")
+            raise AssertionError(f"llama-vision prefill ({backend}, {dtype}) launches {counts}")
         if backend == "kernel":
             rec["flash_attention"].d["launches"] += counts["flash_attention"]
     errs, gaps, scale = [], [], 0.0
@@ -2703,11 +2723,11 @@ def phase_xattn(torch, rec, card):
         differ = lk.argmax(-1) != le.argmax(-1)
         if bool(differ.any()):
             gaps.append(gap[differ].max().item())
-        if not (torch.isfinite(lk).all() and errs[-1] <= XATTN_TOL
-                and bool((gap[differ] < XATTN_TOL).all())):
-            raise AssertionError(f"llama-vision step {step}: kernel vs eager max abs err "
-                                 f"{errs[-1]}, greedy tokens differ with top-2 gaps "
-                                 f"{gap[differ].tolist()} (tolerance {XATTN_TOL})")
+        if not (torch.isfinite(lk).all() and errs[-1] <= tol
+                and bool((gap[differ] < tol).all())):
+            raise AssertionError(f"llama-vision {dtype} step {step}: kernel vs eager max abs "
+                                 f"err {errs[-1]}, greedy tokens differ with top-2 gaps "
+                                 f"{gap[differ].tolist()} (tolerance {tol})")
         if step == steps:
             break
         tok = le.argmax(-1)[:, None]
@@ -2716,13 +2736,34 @@ def phase_xattn(torch, rec, card):
                                 cache=caches[backend], cache_index=s + step, backend=backend)
             logits[backend] = lg[:, 0]
     log("xattn", f"llama-3.2-vision-90b width, one group ({cfg.block_pattern}, "
-        f"{cfg.param_count() / 1e9:.2f}e9 params bf16, {cfg.num_image_tokens} image tokens): "
-        f"{b} x {s}-token prefill and {steps} decode steps, kernel vs eager logits max abs "
-        f"err {max(errs):.3g} (tolerance {XATTN_TOL}, largest logit {scale:.3g}); greedy "
+        f"{cfg.param_count() / 1e9:.2f}e9 params {dtype}, {cfg.num_image_tokens} image "
+        f"tokens): {b} x {s}-token prefill and {steps} decode steps, kernel vs eager logits "
+        f"max abs err {max(errs):.3g} (tolerance {tol}, largest logit {scale:.3g}); greedy "
         f"tokens equal"
         + (f" except near-ties (top-2 gaps {gaps})" if gaps else "") + f"; {card}")
     del params, caches, logits, img
-    torch.cuda.empty_cache()
+
+
+def phase_xattn(torch, rec, card):
+    """llama-3.2-vision-90b at full width cut to one group (4 attn + 1
+    xattn, d 8192, 64 heads on 8 KV, 1024 image tokens): prefill 2 x 128
+    tokens, then 8 decode steps fed the eager backend's greedy tokens,
+    kernel vs eager backend, in bf16 and then in fp32 (whose error must
+    sit near the other fp32 kernel-vs-eager comparisons).  Then
+    musicgen-medium at full width cut to 4 layers, fp32: prefill then
+    decode against its train-mode forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import apply_model
+    from repro_torch.models.params import init_params, padded_vocab
+    from repro_torch.serving.kvcache import make_cache
+
+    dev = torch.device("cuda")
+    for dtype in ("bfloat16", "float32"):
+        xattn_group(torch, rec, card, dtype)
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(62)
+    b = 2
 
     mg = dataclasses.replace(get_config("musicgen-medium"), num_layers=4, dtype="float32",
                              param_dtype="float32")
@@ -2751,6 +2792,181 @@ def phase_xattn(torch, rec, card):
         f"decode steps against the train-mode forward ({tuple(ref.shape)} codebook logits): "
         f"max abs err {max(errs):.3g} (tolerance {tol:.3g}); {card}")
     del params, ref, cache
+    torch.cuda.empty_cache()
+
+
+# --- the multi-chip dry run and the roofline ------------------------------------
+
+# records' useful / counted FLOPs above this claim more work than was done
+USEFUL_MAX = 1.05
+# a roofline above the measured step by more than this claims the card
+# could not run the step as fast as it did
+ROOFLINE_MAX = 1.05
+# the dry run's peak above its arguments against the eager step's peak
+# above what was resident before it (the same buffers, counted or held)
+PEAK_TOL = 0.05
+
+
+def phase_dryrun(torch, card):
+    """``run_one`` for qwen1.5-0.5b and granite-moe-3b-a800m x the four
+    shapes on 16 x 16, and qwen1.5-110b decode_32k on 2 x 16 x 16."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.shapes import SHAPES
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    runs = [(a, sh, False) for a in ("qwen1.5-0.5b", "granite-moe-3b-a800m") for sh in SHAPES]
+    runs.append(("qwen1.5-110b", "decode_32k", True))
+    records = []
+    t0 = time.perf_counter()
+    try:
+        for arch, shape, multi_pod in runs:
+            records.append(dryrun.run_one(arch, shape, multi_pod=multi_pod, save=False,
+                                          verbose=False))
+    finally:
+        mesh_lib.destroy_fake_group()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"the dry run moved the card's memory_allocated: {before} -> "
+                             f"{after}")
+    for r in records:
+        coll = r["collective_bytes_per_chip"]
+        if not (r["useful_flops_ratio"] <= USEFUL_MAX
+                and r["bottleneck"] in ("compute", "memory", "collective")
+                and coll.get("total", 0) > 0):
+            raise AssertionError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: useful "
+                                 f"{r['useful_flops_ratio']}, bottleneck {r['bottleneck']}, "
+                                 f"collectives {coll}")
+        log("dryrun", f"{r['arch']} {r['shape']} mesh {r['mesh']}: flops/chip "
+            f"{r['hlo_flops_per_chip']:.4e}, bytes/chip {r['hlo_bytes_per_chip']:.4e}, "
+            f"collectives/chip {coll['total']:.4e} B, peak/chip "
+            f"{r['peak_mem_bytes_per_chip'] / 1e9:.3f} GB, t compute/memory/collective "
+            f"{r['t_compute_s']:.4g}/{r['t_memory_s']:.4g}/{r['t_collective_s']:.4g} s, "
+            f"bottleneck {r['bottleneck']}, useful {r['useful_flops_ratio']:.4f}, roofline "
+            f"MFU {r['roofline_mfu']:.4f}, counted in {r['count_s']:.1f} s")
+    log("dryrun", f"{len(records)} records in {time.perf_counter() - t0:.1f} s on fake "
+        f"tensors; memory_allocated {before} -> {after}; the host ran it, {card}")
+
+
+def _median_s(torch, fn, warm=2, runs=7):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_roofline(torch, rec, card):
+    """Real qwen1.5-0.5b steps on the card against ``run_one``'s roofline
+    of the same step on a 1 x 1 mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import h100_peak_flops
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import apply_model
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.kvcache import make_cache
+    from repro_torch.training.optimizer import AdamW, cosine_schedule, tree_leaves
+    from repro_torch.training.train_loop import make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-0.5b")
+    layers = cfg.count_kind("attn")
+    peak = h100_peak_flops(cfg.dtype)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(71), device=dev)
+    param_bytes = sum(t.nbytes for t in tree_leaves(params))
+    g = torch.Generator(device=dev).manual_seed(72)
+    try:
+        for what, info in (("prefill", dict(seq=4096, batch=4, mode="prefill")),
+                           ("train", dict(seq=128, batch=8, mode="train"))):
+            r = dryrun.run_one(cfg.name, f"roofline_{what}", mesh_shape=(1, 1), shape_info=info,
+                               save=False, verbose=False)
+            b, s = info["batch"], info["seq"]
+            tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+            if what == "prefill":
+                cache = {}
+
+                def step(backend="kernel"):
+                    with torch.no_grad():
+                        cache["c"] = make_cache(cfg, b, s, device=dev)
+                        logits, _ = apply_model(params, cfg, tokens=tokens, mode="prefill",
+                                                cache=cache["c"], backend=backend)
+                        return logits[:, -1]
+
+                live = param_bytes
+                launches_per = layers
+            else:
+                opt = AdamW(cosine_schedule(3e-4, 100, 10000))
+                state = {"s": opt.init(params)}
+                batch = {"tokens": tokens,
+                         "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                                 device=dev)}
+                steps = {bk: make_train_step(cfg, opt, backend=bk) for bk in ("kernel", "eager")}
+
+                def step(backend="kernel"):
+                    _, state["s"], m = steps[backend](params, state["s"], batch)
+                    return m["loss"]
+
+                live = param_bytes + sum(t.nbytes for t in tree_leaves(state["s"].mu)
+                                         + tree_leaves(state["s"].nu))
+                launches_per = 2 * layers
+            if r["argument_bytes"] != live:
+                raise AssertionError(f"roofline {what}: the dry run's argument bytes "
+                                     f"{r['argument_bytes']} != the card's {live}")
+            ops.reset_launch_counts()
+            measured = _median_s(torch, step)
+            counts = ops.launch_counts()
+            want = {n: 0 for n in counts}
+            want["flash_attention"] = 9 * launches_per
+            if counts != want:
+                raise AssertionError(f"roofline {what}: launches {counts}, want {want}")
+            rec["flash_attention"].d["launches"] += counts["flash_attention"]
+            if what == "prefill":
+                cache.clear()
+            gc.collect()  # garbage of the timed steps is not the eager step's
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            step("eager")
+            torch.cuda.synchronize()
+            eager_peak = torch.cuda.max_memory_allocated()
+            if what == "prefill":
+                cache.clear()  # the eager prefill's cache is not the train step's
+            # what each step holds above what it was given
+            counted = r["peak_mem_bytes_per_chip"] - r["argument_bytes"]
+            held = eager_peak - resident
+            ratio = r["roofline_step_s"] / measured
+            mfu = r["model_flops_global"] / (measured * peak)
+            log("roofline", f"qwen1.5-0.5b {what} {b} x {s}, bf16, kernel backend: "
+                f"roofline_step_s {r['roofline_step_s']:.6f} ({r['bottleneck']}; compute "
+                f"{r['t_compute_s']:.6f}, memory {r['t_memory_s']:.6f} s), measured "
+                f"{measured:.6f} s (median of 7), ratio {ratio:.4f} (<= {ROOFLINE_MAX}), mfu "
+                f"{mfu:.4f} (model FLOPs {r['model_flops_global']:.4e}; counted "
+                f"{r['hlo_flops_per_chip']:.4e}, bytes {r['hlo_bytes_per_chip']:.4e}); "
+                f"argument bytes {r['argument_bytes']} = the card's; predicted peak "
+                f"{r['peak_mem_bytes_per_chip'] / 2**30:.3f} GiB (arguments "
+                f"{r['argument_bytes'] / 2**30:.3f}, {counted / 2**30:.3f} above) vs eager "
+                f"max_memory_allocated {eager_peak / 2**30:.3f} GiB (resident before the step "
+                f"{resident / 2**30:.3f}, {held / 2**30:.3f} above); flash launches "
+                f"{counts['flash_attention']}; {card}")
+            if not ratio <= ROOFLINE_MAX:
+                raise AssertionError(f"roofline {what}: roofline {r['roofline_step_s']} s over "
+                                     f"measured {measured} s is {ratio} > {ROOFLINE_MAX}")
+            if not abs(counted - held) <= PEAK_TOL * held:
+                raise AssertionError(f"roofline {what}: the dry run holds {counted} B above its "
+                                     f"arguments, the eager step {held} B above what was "
+                                     f"resident: more than {PEAK_TOL:.0%} apart")
+    finally:
+        mesh_lib.destroy_fake_group()
+    del params
     torch.cuda.empty_cache()
 
 
@@ -2867,6 +3083,9 @@ def main() -> int:
     phase_train(torch, rec, card)
     phase_train_zoo(torch, rec, card)
     phase_xattn(torch, rec, card)
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, card)
+    phase_roofline(torch, rec, card)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -50,6 +50,9 @@ class ModelConfig:
     dropout_rate: float = 0.0  # the connective block's dropout (training only)
 
     window: int = 0            # 0 = full causal; >0 = sliding window
+    # the sliding window put in place of full attention only for the dry
+    # run's long_500k shape on archs whose attention is quadratic
+    long_context_window: int = 4096
 
     num_experts: int = 0
     experts_per_token: int = 0
@@ -121,6 +124,12 @@ class ModelConfig:
     def count_kind(self, kind: str) -> int:
         return sum(1 for k in self.layer_kinds() if k == kind)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if prefill and decode cost is sub-quadratic in the sequence
+        natively (recurrent blocks and windowed attention only)."""
+        return all(k not in ATTN_KINDS or self.window > 0 for k in self.block_pattern)
+
     def param_count(self, active_only: bool = False) -> int:
         """Approximate parameter count (embedding + blocks + head), as the
         reference counts it: real experts only (not the padded ones), and
@@ -179,6 +188,7 @@ def reduced(cfg: ModelConfig, d_model: int = 256, vocab: int = 512) -> ModelConf
         experts_per_token=min(cfg.experts_per_token, 2),
         lru_width=0,
         window=min(cfg.window, 32) if cfg.window else 0,
+        long_context_window=64,
         num_image_tokens=min(cfg.num_image_tokens, 16),
         dtype="float32",
         param_dtype="float32",

@@ -111,6 +111,30 @@ def t_ring_exchange(tile_bytes: Sequence[float], link: Links) -> float:
     return total
 
 
+# --- NVIDIA H100 (roofline targets) --------------------------------------------
+#
+# Datasheet figures of the card the port runs on, NVIDIA H100 80GB HBM3
+# (SXM) at its 700 W power limit: dense tensor-core rates without sparsity,
+# fp32 outside the tensor cores (the port keeps TF32 off), HBM3 bandwidth,
+# NVLink 4 bandwidth in one direction.  They are not measurements; a card
+# set below 700 W reaches less.  The roofline (``roofline/analysis.py``)
+# prices a step on them.
+
+H100 = {
+    "name": "NVIDIA H100 80GB HBM3",
+    "power_limit_w": 700.0,
+    "peak_flops": {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12},
+    "hbm_bw": 3.35e12,        # bytes/s
+    "nvlink_bw": 450e9,       # bytes/s, one direction
+    "hbm_bytes": 80e9,
+}
+
+
+def h100_peak_flops(dtype: str) -> float:
+    """Peak FLOP/s of the H100 for a compute dtype name."""
+    return H100["peak_flops"][dtype]
+
+
 # --- collective cost (ring algorithms, paper §III-B-5) ------------------------
 
 def t_allgather(n_bytes: float, d: int, link: LinkSpec) -> float:

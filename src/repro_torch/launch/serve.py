@@ -90,7 +90,7 @@ from repro_torch.configs import (
     reduced,
 )
 from repro_torch.core import costmodel, hmp
-from repro_torch.core.execplan import ExecPlan
+from repro_torch.core.execplan import COMPUTE_BACKENDS, ExecPlan
 from repro_torch.core.profiler import AnalyticProfiler
 from repro_torch.core.ring import LocalRing
 from repro_torch.core.simulator import make_step_pricer
@@ -255,7 +255,7 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           draft_model: Optional[str] = None, spec_k: Optional[int] = None,
           draft_executor=None, temperature: float = 0.0,
           tracer: Optional[Tracer] = None, drift: bool = False,
-          record_times: bool = True) -> Dict:
+          record_times: bool = True, compute_backend: str = "kernel") -> Dict:
     """Build (or take) the executor, serve random prompts and return the
     finished requests, throughput and latency figures, the engine's stats
     and prefix-cache stats, its pool, and the executor (whose weights a
@@ -271,8 +271,14 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     greedy.  ``tracer`` records the serve's spans, ``drift`` prices each
     step (``make_drift``; the monitor is returned as ``"drift"``), and
     ``record_times`` stamps each token (TTFT, the latency histograms); the
-    engine's registry is returned as ``"metrics"``."""
+    engine's registry is returned as ``"metrics"``.  ``compute_backend`` is
+    the Galaxy executor's per-shard compute (``ExecPlan.compute_backend``):
+    "kernel" runs the hand-written kernels, "eager" the padded plain
+    versions."""
     dev = resolve_device(device)
+    if compute_backend != "kernel" and executor_kind != "galaxy":
+        raise ValueError("compute_backend selects the Galaxy executor's per-shard compute; "
+                         f"the {executor_kind} executor has none")
     if executor_kind not in EXECUTORS:
         raise ValueError(f"unknown executor {executor_kind!r}; one of {EXECUTORS}")
     refuse_frontend_stub(model)
@@ -304,7 +310,7 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
             seed=seed + 2, reduce=reduce)
     if executor is None:
         if executor_kind == "galaxy":
-            plan = build_plan(cfg, capacities)
+            plan = build_plan(cfg, capacities, compute_backend=compute_backend)
             executor = build_executor(cfg, plan, device=dev,
                                       dtype=getattr(torch, dtype or cfg.dtype),
                                       seed=seed)
@@ -451,6 +457,11 @@ def main(argv=None):
     ap.add_argument("--reduce", action="store_true",
                     help="serve the model's small variant (configs.reduced), "
                          "e.g. for a CPU run")
+    ap.add_argument("--compute-backend", choices=COMPUTE_BACKENDS, default="kernel",
+                    help="Galaxy per-shard compute (ExecPlan.compute_backend): 'kernel' "
+                         "sheds pad-block work through the hand-written kernels; 'eager' "
+                         "is the padded plain oracle.  Galaxy executor only: the zoo "
+                         "has no padded shards to shed")
     add_scheduling_args(ap)
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record request/engine spans and write Chrome trace-event "
@@ -472,7 +483,7 @@ def main(argv=None):
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=args.device, dtype=args.dtype, seed=args.seed,
                 reduce=args.reduce, tracer=tracer, drift=args.drift,
-                **scheduling_kwargs(args))
+                compute_backend=args.compute_backend, **scheduling_kwargs(args))
     print(out["plan"])
     print(json.dumps({k: v for k, v in out.items()
                       if k not in ("plan", "requests", "pool", "executor",

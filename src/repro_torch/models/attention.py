@@ -23,6 +23,19 @@ Cross-attention (:func:`cross_attention_block`) attends every text row to
 every image token, unmasked.  It stays torch ops, as it stays XLA in the
 reference: the flash kernel takes Sq <= Sk only, and a text prefill is
 often longer than the image tokens.
+
+Under a mesh (``models/sharding.py``) this is the paper's MHA block: TP
+splits the heads (wq/wk/wv column-split, wo row-split), so attention
+itself needs no sync (§III-B-1); it is entered by an AllGather from the
+seq-sharded connective block and left by a ReduceScatter.  Where the query
+heads do not divide the model axis (24 heads on 16), queries stay
+seq-sharded against gathered K/V instead (the SP pattern of §II-C-2).
+KV heads are repeated to the query heads there so every attention op is
+sharded along heads, and the cache writes go to each chip's own shard
+(``sharding.write_rows``).  On the eager backend under a mesh, or while a
+dry run counts the step (``roofline/counter.py``), attention runs as
+:class:`_LocalAttentionFn`: the plain attention on each chip's shards,
+counted as the attention function rather than as its plain ops.
 """
 from __future__ import annotations
 
@@ -32,22 +45,69 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_norm, connective_norm, connective_residual, rope
+from repro_torch.models.sharding import (constrain, local_shape_offset, logical_axis_size,
+                                         matmul, mesh_active, project, write_rows)
+from repro_torch.roofline import counter
 
 NEG_INF = -1e30
+
+CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
+XCACHE_AXES = ("batch", "img_seq", "kv_heads", None)
+
+
+def _heads_shardable(cfg: ModelConfig) -> bool:
+    """True if the query heads divide the model axis: the paper's head-wise
+    TP (§III-B-1).  Otherwise attention falls back to the SP layout
+    (seq-sharded queries, gathered K/V), which 24-head archs take on the
+    16-way mesh."""
+    ax = logical_axis_size("heads")
+    return ax <= 1 or cfg.num_heads % ax == 0
+
+
+def _q_axes(cfg: ModelConfig):
+    if _heads_shardable(cfg):
+        return ("batch", None, "heads", None)
+    return ("batch", "seq", None, None)  # SP-attention fallback
+
+
+def _expand_kv(x, cfg: ModelConfig):
+    """Under a mesh with head-sharded queries, K/V (B, L, KV, hd) repeated
+    to the query heads and sharded along them (replicated KV and a local
+    repeat: no collective); the ``kv_seq`` name stays, so a seq-sharded
+    cache keeps its layout.  Anywhere else ``x`` as it is: the kernels
+    take GQA natively."""
+    if not mesh_active() or not _heads_shardable(cfg):
+        return x
+    g = cfg.num_heads // x.shape[2]
+    if g > 1:
+        x = torch.repeat_interleave(x, g, dim=2)
+    return constrain(x, ("batch", "kv_seq", "heads", None))
+
+
+def _heads(x, w, n, hd, names):
+    """x (B, S, d) @ w (d, n, hd) viewed as (B, S, n, hd); under a mesh laid
+    out by ``names`` (``sharding.project``)."""
+    b, s, d = x.shape
+    return project(x, w.reshape(d, -1), names, (b, s, n, hd)).view(b, s, n, hd)
 
 
 def _project_qkv(p, x, cfg: ModelConfig):
     """x: (B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd)."""
-    b, s, d = x.shape
-    q = (x @ p["wq"].reshape(d, -1)).view(b, s, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"].reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].reshape(d, -1)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_axes = ("batch", None, "kv_heads", None)
+    q = _heads(x, p["wq"], h, hd, _q_axes(cfg))
+    k = _heads(x, p["wk"], kv, hd, kv_axes)
+    v = _heads(x, p["wv"], kv, hd, kv_axes)
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = constrain(q, _q_axes(cfg))
+    k = constrain(k, kv_axes)
+    v = constrain(v, kv_axes)
     return q, k, v
 
 
@@ -89,6 +149,92 @@ def _cache_attention(q, k_cache, v_cache, mask=None):
     return out.reshape(b, s, h, hd)
 
 
+def _attention(q, k, v, *, causal: bool, window: int, backend: str):
+    """Attention on (B, H, S, hd) views: ``ops.flash_attention``, or on the
+    eager backend under a mesh or a dry-run counter the plain attention
+    on local shards (:class:`_LocalAttentionFn`)."""
+    if backend == "eager" and (mesh_active() or counter.active() is not None):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(q, DTensor):
+            k, v = _align_kv(q, k), _align_kv(q, v)
+        return _LocalAttentionFn.apply(q, k, v, causal, window)
+    return ops.flash_attention(q, k, v, causal=causal, window=window, backend=backend)
+
+
+def _align_kv(q, t):
+    """K or V laid out as the queries on the batch and head dims, whole
+    along the keys, so each chip attends its own queries locally."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+                 for p in q.placements)
+    return t if tuple(t.placements) == want else t.redistribute(t.device_mesh, want)
+
+
+class _LocalAttentionFn(torch.autograd.Function):
+    """Plain attention and its torch-ops gradient (``flash_attention_backward``)
+    on local shards (``DTensor`` inputs) or on whole tensors.  Queries
+    sharded along the sequence see the keys up to their own last position:
+    the plain version right-aligns its queries to its keys, so the keys are
+    cut there (the rest are masked anyway), and the K/V gradients are
+    partial sums over the query shards."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        from torch.distributed.tensor import DTensor
+
+        ctx.dist = isinstance(q, DTensor)
+        ql, kl, vl = (counter.local(t) for t in (q, k, v))
+        sk = k.shape[2]
+        if ctx.dist and causal:
+            q_off = local_shape_offset(q.shape, q.device_mesh, q.placements)[1][2]
+            sk = q_off + ql.shape[2] + k.shape[2] - q.shape[2]
+        kl, vl = kl[:, :, :sk], vl[:, :, :sk]
+        # the counts split the whole attention's work evenly over the chips
+        ctx.bwd_cost = counter.attention_cost(q, k, v, q, causal=causal, window=window,
+                                              backward=True)
+        with counter.function(*counter.attention_cost(q, k, v, q, causal=causal,
+                                                      window=window)):
+            out = _flash.flash_attention_plain(ql, kl, vl, causal=causal, window=window)
+            # laid out (B, Sq, H, hd) in memory, as the kernel writes it
+            out = out.transpose(1, 2).contiguous().transpose(1, 2)
+        ctx.save_for_backward(ql, kl, vl, out)
+        ctx.causal, ctx.window, ctx.sk = causal, window, k.shape[2]
+        if not ctx.dist:
+            return out
+        ctx.q_meta = (q.device_mesh, q.placements)
+        ctx.k_pl = k.placements
+        b, h, sq, hd = q.shape
+        return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False,
+                                  shape=q.shape, stride=(sq * h * hd, hd, h * hd, 1))
+
+    @staticmethod
+    def backward(ctx, dout):
+        from torch.distributed.tensor import DTensor, Partial, Shard
+
+        ql, kl, vl, out = ctx.saved_tensors
+        if ctx.dist:
+            mesh, q_pl = ctx.q_meta
+            dout = dout.redistribute(mesh, q_pl).to_local()
+        with counter.function(*ctx.bwd_cost):
+            dq, dk, dv = _flash.flash_attention_backward(ql, kl, vl, out, dout,
+                                                         causal=ctx.causal, window=ctx.window)
+        if dk.shape[2] < ctx.sk:
+            pad = ctx.sk - dk.shape[2]
+            dk = torch.cat([dk, dk.new_zeros(dk.shape[:2] + (pad,) + dk.shape[3:])], dim=2)
+            dv = torch.cat([dv, dv.new_zeros(dv.shape[:2] + (pad,) + dv.shape[3:])], dim=2)
+        if not ctx.dist:
+            return dq, dk, dv, None, None
+        # K/V met only this chip's queries: their gradients sum over the query shards
+        kv_pl = tuple(Partial() if isinstance(qp, Shard) and qp.dim == 2 else kp
+                      for qp, kp in zip(q_pl, ctx.k_pl))
+        # (global strides follow the local tensors' own layouts)
+        return (DTensor.from_local(dq, mesh, q_pl, run_check=False),
+                DTensor.from_local(dk, mesh, kv_pl, run_check=False),
+                DTensor.from_local(dv, mesh, kv_pl, run_check=False), None, None)
+
+
 def self_attention_block(
     p: Dict,
     x,
@@ -126,7 +272,8 @@ def self_attention_block(
         if cache is None:
             raise ValueError("chunked prefill needs the gathered cache view")
     xn = connective_norm(x, p["ln1"], cfg.norm)
-    q, k, v = _project_qkv(p, xn, cfg)
+    xg = constrain(xn, ("batch", None, "embed"))  # AllGather: enter the TP block
+    q, k, v = _project_qkv(p, xg, cfg)
     b, s = x.shape[:2]
 
     if cfg.pos_embedding == "rope":
@@ -137,26 +284,26 @@ def self_attention_block(
     if chunked:
         off = int(cache_index)
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, off:off + s] = k
-        v_cache[:, off:off + s] = v
+        write_rows(k_cache, k, 1, off)
+        write_rows(v_cache, v, 1, off)
         new_cache = {"k": k_cache, "v": v_cache}
         # keys sliced to the chunk's end: the kernel's right-aligned causal
         # mask then puts query j at position off + j
-        out = ops.flash_attention(q.transpose(1, 2),
-                                  k_cache[:, :off + s].transpose(1, 2),
-                                  v_cache[:, :off + s].transpose(1, 2),
-                                  causal=True, window=0,
-                                  backend=backend).transpose(1, 2)
+        out = _attention(q.transpose(1, 2), k_cache[:, :off + s].transpose(1, 2),
+                         v_cache[:, :off + s].transpose(1, 2), causal=True, window=0,
+                         backend=backend).transpose(1, 2)
     elif mode in ("train", "prefill"):
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True, window=window,
-                                  backend=backend).transpose(1, 2)
+        out = _attention(q.transpose(1, 2), _expand_kv(k, cfg).transpose(1, 2),
+                         _expand_kv(v, cfg).transpose(1, 2), causal=True, window=window,
+                         backend=backend).transpose(1, 2)
         if mode == "prefill":
             new_cache = _write_prefill_cache(cache, k, v, window)
     elif mode == "decode":
         k_cache, v_cache = cache["k"], cache["v"]
         cache_len = k_cache.shape[1]
         per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
+        if per_slot and mesh_active():
+            raise NotImplementedError("per-slot decode depths under a mesh")
         if per_slot:
             slot = torch.remainder(cache_index, window) if window > 0 else cache_index
             rows = torch.arange(b, device=x.device)
@@ -166,9 +313,9 @@ def self_attention_block(
         else:
             idx = int(cache_index)
             slot = idx % window if window > 0 else idx
-            k_cache[:, slot:slot + s] = k
-            v_cache[:, slot:slot + s] = v
-        new_cache = {"k": k_cache, "v": v_cache}
+            write_rows(k_cache, k, 1, slot)
+            write_rows(v_cache, v, 1, slot)
+        new_cache = {"k": constrain(k_cache, CACHE_AXES), "v": constrain(v_cache, CACHE_AXES)}
         if window > 0:
             k_pos = _window_cache_positions(idx, window, x.device)
         else:
@@ -180,7 +327,7 @@ def self_attention_block(
         raise ValueError(mode)
 
     h, hd = cfg.num_heads, cfg.head_dim
-    proj = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1)
+    proj = matmul(out.reshape(b, s, h * hd), p["wo"].reshape(h * hd, -1))
     return connective_residual(x, proj), new_cache
 
 
@@ -189,12 +336,11 @@ def _write_prefill_cache(cache: Dict, k, v, window: int):
     [0, S).  Sliding window: keep the last W tokens at slots t % W."""
     s = k.shape[1]
     if window > 0 and s > window:
-        slots = torch.remainder(torch.arange(s - window, s, device=k.device), window)
-        cache["k"][:, slots] = k[:, -window:]
-        cache["v"][:, slots] = v[:, -window:]
-    else:
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+        # the last W tokens at slots t % W are the last W rolled by (s - W) % W
+        k = torch.roll(k[:, -window:], (s - window) % window, dims=1)
+        v = torch.roll(v[:, -window:], (s - window) % window, dims=1)
+    write_rows(cache["k"], k, 1, 0)
+    write_rows(cache["v"], v, 1, 0)
     return cache
 
 
@@ -210,28 +356,39 @@ def cross_attention_block(p: Dict, x, cfg: ModelConfig, *, mode: str, img_embeds
     decode reads them back frozen.  ``img_embeds``: (B, I, d) in the model
     dtype; unused in decode."""
     xn = connective_norm(x, p["ln1"], cfg.norm)
+    xg = constrain(xn, ("batch", None, "embed"))
     b, s, d = xn.shape
     h, hd = cfg.num_heads, cfg.head_dim
-    q = (xn @ p["wq"].reshape(d, -1)).view(b, s, h, hd)
+    q = _heads(xg, p["wq"], h, hd, ("batch", None, "heads", None))
     if cfg.qkv_bias:
         q = q + p["bq"]
+    q = constrain(q, ("batch", None, "heads", None))
     if mode == "decode":
         k, v = cache["k"], cache["v"]
         new_cache = cache
     else:
         imgs = apply_norm(img_embeds, p["kv_norm"], cfg.norm)
         n = imgs.shape[1]
-        k = (imgs @ p["wk"].reshape(d, -1)).view(b, n, cfg.num_kv_heads, hd)
-        v = (imgs @ p["wv"].reshape(d, -1)).view(b, n, cfg.num_kv_heads, hd)
+        k = _heads(imgs, p["wk"], cfg.num_kv_heads, hd, XCACHE_AXES)
+        v = _heads(imgs, p["wv"], cfg.num_kv_heads, hd, XCACHE_AXES)
         if cfg.qkv_bias:
             k = k + p["bk"]
             v = v + p["bv"]
+        k = constrain(k, XCACHE_AXES)
+        v = constrain(v, XCACHE_AXES)
         new_cache = None
         if mode == "prefill":
             cache["k"].copy_(k)
             cache["v"].copy_(v)
             new_cache = cache
-    out = _cache_attention(q, k, v)
-    proj = out.reshape(b, s, h * hd) @ p["wo"].reshape(h * hd, -1)
+    if mesh_active():
+        # each chip attends its own queries to the image K/V (no merged
+        # batch and head dims, which the sharding propagation cannot split)
+        out = _attention(q.transpose(1, 2), _expand_kv(k, cfg).transpose(1, 2),
+                         _expand_kv(v, cfg).transpose(1, 2), causal=False, window=0,
+                         backend="eager").transpose(1, 2)
+    else:
+        out = _cache_attention(q, k, v)
+    proj = matmul(out.reshape(b, s, h * hd), p["wo"].reshape(h * hd, -1))
     proj = torch.tanh(p["xgate"].float()).to(proj.dtype) * proj
     return connective_residual(x, proj), new_cache

@@ -1,10 +1,11 @@
 """Shared layer primitives: norms, rotary and sinusoidal positions,
 activations and the Galaxy "connective block" (residual add + norm).
 
-On one device there is no sequence sharding, so the reference's
-``constrain`` calls around the connective block drop out; serving runs
-and trains with dropout off (``models/transformer.py`` refuses a config
-with ``dropout_rate > 0``), so the residual is a plain add.
+The connective block is the SP region of the paper (§III-B-3): its
+``seq`` constraints (``models/sharding.py``) make the exit of the TP block
+before it a ReduceScatter under a mesh; on one device they return their
+input.  Serving runs and trains with dropout off (``models/transformer.py``
+refuses a config with ``dropout_rate > 0``), so the residual is a plain add.
 """
 from __future__ import annotations
 
@@ -12,6 +13,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import constrain
+
+#: the connective block's layout: sequence-sharded under HMP
+BSE = ("batch", "seq", "embed")
 
 
 # --- norms -----------------------------------------------------------------
@@ -71,11 +77,14 @@ def sinusoidal_pos(positions, d_model: int, dtype=torch.float32):
 
 def connective_residual(residual, sublayer_out):
     """Residual add of a sub-layer's output (dropout is off)."""
-    return residual + sublayer_out
+    sublayer_out = constrain(sublayer_out, BSE)
+    residual = constrain(residual, BSE)
+    return constrain(residual + sublayer_out, BSE)
 
 
 def connective_norm(x, norm_params, norm_kind):
-    return apply_norm(x, norm_params, norm_kind)
+    x = constrain(x, BSE)
+    return constrain(apply_norm(x, norm_params, norm_kind), BSE)
 
 
 # --- activations ----------------------------------------------------------------

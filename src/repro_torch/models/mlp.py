@@ -1,5 +1,8 @@
-"""MLP blocks.  The matmuls stay ``torch.matmul``: the reference computes
-them as einsums outside any kernel."""
+"""MLP blocks (the paper's second TP target): the first GEMM column-split
+along ``ffn``, the second row-split to match, so no sync inside the block
+(§III-B-2); the entry and exit collectives come from the connective
+constraints under a mesh.  The matmuls stay ``torch.matmul``: the
+reference computes them as einsums outside any kernel."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,6 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import connective_norm, connective_residual, gelu
+from repro_torch.models.sharding import constrain
 
 
 def mlp_apply(p: Dict, x, cfg: ModelConfig):
@@ -18,9 +22,11 @@ def mlp_apply(p: Dict, x, cfg: ModelConfig):
         h = gelu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = gelu(x @ p["w_up"])
+    h = constrain(h, ("batch", None, "ffn"))
     return h @ p["w_down"]
 
 
 def mlp_block(p: Dict, x, cfg: ModelConfig):
     xn = connective_norm(x, p["ln2"], cfg.norm)
-    return connective_residual(x, mlp_apply(p["mlp"], xn, cfg))
+    xg = constrain(xn, ("batch", None, "embed"))  # AllGather: enter the TP block
+    return connective_residual(x, mlp_apply(p["mlp"], xg, cfg))  # ReduceScatter

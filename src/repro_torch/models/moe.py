@@ -11,6 +11,13 @@ so here it stays torch ops: cuBLAS batched GEMMs over the experts.
 Experts are padded in the parameter tree (``models/params.py``); pad
 experts get -1e30 router logits and are never selected.
 
+Under a mesh (``models/sharding.py``) the token groups are sharded over
+the data axes (``expert_group``) and the experts over the model axis
+(expert parallelism): dispatch is a local slice, and the combine's
+contraction over the sharded experts leaves partial sums whose exit into
+the seq-sharded connective block is the ReduceScatter every HMP TP block
+ends with.
+
 Three details keep the routing identical to the reference's:
 
 * top-k takes the lower expert index first on equal logits, as
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import connective_norm, connective_residual, gelu
+from repro_torch.models.sharding import constrain
 
 CAPACITY_FACTOR = 2.0
 GROUP_SIZE = 128
@@ -76,7 +84,7 @@ def moe_apply(p: Dict, x, cfg: ModelConfig, *, capacity_factor: float = 0.0
     total = b * s
     t = _group_size(total)
     g = total // t
-    xg = x.reshape(g, t, d)
+    xg = constrain(x.reshape(g, t, d), ("expert_group", None, "embed"))
 
     logits, top_vals, top_idx = moe_route(p, xg, cfg)
     probs = torch.softmax(logits, dim=-1)  # (g, t, e) — for the aux loss
@@ -96,21 +104,26 @@ def moe_apply(p: Dict, x, cfg: ModelConfig, *, capacity_factor: float = 0.0
         pos_oh = (torch.where(keep, pos, cap)[..., None] == slots).float()
         combine = combine + top_w[:, :, j, None, None] * oh[..., None] * pos_oh
         counts = counts + oh.sum(dim=1)
-    dispatch = (combine > 0).to(x.dtype)
-    combine = combine.to(x.dtype)
+    dispatch = constrain((combine > 0).to(x.dtype), ("expert_group", None, "experts", None))
+    combine = constrain(combine.to(x.dtype), ("expert_group", None, "experts", None))
 
     # --- expert FFN: one batched GEMM per matrix over the experts ----------
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    xe = constrain(xe, ("expert_group", "experts", None, None))
     if cfg.activation in ("swiglu", "geglu"):
         act = F.silu if cfg.activation == "swiglu" else gelu
         h = act(torch.einsum("gecd,edf->gecf", xe, p["we_gate"])) * torch.einsum(
             "gecd,edf->gecf", xe, p["we_up"])
     else:
         h = gelu(torch.einsum("gecd,edf->gecf", xe, p["we_up"]))
+    h = constrain(h, ("expert_group", "experts", None, None))
     ye = torch.einsum("gecf,efd->gecd", h, p["we_down"])
 
     # --- combine ---------------------------------------------------------
-    out = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(b, s, d)
+    # experts and slots merged experts-major, so under a mesh the experts'
+    # shard is the merged dim's (an einsum may merge them slots-major)
+    e_c = combine.shape[2] * combine.shape[3]
+    out = torch.bmm(combine.reshape(g, t, e_c), ye.reshape(g, e_c, d)).reshape(b, s, d)
 
     # --- aux losses --------------------------------------------------------
     top1 = (top_idx[:, :, 0, None] == experts).float()
@@ -126,5 +139,6 @@ def moe_block(p: Dict, x, cfg: ModelConfig):
     """The FFN sub-layer of an MoE block: norm -> experts -> residual.
     Returns (x, aux)."""
     xn = connective_norm(x, p["ln2"], cfg.norm)
-    out, aux = moe_apply(p["moe"], xn, cfg)
-    return connective_residual(x, out), aux
+    xg = constrain(xn, ("batch", None, "embed"))  # AllGather: enter the TP block
+    out, aux = moe_apply(p["moe"], xg, cfg)
+    return connective_residual(x, out), aux  # ReduceScatter

@@ -1,24 +1,27 @@
 """Structural parameter descriptions and their materialization.
 
 The parameter tree is described once as a nested dict of :class:`PSpec`
-(shape + initializer), as the reference describes it.  Layers that repeat
+(shape + logical axes + initializer), as the reference describes it.  Layers that repeat
 are stacked along a leading ``num_groups`` dim under ``"groups"``;
 remainder layers sit under ``"tail"``, one entry each.  From the
 description come :func:`init_params` (random weights drawn on the device
 from a ``torch.Generator``, so no weight passes through the host) and
 :func:`params_from_numpy` (the reference's ``init_params`` tree, as numpy
-arrays, carried over for the parity tests).
+arrays, carried over for the parity tests), and for the multi-chip dry
+run :func:`abstract_params` (fake tensors, nothing allocated) and
+:func:`partition_specs` (each leaf's mesh axes under a rules table).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import Rules, abstract_tensor, fake_mode
 from repro_torch.models.xlstm import xlstm_dims
 
 EXPERT_PAD = 16   # the reference's expert-parallel degree the expert dim divides by
@@ -28,8 +31,13 @@ VOCAB_PAD = 256
 @dataclasses.dataclass(frozen=True)
 class PSpec:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis names (models/sharding.py)
     init: str = "normal"  # normal | zeros | ones | lru_a
     scale: float = 0.02
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"PSpec shape {self.shape} and axes {self.axes} differ in rank")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -51,28 +59,31 @@ def padded_experts(cfg: ModelConfig) -> int:
 def _norm_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
     d = cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": PSpec((d,), "zeros")}
-    return {"scale": PSpec((d,), "ones"), "bias": PSpec((d,), "zeros")}
+        return {"scale": PSpec((d,), (None,), "zeros")}
+    return {"scale": PSpec((d,), (None,), "ones"), "bias": PSpec((d,), (None,), "zeros")}
 
 
 def _inner_norm_spec(width: int) -> Dict[str, PSpec]:
-    return {"scale": PSpec((width,), "zeros")}
+    return {"scale": PSpec((width,), (None,), "zeros")}
 
 
 def _mlp_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, ff = cfg.d_model, cfg.d_ff
-    out = {"w_up": PSpec((d, ff)), "w_down": PSpec((ff, d))}
+    out = {"w_up": PSpec((d, ff), ("embed_w", "ffn_w")),
+           "w_down": PSpec((ff, d), ("ffn_w", "embed_w"))}
     if cfg.activation in ("swiglu", "geglu"):
-        out["w_gate"] = PSpec((d, ff))
+        out["w_gate"] = PSpec((d, ff), ("embed_w", "ffn_w"))
     return out
 
 
 def _moe_spec(cfg: ModelConfig) -> Dict[str, PSpec]:
     d, ff = cfg.d_model, cfg.d_ff
     e = padded_experts(cfg)
-    out = {"router": PSpec((d, e)), "we_up": PSpec((e, d, ff)), "we_down": PSpec((e, ff, d))}
+    out = {"router": PSpec((d, e), ("embed_w", None)),
+           "we_up": PSpec((e, d, ff), ("experts_w", "embed_w", None)),
+           "we_down": PSpec((e, ff, d), ("experts_w", None, "embed_w"))}
     if cfg.activation in ("swiglu", "geglu"):
-        out["we_gate"] = PSpec((e, d, ff))
+        out["we_gate"] = PSpec((e, d, ff), ("experts_w", "embed_w", None))
     return out
 
 
@@ -80,18 +91,18 @@ def _attn_spec(cfg: ModelConfig, cross: bool = False) -> Dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p: Dict = {
         "ln1": _norm_spec(cfg),
-        "wq": PSpec((d, h, hd)),
-        "wk": PSpec((d, kv, hd)),
-        "wv": PSpec((d, kv, hd)),
-        "wo": PSpec((h, hd, d)),
+        "wq": PSpec((d, h, hd), ("embed_w", "heads_w", None)),
+        "wk": PSpec((d, kv, hd), ("embed_w", "kv_heads_w", None)),
+        "wv": PSpec((d, kv, hd), ("embed_w", "kv_heads_w", None)),
+        "wo": PSpec((h, hd, d), ("heads_w", None, "embed_w")),
         "ln2": _norm_spec(cfg),
     }
     if cfg.qkv_bias:
-        p["bq"] = PSpec((h, hd), "zeros")
-        p["bk"] = PSpec((kv, hd), "zeros")
-        p["bv"] = PSpec((kv, hd), "zeros")
+        p["bq"] = PSpec((h, hd), ("heads_w", None), "zeros")
+        p["bk"] = PSpec((kv, hd), ("kv_heads_w", None), "zeros")
+        p["bv"] = PSpec((kv, hd), ("kv_heads_w", None), "zeros")
     if cross:
-        p["xgate"] = PSpec((1,), "zeros")
+        p["xgate"] = PSpec((1,), (None,), "zeros")
         p["kv_norm"] = _norm_spec(cfg)
     if cfg.is_moe:
         p["moe"] = _moe_spec(cfg)
@@ -104,17 +115,17 @@ def _rec_spec(cfg: ModelConfig) -> Dict:
     d, w, cw = cfg.d_model, cfg.lru_width, cfg.conv_width
     p: Dict = {
         "ln1": _norm_spec(cfg),
-        "w_in": PSpec((d, w)),
-        "w_gate_in": PSpec((d, w)),
-        "conv_w": PSpec((cw, w)),
-        "conv_b": PSpec((w,), "zeros"),
+        "w_in": PSpec((d, w), ("embed_w", "lru_w")),
+        "w_gate_in": PSpec((d, w), ("embed_w", "lru_w")),
+        "conv_w": PSpec((cw, w), (None, "lru_w")),
+        "conv_b": PSpec((w,), ("lru_w",), "zeros"),
         # diagonal RG-LRU gates (block-diagonal in Griffin)
-        "a_param": PSpec((w,), "lru_a"),
-        "gate_a_w": PSpec((w,), "zeros"),
-        "gate_a_b": PSpec((w,), "zeros"),
-        "gate_x_w": PSpec((w,), "zeros"),
-        "gate_x_b": PSpec((w,), "zeros"),
-        "w_out": PSpec((w, d)),
+        "a_param": PSpec((w,), ("lru_w",), "lru_a"),
+        "gate_a_w": PSpec((w,), ("lru_w",), "zeros"),
+        "gate_a_b": PSpec((w,), ("lru_w",), "zeros"),
+        "gate_x_w": PSpec((w,), ("lru_w",), "zeros"),
+        "gate_x_b": PSpec((w,), ("lru_w",), "zeros"),
+        "w_out": PSpec((w, d), ("lru_w", "embed_w")),
         "ln2": _norm_spec(cfg),
     }
     if cfg.d_ff > 0:
@@ -125,30 +136,36 @@ def _rec_spec(cfg: ModelConfig) -> Dict:
 def _mlstm_spec(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     di, nh, dh = xlstm_dims(cfg)
+    # xlstm-350m has 4 heads, far fewer than the 16-way model axis, so TP
+    # shards the per-head feature dims: q and k, on the contracted side of
+    # the recurrence, stay replicated; v and the state's value dim are
+    # model-sharded
     return {
         "ln": _norm_spec(cfg),
-        "w_up": PSpec((d, 2 * di)),
-        "wq": PSpec((nh, dh, dh)),
-        "wk": PSpec((nh, dh, dh)),
-        "wv": PSpec((nh, dh, dh)),
-        "w_if": PSpec((nh, dh, 2), "zeros"),
-        "b_if": PSpec((nh, 2), "zeros"),
+        "w_up": PSpec((d, 2 * di), ("embed_w", "inner_w")),
+        "wq": PSpec((nh, dh, dh), (None, None, None)),
+        "wk": PSpec((nh, dh, dh), (None, None, None)),
+        "wv": PSpec((nh, dh, dh), (None, None, "inner_w")),
+        "w_if": PSpec((nh, dh, 2), (None, None, None), "zeros"),
+        "b_if": PSpec((nh, 2), (None, None), "zeros"),
         "mh_norm": _inner_norm_spec(di),
-        "w_down": PSpec((di, d)),
+        "w_down": PSpec((di, d), ("inner_w", "embed_w")),
     }
 
 
 def _slstm_spec(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     di, nh, dh = xlstm_dims(cfg)
+    # the recurrence mixes the whole per-head state every step, so its
+    # internals stay replicated; TP re-enters at the down projection
     return {
         "ln": _norm_spec(cfg),
-        "w_in": PSpec((d, 4, nh, dh)),
-        "b_in": PSpec((4, nh, dh), "zeros"),
+        "w_in": PSpec((d, 4, nh, dh), ("embed_w", None, None, None)),
+        "b_in": PSpec((4, nh, dh), (None, None, None), "zeros"),
         # block-diagonal (per-head) recurrent matrix R: raw_t += h_{t-1} R
-        "w_rec": PSpec((nh, dh, 4, dh), "normal", 0.01),
+        "w_rec": PSpec((nh, dh, 4, dh), (None, None, None, None), "normal", 0.01),
         "mh_norm": _inner_norm_spec(di),
-        "w_down": PSpec((di, d)),
+        "w_down": PSpec((di, d), ("inner_w", "embed_w")),
     }
 
 
@@ -165,14 +182,48 @@ def model_spec(cfg: ModelConfig) -> Dict:
     v = padded_vocab(cfg)
     spec: Dict = {"embed": {}, "groups": {}, "tail": {}, "final_norm": _norm_spec(cfg)}
     if cfg.input_mode == "token":
-        spec["embed"]["tok"] = PSpec((v, d), "normal", 0.02)
+        spec["embed"]["tok"] = PSpec((v, d), ("vocab_w", "embed_w"), "normal", 0.02)
     if not cfg.tie_embeddings:
-        spec["head"] = {"w": PSpec((max(1, cfg.num_codebooks), d, v))}
+        spec["head"] = {"w": PSpec((max(1, cfg.num_codebooks), d, v),
+                                   (None, "embed_w", "vocab_w"))}
     for i, kind in enumerate(cfg.block_pattern):
         spec["groups"][f"b{i}_{kind}"] = _BLOCK_SPECS[kind](cfg)
     for i, kind in enumerate(cfg.tail_pattern):
         spec["tail"][f"t{i}_{kind}"] = _BLOCK_SPECS[kind](cfg)
     return spec
+
+
+def _leaf_shape(cfg: ModelConfig, path, ps: PSpec) -> Tuple[int, ...]:
+    return ((cfg.num_groups,) if path[0] == "groups" else ()) + ps.shape
+
+
+def _leaf_axes(path, ps: PSpec) -> Tuple[Optional[str], ...]:
+    """A grouped leaf's stacking dim is replicated (a leading None)."""
+    return ((None,) if path[0] == "groups" else ()) + ps.axes
+
+
+def abstract_params(cfg: ModelConfig, rules: Optional[Rules] = None) -> Dict:
+    """The parameter tree as fake tensors in ``cfg.param_dtype``: nothing is
+    allocated.  Under rules with a mesh each leaf is a ``DTensor`` over a
+    fake local shard, placed by its logical axes (:func:`partition_specs`).
+    The fake tensors belong to the active ``FakeTensorMode``, or to a new
+    one."""
+    dtype = getattr(torch, cfg.param_dtype)
+    out: Dict = {}
+    with fake_mode():
+        for path, ps in _leaves(model_spec(cfg)):
+            _set(out, path, abstract_tensor(_leaf_shape(cfg, path, ps), dtype, rules,
+                                            _leaf_axes(path, ps)))
+    return out
+
+
+def partition_specs(cfg: ModelConfig, rules: Rules) -> Dict:
+    """The parameter tree's specs under ``rules``: per leaf a tuple of mesh
+    axes per dim, the reference's ``PartitionSpec`` entries."""
+    out: Dict = {}
+    for path, ps in _leaves(model_spec(cfg)):
+        _set(out, path, rules.spec(_leaf_axes(path, ps), shape=_leaf_shape(cfg, path, ps)))
+    return out
 
 
 def param_bytes(cfg: ModelConfig) -> int:

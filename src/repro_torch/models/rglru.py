@@ -7,6 +7,13 @@ fused step in torch ops, as the reference leaves it to XLA.
 
 Simplification vs Griffin (as in the reference): the r_t / i_t gates are
 diagonal (per-channel) rather than block-diagonal dense.
+
+Under a mesh (``models/sharding.py``) TP splits the recurrence width
+(``lru``): the recurrence is diagonal, so the split needs no sync inside
+the block.  There the scan runs as a log-depth (Hillis-Steele) scan in
+torch ops, as the reference runs ``jax.lax.associative_scan``: the
+kernel's plain version steps through the sequence one row at a time,
+which a sharded tensor cannot take.
 """
 from __future__ import annotations
 
@@ -18,8 +25,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import connective_norm, connective_residual, gelu
+from repro_torch.models.sharding import constrain, mesh_active
+from repro_torch.roofline import counter
 
 RGLRU_C = 8.0
+
+REC_CACHE_AXES = {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
 
 
 def _causal_conv(u, conv_w, conv_b, conv_state):
@@ -52,6 +63,50 @@ def _gates(p, u):
     return a, b
 
 
+def _scan_log_depth(a, b, h0):
+    """h_t = a_t h_{t-1} + b_t along axis 1 of (B, S, w) in log2(S) steps:
+    step k combines each row with the one 2^k before it,
+    (a1, b1) then (a2, b2) -> (a1 a2, b1 a2 + b2).  Returns (h_seq,
+    h_last) in fp32."""
+    a, b = a.float(), b.float()
+    b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
+    s, shift = a.shape[1], 1
+    while shift < s:
+        a_prev = torch.cat([torch.ones_like(a[:, :shift]), a[:, :-shift]], dim=1)
+        b_prev = torch.cat([torch.zeros_like(b[:, :shift]), b[:, :-shift]], dim=1)
+        b = b_prev * a + b
+        a = a_prev * a
+        shift *= 2
+    return b, b[:, -1]
+
+
+class _LogDepthScanFn(torch.autograd.Function):
+    """:func:`_scan_log_depth` with the gradient ``kernels/rglru_scan.py``'s
+    ``RGLRUScanFn`` computes (the same recurrence on reversed time), each
+    direction counted as the scan it computes (``roofline/counter.py``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        with counter.function(*counter.scan_cost(a, b, h0)):
+            h_seq, h_last = _scan_log_depth(a, b, h0)
+        ctx.save_for_backward(a, h0, h_seq)
+        return h_seq, h_last
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_last):
+        a, h0, h_seq = ctx.saved_tensors
+        flops, nbytes = counter.scan_cost(a, a, h0)
+        with counter.function(2 * flops, 2 * nbytes):
+            dh = torch.cat([dh_seq[:, :-1], dh_seq[:, -1:] + dh_last[:, None]], dim=1).float()
+            # g_t = dh_t + a_{t+1} g_{t+1}: the forward scan on reversed time
+            a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1).float()
+            g, _ = _scan_log_depth(a_next.flip(1), dh.flip(1), torch.zeros_like(h0).float())
+            g = g.flip(1)
+            h_prev = torch.cat([h0.float()[:, None], h_seq[:, :-1]], dim=1)
+            return ((g * h_prev).to(a.dtype), g.to(a.dtype),
+                    (a[:, 0].float() * g[:, 0]).to(h0.dtype))
+
+
 def rglru_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict], backend: str = "kernel") -> Tuple[torch.Tensor, Optional[Dict]]:
     """Griffin recurrent sub-layer: norm -> (gate branch * conv + RG-LRU
@@ -60,8 +115,9 @@ def rglru_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
     decode, None in train.  Prefill and train run the scan through
     ``ops.rglru_scan`` (h0 = the cache's h, zeros without a cache)."""
     xn = connective_norm(x, p["ln1"], cfg.norm)
-    gate = gelu(xn @ p["w_gate_in"])
-    u = xn @ p["w_in"]
+    xg = constrain(xn, ("batch", None, "embed"))  # AllGather: enter the TP block
+    gate = constrain(gelu(xg @ p["w_gate_in"]), ("batch", None, "lru"))
+    u = constrain(xg @ p["w_in"], ("batch", None, "lru"))
 
     conv_state = cache["conv"] if cache is not None else None
     u, new_conv = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
@@ -73,12 +129,16 @@ def rglru_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
     else:
         h0 = (cache["h"] if cache is not None else
               torch.zeros((x.shape[0], a.shape[2]), dtype=torch.float32, device=x.device))
-        h_seq, h_last = ops.rglru_scan(a, b, h0, backend=backend)
-    h_seq = h_seq.to(x.dtype)
+        if mesh_active():
+            h_seq, h_last = _LogDepthScanFn.apply(a, b, constrain(h0, ("batch", "lru")))
+        else:
+            h_seq, h_last = ops.rglru_scan(a, b, h0, backend=backend)
+    h_seq = constrain(h_seq.to(x.dtype), ("batch", None, "lru"))
 
     new_cache = None
     if mode in ("prefill", "decode"):
-        new_cache = {"h": h_last, "conv": new_conv}
+        new_cache = {"h": constrain(h_last, ("batch", "lru")),
+                     "conv": constrain(new_conv, ("batch", None, "lru"))}
 
-    out = (h_seq * gate) @ p["w_out"]
-    return connective_residual(x, out), new_cache
+    out = (h_seq * gate) @ p["w_out"]  # row-parallel: partial sums
+    return connective_residual(x, out), new_cache  # ReduceScatter

@@ -33,6 +33,7 @@ from repro_torch.models.mlp import mlp_block
 from repro_torch.models.moe import AUX_KEYS, moe_block
 from repro_torch.models.params import group_slices, padded_vocab
 from repro_torch.models.rglru import rglru_block
+from repro_torch.models.sharding import by_rows, constrain, rowwise, select_row
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 
@@ -48,7 +49,11 @@ def _maybe_cast(tree, cfg: ModelConfig):
 
 
 def embed_tokens(tok_w, tokens):
-    return tok_w[tokens]
+    """Rows of the token table.  Under a mesh the (vocab, embed)-sharded
+    table is gathered whole once and each chip looks up its own tokens."""
+    tokens = constrain(tokens, ("batch", "seq")[:tokens.dim()])
+    return by_rows(lambda rows, ws: ws[0][rows[0]], [tokens],
+                   [constrain(tok_w, (None, None))])
 
 
 def compute_logits(params, cfg: ModelConfig, x):
@@ -57,15 +62,21 @@ def compute_logits(params, cfg: ModelConfig, x):
     columns are -1e30."""
     vp = padded_vocab(cfg)
     if cfg.tie_embeddings:
-        logits = x @ _maybe_cast(params["embed"]["tok"], cfg).T
+        # under a mesh the (vocab, embed)-sharded table is gathered before
+        # the contraction: a weight AllGather, not a (B, S, V) AllReduce
+        w = constrain(_maybe_cast(params["embed"]["tok"], cfg), (None, None))
+        logits = rowwise(lambda x, w: x @ w.T, x, w)
     else:
-        w = _maybe_cast(params["head"]["w"], cfg)
-        logits = x @ w[0] if w.shape[0] == 1 else torch.einsum("...d,cdv->...cv", x, w)
+        w = constrain(_maybe_cast(params["head"]["w"], cfg), (None, None, None))
+        logits = rowwise(lambda x, w: x @ w[0] if w.shape[0] == 1 else
+                         torch.einsum("...d,cdv->...cv", x, w), x, w)
     if vp != cfg.vocab_size:
         valid = torch.arange(vp, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits,
                              torch.full((), -1e30, dtype=logits.dtype, device=x.device))
-    return logits
+    # the sequence stays SP-sharded through the head; the vocab is whole
+    axes = ("batch", "seq") if x.dim() == 3 else ("batch",)
+    return constrain(logits, axes + (None,) * (logits.dim() - len(axes)))
 
 
 def _apply_block(kind: str, p: Dict, x, cfg: ModelConfig, *, mode: str, cache,
@@ -196,8 +207,10 @@ def apply_model(
         positions = torch.arange(seq, device=dev).expand(bsz, seq)
     if isinstance(cache_index, torch.Tensor):
         cache_index = cache_index.to(dev)
+    positions = constrain(positions, ("batch", None))
     if cfg.pos_embedding == "sinusoidal":
         x = x + sinusoidal_pos(positions, cfg.d_model, dtype)
+    x = constrain(x, ("batch", "seq", "embed"))
 
     kw = dict(mode=mode, positions=positions, cache_index=cache_index, backend=backend,
               img_embeds=img_embeds)
@@ -244,11 +257,12 @@ def apply_model(
         aux.update({name: sum((part[i] for part in sums if part), zero)
                     for i, name in enumerate(AUX_KEYS)})
 
+    x = constrain(x, ("batch", "seq", "embed"))
     if rows is not None:
         if isinstance(rows, torch.Tensor):
             x = x[torch.arange(bsz, device=dev), rows.to(dev)]
         else:
-            x = x[:, int(rows)]
+            x = select_row(x, 1, int(rows))
     x = apply_norm(x, _maybe_cast(params["final_norm"], cfg), cfg.norm)
     logits = compute_logits(params, cfg, x)
     return logits, (None if mode == "train" else cache)

@@ -12,6 +12,13 @@ recurrent step over every position, as the reference chooses;
 reference runs the step path and the sLSTM as ``jax.lax.scan``; here they
 are Python loops over the sequence in torch ops, as the reference has no
 kernel for them.
+
+Under a mesh (``models/sharding.py``): xlstm-350m has 4 heads, fewer
+than the 16-way model axis, so TP shards the inner feature dims.  In the
+mLSTM the state's value dim is model-sharded (the q-k contraction side
+stays replicated), so the recurrence needs no sync; the sLSTM's step
+mixes the whole per-head state, so its recurrent core is replicated and
+TP re-enters at the row-parallel down projection.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import connective_norm, connective_residual
+from repro_torch.models.sharding import by_rows, constrain, project, same_grad_layout
 
 #: mLSTM prefill and train passes by path, since the last reset
 MLSTM_PATHS = {"chunked": 0, "step": 0}
@@ -45,11 +53,17 @@ def _mh_rmsnorm(h, scale):
     hf = h.float()
     var = hf.square().mean(-1, keepdim=True)
     out = hf * torch.rsqrt(var + 1e-6)
-    s = (1.0 + scale.float()).reshape(h.shape[-2], h.shape[-1])
+    s = same_grad_layout((1.0 + scale.float()).reshape(h.shape[-2], h.shape[-1]))
     return (out * s).to(h.dtype)
 
 
 # --- mLSTM -------------------------------------------------------------------
+
+MLSTM_CACHE_AXES = {
+    "c": ("batch", None, "inner", None),
+    "n": ("batch", None, None),
+    "m": ("batch", None),
+}
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
     _, nh, dh = xlstm_dims(cfg)
@@ -136,13 +150,19 @@ def mlstm_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
     ``{"c", "n", "m"}`` in prefill and decode, None in train."""
     di, nh, dh = xlstm_dims(cfg)
     xn = connective_norm(x, p["ln"], cfg.norm)
-    b, s, _ = xn.shape
-    up = xn @ p["w_up"]
+    xg = constrain(xn, ("batch", None, "embed"))  # AllGather: enter the TP block
+    b, s, _ = xg.shape
+    up = constrain(xg @ p["w_up"], ("batch", None, "inner"))
     xi, og = up[..., :di], up[..., di:]
-    xi_h = xi.reshape(b, s, nh, dh)
+    # q and k contract over the whole head: the heads view needs xi whole
+    xi_h = constrain(xi, ("batch", None, None)).reshape(b, s, nh, dh)
+    # q and k on the contracted (replicated) side, v on the sharded value side
     q = torch.einsum("bsnd,nde->bsne", xi_h, p["wq"]).float()
     k = torch.einsum("bsnd,nde->bsne", xi_h, p["wk"]).float() / math.sqrt(dh)
     v = torch.einsum("bsnd,nde->bsne", xi_h, p["wv"]).float()
+    q = constrain(q, ("batch", None, None, None))
+    k = constrain(k, ("batch", None, None, None))
+    v = constrain(v, ("batch", None, None, "inner"))
     gates = torch.einsum("bsnd,ndg->bsng", xi_h, p["w_if"]).float() + p["b_if"].float()
     i_raw, f_raw = gates[..., 0], gates[..., 1]
 
@@ -160,11 +180,16 @@ def mlstm_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
     new_cache = None if mode == "train" else dict(zip(("c", "n", "m"), st))
 
     h = _mh_rmsnorm(h.to(x.dtype), p["mh_norm"]["scale"])
-    merged = h.reshape(b, -1, di) * F.silu(og)
-    return connective_residual(x, merged @ p["w_down"]), new_cache
+    h = constrain(h, ("batch", None, None, "inner"))
+    # the inner dim is split inside each head: merging the heads needs it whole
+    merged = same_grad_layout(constrain(h, ("batch", None, None, None)).reshape(b, -1, di))
+    merged = merged * F.silu(og)
+    return connective_residual(x, merged @ p["w_down"]), new_cache  # row-parallel
 
 
 # --- sLSTM -------------------------------------------------------------------
+
+SLSTM_CACHE_AXES = {k: ("batch", None, None) for k in ("h", "c", "n", "m")}
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
     _, nh, dh = xlstm_dims(cfg)
@@ -191,6 +216,16 @@ def _slstm_step(state, x_part, w_rec):
     return (h_new, c_new, n_new, m_new), h_new
 
 
+def _slstm_scan(x_part, w_rec, st):
+    """The sLSTM step over every position: x_part (B, S, 4, nh, dh) fp32;
+    returns h (B, S, nh, dh) and the final state."""
+    hs = []
+    for t in range(x_part.shape[1]):
+        st, h = _slstm_step(st, x_part[:, t], w_rec)
+        hs.append(h)
+    return torch.stack(hs, dim=1), st
+
+
 def slstm_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
     """sLSTM sub-layer: norm -> input projection -> the sequential
@@ -199,17 +234,20 @@ def slstm_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
     "m"}`` in prefill and decode, None in train."""
     di, nh, dh = xlstm_dims(cfg)
     xn = connective_norm(x, p["ln"], cfg.norm)
+    xn = constrain(xn, ("batch", None, "embed"))
     b, s, d = xn.shape
-    x_part = ((xn @ p["w_in"].reshape(d, -1)).view(b, s, 4, nh, dh) + p["b_in"]).float()
+    x_part = project(xn, p["w_in"].reshape(d, -1), ("batch", None, None, None, None),
+                     (b, s, 4, nh, dh))
+    x_part = (x_part.view(b, s, 4, nh, dh) + p["b_in"]).float()
     w_rec = p["w_rec"].float().reshape(nh, dh, 4 * dh)
 
     state = cache if cache is not None else init_slstm_cache(cfg, b, device=x.device)
-    st = (state["h"], state["c"], state["n"], state["m"])
-    hs = []
-    for t in range(s):
-        st, h = _slstm_step(st, x_part[:, t], w_rec)
-        hs.append(h)
+    st = tuple(constrain(state[k], SLSTM_CACHE_AXES[k]) for k in ("h", "c", "n", "m"))
+    # each batch row's recurrence is its own: under a mesh each chip steps its rows
+    h_seq, st = by_rows(lambda rows, ws: _slstm_scan(rows[0], ws[0], tuple(rows[1:])),
+                        [x_part] + list(st), [w_rec])
     new_cache = None if mode == "train" else dict(zip(("h", "c", "n", "m"), st))
 
-    h_seq = _mh_rmsnorm(torch.stack(hs, dim=1).to(x.dtype), p["mh_norm"]["scale"])
-    return connective_residual(x, h_seq.reshape(b, s, di) @ p["w_down"]), new_cache
+    h_seq = _mh_rmsnorm(h_seq.to(x.dtype), p["mh_norm"]["scale"])
+    merged = constrain(h_seq.reshape(b, s, di), ("batch", None, "inner"))
+    return connective_residual(x, merged @ p["w_down"]), new_cache  # row-parallel

@@ -13,12 +13,15 @@ hd)`` (:func:`cache_page_size`, :func:`map_cache_leaves`)."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.xlstm import xlstm_dims
+from repro_torch.models.attention import CACHE_AXES, XCACHE_AXES
+from repro_torch.models.rglru import REC_CACHE_AXES
+from repro_torch.models.sharding import Rules, abstract_tensor, fake_mode
+from repro_torch.models.xlstm import MLSTM_CACHE_AXES, SLSTM_CACHE_AXES, xlstm_dims
 
 
 def _attn_shapes(cfg: ModelConfig, batch: int, cache_len: int):
@@ -52,6 +55,11 @@ def _slstm_shapes(cfg: ModelConfig, batch: int, cache_len: int):
 _SHAPES = {"attn": _attn_shapes, "xattn": _xattn_shapes, "rec": _rec_shapes,
            "mlstm": _mlstm_shapes, "slstm": _slstm_shapes}
 
+#: logical axes of each cache leaf, per block kind
+_AXES = {"attn": {"k": CACHE_AXES, "v": CACHE_AXES},
+         "xattn": {"k": XCACHE_AXES, "v": XCACHE_AXES},
+         "rec": REC_CACHE_AXES, "mlstm": MLSTM_CACHE_AXES, "slstm": SLSTM_CACHE_AXES}
+
 _INIT_SPECIAL = {("mlstm", "m"): -1e30, ("slstm", "m"): -1e30, ("slstm", "n"): 1e-6}
 
 
@@ -69,16 +77,33 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
     return out
 
 
-def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None) -> Dict:
-    """The fresh cache tree for ``apply_model(mode="prefill"|"decode")``."""
-    def leaf(key, name, shape, dt):
+def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None,
+               abstract: bool = False, rules: Optional[Rules] = None) -> Dict:
+    """The fresh cache tree for ``apply_model(mode="prefill"|"decode")``.
+    ``abstract=True`` gives fake tensors instead (nothing allocated), as
+    the reference's ``ShapeDtypeStruct``s; under ``rules`` with a mesh each
+    leaf is a ``DTensor`` placed by its logical axes (a grouped leaf's
+    group dim replicated)."""
+    def leaf(part, key, name, shape, dt):
         kind = key.split("_", 1)[1]
+        if abstract:
+            axes = tuple(_AXES[kind][name])
+            if part == "groups":
+                axes = (None,) + axes
+            return abstract_tensor(shape, getattr(torch, dt), rules, axes)
         return torch.full(shape, _INIT_SPECIAL.get((kind, name), 0.0),
                           dtype=getattr(torch, dt), device=device)
 
-    return {part: {key: {n: leaf(key, n, shape, dt) for n, (shape, dt) in leaves.items()}
-                   for key, leaves in blocks.items()}
-            for part, blocks in cache_shapes(cfg, batch, cache_len).items()}
+    def build():
+        return {part: {key: {n: leaf(part, key, n, shape, dt)
+                             for n, (shape, dt) in leaves.items()}
+                       for key, leaves in blocks.items()}
+                for part, blocks in cache_shapes(cfg, batch, cache_len).items()}
+
+    if not abstract:
+        return build()
+    with fake_mode():
+        return build()
 
 
 def cache_page_size(pool: Dict) -> int:

@@ -11,6 +11,11 @@ time), so a step issues a few launches per operation rather than one
 per leaf, and its fp32 temporaries stay within a run's size rather than
 the model's.  The clip scale stays on the device: a step never waits
 for the gradient norm.
+
+Parameters laid over a mesh (``DTensor``s, as the dry run lays them) are
+updated on each chip's shards: the gradients are first laid out as their
+parameters (the data-parallel reduction), the clip norm is global, and
+the per-element update runs on the local tensors.
 """
 from __future__ import annotations
 
@@ -67,6 +72,9 @@ class AdamW:
         {"grad_norm": device scalar, "lr": float})."""
         ps = tree_leaves(params)
         mus, nus = tree_leaves(state.mu), tree_leaves(state.nu)
+        sharded = hasattr(ps[0], "device_mesh")
+        if sharded:
+            grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, ps)]
         step = int(state.step) + 1
         f32 = np.float32
         lr = float(self.learning_rate(step))
@@ -76,6 +84,10 @@ class AdamW:
         norms = torch._foreach_norm(grads, 2, dtype=torch.float32)
         gnorm = torch.linalg.vector_norm(torch.stack(norms))
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        if sharded:
+            # the update is per element: each chip updates its own shards
+            ps, grads, mus, nus = ([t.to_local() for t in ts] for ts in (ps, grads, mus, nus))
+            scale = scale.full_tensor()
         for idx in _chunks(ps, CHUNK_ELEMENTS):
             self._update_chunk([ps[i] for i in idx], [grads[i] for i in idx],
                                [mus[i] for i in idx], [nus[i] for i in idx],

@@ -6,8 +6,9 @@ The reference's ``_nll`` is a ``jax.custom_vjp`` that keeps one (..., V)
 buffer in each direction: the shifted exponentials in the model dtype
 forward, the softmax backward, with the label's -g scattered in (no
 one-hot buffer).  Here it is :class:`NLL`, a ``torch.autograd.Function``
-with the same arithmetic.  The reference shards the vocabulary with
-GSPMD ``rules``; the port runs on one device and has none.
+with the same arithmetic.  ``rules`` (``models/sharding.py``) lay the
+step over a mesh, as the reference's do; without them the step runs on
+one device.
 
 The gradient of ``apply_model`` comes from ``torch.autograd``: on the
 kernel backend the flash attention and the RG-LRU scan go through their
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.moe import AUX_KEYS
+from repro_torch.models.sharding import Rules, axis_rules, by_rows
 from repro_torch.models.transformer import apply_model
 from repro_torch.training.optimizer import AdamW, tree_leaves
 
@@ -63,7 +65,9 @@ def cross_entropy(logits, labels, cfg: ModelConfig):
         logits = logits[:, :, None, :]
         labels = labels[:, :, None]
     labels = labels.long()
-    nll = NLL.apply(logits, labels.clamp_min(0))
+    # each (batch, position) row on its own: under a mesh each chip takes
+    # its own rows (the vocab is whole on every chip)
+    nll = by_rows(lambda rows, _: NLL.apply(*rows), [logits, labels.clamp_min(0)], [])
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
 
@@ -99,33 +103,38 @@ def _detach(metrics: Dict) -> Dict:
     return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamW, *, backend: str = "kernel"):
+def make_train_step(cfg: ModelConfig, opt: AdamW, rules: Optional[Rules] = None, *,
+                    backend: str = "kernel"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` is updated in place (and returned); the
     metrics are device scalars (``loss``, ``ce_loss``, the MoE aux values,
     ``grad_norm``) and the host float ``lr``.  ``batch`` holds tensors on
-    the params' device (or numpy arrays)."""
+    the params' device (or numpy arrays).  ``rules`` are active inside the
+    step."""
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = loss_fn(params, batch, cfg, backend=backend)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with axis_rules(rules):
+                loss, metrics = loss_fn(params, batch, cfg, backend=backend)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
+        with axis_rules(rules):
+            params, opt_state, opt_metrics = opt.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss.detach(), **_detach(metrics), **opt_metrics}
 
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig, *, backend: str = "kernel"):
+def make_eval_step(cfg: ModelConfig, rules: Optional[Rules] = None, *,
+                   backend: str = "kernel"):
     def eval_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), axis_rules(rules):
             loss, metrics = loss_fn(params, batch, cfg, backend=backend)
         return {"loss": loss, **metrics}
 

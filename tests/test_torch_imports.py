@@ -45,11 +45,17 @@ def test_import_leaves_jax_and_reference_out():
                                     "repro_torch.core.profiler",
                                     "repro_torch.models.moe", "repro_torch.models.xlstm",
                                     "repro_torch.data", "repro_torch.training",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.models.sharding", "repro_torch.launch.mesh",
+                                    "repro_torch.launch.shapes", "repro_torch.launch.dryrun",
+                                    "repro_torch.roofline.analysis",
+                                    "repro_torch.roofline.counter",
+                                    "repro_torch.roofline.report"])
 def test_module_alone_leaves_jax_and_reference_out(module):
     """Each module of the Galaxy serving path and its telemetry, the zoo's MoE and
-    xLSTM blocks, and the training path (data, training, the trainer), imported alone
-    in a fresh interpreter, pulls in neither ``jax`` nor ``repro``."""
+    xLSTM blocks, the training path (data, training, the trainer), and the multi-chip
+    layout (sharding rules, meshes, shapes, the dry run and its roofline), imported
+    alone in a fresh interpreter, pulls in neither ``jax`` nor ``repro``."""
     code = (
         f"import importlib, sys\nimportlib.import_module({module!r})\n"
         "bad = sorted(n for n in sys.modules\n"

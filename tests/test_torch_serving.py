@@ -165,3 +165,27 @@ def test_engine_budget_eos_and_pool_limits():
     small.submit(Request(uid=0, prompt=list(PROMPTS[0]), max_new_tokens=8))
     with pytest.raises(RuntimeError, match="cannot fit the pool"):
         small.run()
+
+
+def test_serve_compute_backend_flag_on_cpu(capsys):
+    """``launch.serve --compute-backend {kernel,eager}`` reaches the Galaxy
+    plan (``ExecPlan.compute_backend``), as the reference's flag does; the
+    two backends serve the same greedy tokens (fp32 on the CPU, where the
+    kernel wrappers run their plain versions); the zoo refuses the flag."""
+    from repro_torch.launch import serve as launch_serve
+
+    kw = dict(requests=2, prompt_len=(8, 12), max_new=3, device="cpu", reduce=True,
+              dtype="float32")
+    outs = {b: launch_serve.serve("distilbert", (2, 1), compute_backend=b, **kw)
+            for b in ("kernel", "eager")}
+    assert "backend=eager" in outs["eager"]["plan"]
+    assert "backend=kernel" in outs["kernel"]["plan"]
+    assert [r.output for r in outs["kernel"]["requests"]] == \
+        [r.output for r in outs["eager"]["requests"]]
+    launch_serve.main(["--model", "distilbert", "--capacities", "2,1", "--reduce",
+                       "--device", "cpu", "--dtype", "float32", "--requests", "1",
+                       "--prompt-len", "8-12", "--max-new", "2",
+                       "--compute-backend", "eager"])
+    assert "backend=eager" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="Galaxy"):
+        launch_serve.serve("qwen1.5-0.5b", executor_kind="zoo", compute_backend="eager", **kw)

@@ -251,6 +251,30 @@ The training path and the rest of the zoo run after them:
              the eager backend (after a ``gc.collect()``), and beside what
              was resident on the card before that step: what each holds
              above what it was given must agree within 5 %.
+31. calibrate — ``experiments/calibrate``: ``hmp_layer`` (sync, "hmp") and
+             with the ring ("hmp_ring") on the kernel backend in fp16, 20
+             timed calls each, for DistilBERT cut to one layer (128 rows)
+             and GPT2-L cut to one layer on its served 3:2:2:1 plan (256
+             rows); launches exact (a layer: 16 or 64 GEMMs, 4 attention,
+             2 connective sites).  Each scenario's host device fitted to
+             its own two layers: the loss must fall and both residual
+             ratios lie within e^0.25; the joint fit of all four printed
+             (its loss must fall).  The drift ratio of each layer with the
+             fitted device and with the Jetson Nano-L the serve prices.
+32. remat — qwen1.5-0.5b at full width and depth, bf16, 8 x 128, 3 steps
+             under remat "full", "dots" and "none" from the same weights
+             and batches: step ms and peak memory; losses equal to bf16
+             rounding; "dots" runs fewer products in its backward than
+             "full" (counted by a dispatch mode); flash launches exact.
+             The fp32 RecurrentGemma group step, kernel vs eager, under
+             "dots" within the train phase's bounds.  One qwen step with
+             dropout 0.1 twice with one seed: finite, bitwise equal.
+33. hillclimb — ``experiments/hillclimb`` at 8 layers a pair: the six
+             variants, the TP-only baseline and their baselines through
+             ``run_one(save=False)``, each variant beside its baseline;
+             any error fails it, as does "dots" not counting fewer FLOPs
+             a chip than "full", or query-chunked attention not lowering
+             codeqwen's prefill peak (or raising granite's).
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -2970,6 +2994,244 @@ def phase_roofline(torch, rec, card):
     torch.cuda.empty_cache()
 
 
+# --- the last training options and the experiments that need them ------------------
+
+# the fitted constants must reproduce every measured layer within e^0.25
+# (the reference's own test bound on its residual ratios)
+CALIB_LOG_RATIO = 0.25
+
+
+def phase_calibrate(torch, rec, card):
+    """``experiments/calibrate``: ``hmp`` and ``hmp_ring`` measured on the
+    card (kernel backend, fp16) for the reference's DistilBERT scenario and
+    GPT2-L cut to one layer on its served 3:2:2:1 plan.  Each scenario's
+    host device is fitted to its own two measurements, as the reference
+    fits its one scenario: the loss must fall and both residual ratios lie
+    within e^0.25.  The joint fit of all four is printed (its loss must
+    fall): the cost model prices the ring by compute, the card's ring costs
+    launches.  Then each layer priced through ``make_step_pricer`` with its
+    fitted device and with the Jetson Nano-L the serve's drift monitor
+    uses: the drift ratios (measured / priced), printed as a check
+    (``serve`` keeps its pricing)."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.simulator import make_step_pricer
+    from repro_torch.experiments import calibrate
+    from repro_torch.kernels import ops
+
+    scenarios = list(calibrate.SCENARIOS)
+    iters = calibrate.ITERS
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    measured = calibrate.measure(device="cuda", backend="kernel", scenarios=scenarios)
+    counts = ops.launch_counts()
+    # a layer: hmp 16 ring GEMMs (4 a device), hmp_ring 64 (4 x D steps x D
+    # devices); D attention launches and 2 connective sites each
+    calls = (iters + 1) * len(scenarios)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(tiled_gemm_valid=calls * (16 + 64), ragged_flash_attention=calls * 2 * 4,
+                  fused_connective=calls * 2 * 2)
+    if counts != expect:
+        raise AssertionError(f"calibrate: launch counts {counts} != {expect}")
+    for name in GALAXY_KERNELS:
+        rec[name].d["launches"] += counts[name]
+    reports = calibrate.calibrate_scenarios(measured, rounds=calibrate.ROUNDS, backend="kernel")
+    for fit, report in reports.items():
+        for line in calibrate.summary(report).splitlines():
+            log("calibrate", f"{fit} fit: {line.strip()}")
+    log("calibrate", f"measured in {time.perf_counter() - t0:.1f} s, kernel backend fp16, "
+        f"{iters} calls a schedule; launches "
+        f"{', '.join(f'{n} {counts[n]}' for n in GALAXY_KERNELS)}; {card}")
+    for fit, report in reports.items():
+        bad = {k: r for k, r in report["residual_ratio"].items()
+               if not abs(math.log(r)) < CALIB_LOG_RATIO}
+        if not report["loss"] < report["start_loss"] or (fit != "joint" and bad):
+            raise AssertionError(f"calibrate {fit}: loss {report['start_loss']} -> "
+                                 f"{report['loss']}, ratios outside e^{CALIB_LOG_RATIO}: {bad}")
+    jetson = [costmodel.jetson_nano("nano-l", 4.0)] * len(calibrate.CAPS)
+    for scenario in scenarios:
+        constants = reports[scenario]["constants"]
+        devices, link = calibrate.host_cluster(constants)
+        cfg, eplan, seq = calibrate._plan_and_cfg(scenario)
+        eplan = eplan.with_backend("kernel")
+        for name, overlap in calibrate.SCHEDULES:
+            key = calibrate._key(scenario, name)
+            prev = costmodel.apply_calibration({"TILE_OVERHEAD": constants["tile_overhead"]})
+            try:
+                fitted = make_step_pricer(eplan, cfg, devices, link, overlap=overlap)(
+                    "prefill", rows=seq, context=seq)
+            finally:
+                costmodel.apply_calibration(prev)
+            nano = make_step_pricer(eplan, cfg, jetson, costmodel.mbps(1000), overlap=overlap)(
+                "prefill", rows=seq, context=seq)
+            log("calibrate", f"{key}: drift ratio (measured / priced) "
+                f"{measured[key] / fitted:.4f} with the fitted device, "
+                f"{measured[key] / nano:.6f} with the Jetson Nano-L the serve prices (a check; "
+                "serve keeps its pricing)")
+
+
+# the three remat policies' loss sequences agree to a bf16 rounding of the loss
+REMAT_LOSS_REL = 2.0 ** -8
+_GEMMS = ("mm", "addmm", "bmm", "baddbmm", "mv", "dot")
+
+
+def _gemm_counter(torch):
+    """A dispatch mode counting the products it sees (the autograd
+    engine's threads carry it into the backward)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class GemmCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket.__name__ in _GEMMS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return GemmCount
+
+
+def phase_remat_dots(torch, rec, card):
+    """qwen1.5-0.5b at full width and depth, bf16, 8 x 128 tokens, 3 steps
+    under remat "full", "dots" and "none" from the same weights and
+    batches: step ms and peak memory each; the loss sequences agree to
+    bf16 rounding, and "dots" runs fewer products in its backward than
+    "full".  Then the fp32 RecurrentGemma group step, kernel vs eager,
+    under "dots" (the flash and scan kernels relaunched in its recompute);
+    then one qwen step with dropout 0.1: a finite loss, bitwise equal when
+    repeated with the same seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, LMDataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.params import init_params
+    from repro_torch.training import AdamW, cosine_schedule, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import batch_to_device, loss_fn
+
+    dev = torch.device("cuda")
+    base = get_config("qwen1.5-0.5b")
+    p0 = init_params(base, generator=torch.Generator(device=dev).manual_seed(81), device=dev)
+    steps, batch, seq = 3, 8, 128
+    runs, gemms = {}, {}
+    pipe = LMDataPipeline(base, DataConfig(batch_size=batch, seq_len=seq))
+    b0 = batch_to_device(next(iter(pipe)), dev)
+    counter = _gemm_counter(torch)
+    for policy in ("full", "dots", "none"):
+        cfg = dataclasses.replace(base, remat=policy != "none", remat_policy=policy)
+        ops.reset_launch_counts()
+        out = launch_train.train(cfg, steps=steps, batch=batch, seq=seq, device=dev,
+                                 params=_clone_tree(p0), log=lambda m: None)
+        # the next policy's peak must not hold this one's weights and moments
+        runs[policy] = {k: out[k] for k in ("losses", "median_step_s", "peak_bytes")}
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = check_train_counts(ops, cfg, steps, f"qwen1.5-0.5b remat {policy}")
+        rec["flash_attention"].d["launches"] += counts["flash_attention"]
+        # products a step, forward alone and forward with backward
+        params = _clone_tree(p0)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        with counter() as fwd:
+            loss, _ = loss_fn(params, b0, cfg)
+        with counter() as step:
+            loss, _ = loss_fn(params, b0, cfg)
+            torch.autograd.grad(loss, leaves)
+        gemms[policy] = (fwd.n, step.n - fwd.n)
+        del params, leaves, loss
+        torch.cuda.empty_cache()
+    for policy, out in runs.items():
+        log("remat", f"qwen1.5-0.5b {policy}: losses {out['losses']}, median step "
+            f"{1e3 * out['median_step_s']:.2f} ms, peak memory {out['peak_bytes'] / 2**30:.3f} "
+            f"GiB, products forward {gemms[policy][0]} / backward {gemms[policy][1]}; {card}")
+    want = runs["full"]["losses"]
+    for policy in ("dots", "none"):
+        got = runs[policy]["losses"]
+        if not all(abs(a - b) <= REMAT_LOSS_REL * abs(b) for a, b in zip(got, want)):
+            raise AssertionError(f"remat {policy} losses {got} vs full {want}: apart by more "
+                                 f"than {REMAT_LOSS_REL} relative")
+    if not 0 < gemms["dots"][1] < gemms["full"][1]:
+        raise AssertionError(f"remat dots backward products {gemms['dots'][1]}, full "
+                             f"{gemms['full'][1]}: dots must run fewer")
+    del runs
+    torch.cuda.empty_cache()
+
+    rg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3, dtype="float32",
+                             param_dtype="float32", remat_policy="dots")
+    counts = train_step_pair(torch, rg, "recurrentgemma-9b width, one group, remat dots", card,
+                             batch=4)
+    for name in ZOO_KERNELS:
+        rec[name].d["launches"] += counts[name]
+
+    cfg = dataclasses.replace(base, dropout_rate=0.1)
+    step = make_train_step(cfg, AdamW(cosine_schedule(1e-3, 1, 10)))
+    outs = []
+    ops.reset_launch_counts()
+    for _ in range(2):
+        params = _clone_tree(p0)
+        opt = AdamW(cosine_schedule(1e-3, 1, 10))
+        params, _, m = step(params, opt.init(params), b0, 5)
+        outs.append((m["loss"], params["final_norm"]["scale"].clone()))
+        del params
+    counts = check_train_counts(ops, cfg, 2, "qwen1.5-0.5b dropout steps")
+    rec["flash_attention"].d["launches"] += counts["flash_attention"]
+    plain, _ = loss_fn(p0, b0, base)
+    (l1, s1), (l2, s2) = outs
+    if not (torch.isfinite(l1) and torch.equal(l1, l2) and torch.equal(s1, s2)):
+        raise AssertionError(f"dropout step: losses {l1} / {l2}, params equal "
+                             f"{torch.equal(s1, s2)}")
+    log("remat", f"qwen1.5-0.5b dropout 0.1, step seed 5: loss {l1.item():.6f} twice, bitwise "
+        f"(updated params too); without dropout {plain.item():.6f}; flash launches "
+        f"{counts['flash_attention']}; {card}")
+    del p0
+    torch.cuda.empty_cache()
+
+
+# the smoke's hillclimb runs each pair cut to this depth (both sides of each
+# comparison); ``python -m repro_torch.experiments.hillclimb`` runs them whole
+HILLCLIMB_LAYERS = 8
+
+
+def phase_hillclimb(torch, card):
+    """``experiments/hillclimb``: the six variants and the TP-only baseline
+    with their baselines through ``run_one(save=False)`` on 16 x 16, each
+    pair cut to 8 layers; each variant printed beside its baseline.  Fails
+    on any error, unless "dots" counts fewer FLOPs a chip than "full", and
+    unless query-chunked attention lowers codeqwen's prefill peak a chip
+    (and does not raise granite's, whose peak is the MoE's combine buffer
+    in a recompute, not attention)."""
+    from repro_torch.experiments import hillclimb
+    from repro_torch.roofline.report import variants_table
+
+    t0 = time.perf_counter()
+    records, failures = hillclimb.run(save=False, num_layers=HILLCLIMB_LAYERS,
+                                      log=lambda m: log("hillclimb", m))
+    if failures:
+        raise AssertionError(f"hillclimb: {len(failures)} failed: {failures}")
+    variants = [r for r in records.values() if r["variant"]]
+    bases = [r for r in records.values() if not r["variant"]]
+    for line in variants_table(variants, bases).splitlines():
+        log("hillclimb", line)
+    r = {key[2] or f"{key[0]}/{key[1]}": v for key, v in records.items()}
+    full, dots = r["granite-moe-3b-a800m/train_4k"], r["h1a_remat_dots"]
+    chunk_pairs = [(r["codeqwen1.5-7b/prefill_32k"], r["h3a_attnchunk"]),
+                   (r["h1b_cf125"], r["h1c_attnchunk"])]
+    if not dots["hlo_flops_per_chip"] < full["hlo_flops_per_chip"]:
+        raise AssertionError(f"hillclimb: dots {dots['hlo_flops_per_chip']} FLOPs a chip, full "
+                             f"{full['hlo_flops_per_chip']}")
+    (pb, pv), (gb, gv) = chunk_pairs
+    if not (pv["peak_mem_bytes_per_chip"] < pb["peak_mem_bytes_per_chip"]
+            and gv["peak_mem_bytes_per_chip"] <= gb["peak_mem_bytes_per_chip"]):
+        raise AssertionError(f"hillclimb: attn_chunk peaks codeqwen {pb['peak_mem_bytes_per_chip']}"
+                             f" -> {pv['peak_mem_bytes_per_chip']}, granite "
+                             f"{gb['peak_mem_bytes_per_chip']} -> {gv['peak_mem_bytes_per_chip']}")
+    log("hillclimb", f"{len(records)} records ({HILLCLIMB_LAYERS} layers each) in "
+        f"{time.perf_counter() - t0:.1f} s on fake tensors; the host ran it, {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3086,6 +3348,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dryrun(torch, card)
     phase_roofline(torch, rec, card)
+    torch.cuda.empty_cache()
+    phase_calibrate(torch, rec, card)
+    torch.cuda.empty_cache()
+    phase_remat_dots(torch, rec, card)
+    phase_hillclimb(torch, card)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

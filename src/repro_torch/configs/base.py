@@ -74,12 +74,13 @@ class ModelConfig:
     dtype: str = "float16"     # compute dtype
     param_dtype: str = "float16"
     remat: bool = True         # recompute each block group in training's backward
-    # "full" recomputes everything, "none" keeps every activation (the
-    # reference's "dots", which keeps the matmul outputs, is not ported)
+    # "full" recomputes everything, "dots" keeps the outputs of products
+    # with no batch dimension (the reference's
+    # dots_with_no_batch_dims_saveable), "none" keeps every activation
     remat_policy: str = "full"
-    # the reference's query-chunked prefill attention (0 = off), which caps
-    # its (S, S) score buffer; the port's prefill runs the flash kernel,
-    # which never holds that buffer, so the zoo needs no chunking
+    # the reference's query-chunked attention (0 = off): train and one-shot
+    # prefill on the eager backend take the queries this many rows at a
+    # time, a (B, H, chunk, S) score buffer; the flash kernel never holds one
     attn_chunk: int = 0
 
     def __post_init__(self):

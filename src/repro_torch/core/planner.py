@@ -52,6 +52,12 @@ class Plan:
     # ``ExecPlan.wire_fractions``); None: the hops ship ``seq``
     seq_wire: Optional[np.ndarray] = None
 
+    def memory_per_device(self, model: ModelProfile) -> np.ndarray:
+        """Weight bytes each device holds under this plan (all layers)."""
+        a = self.mha / max(self.mha.sum(), 1)
+        b = self.mlp / max(self.mlp.sum(), 1)
+        return model.num_layers * (model.m_att * a + model.m_mlp * b)
+
 
 def _largest_remainder_round(shares: np.ndarray, total: int) -> np.ndarray:
     """Round non-negative real shares to integers preserving the sum."""

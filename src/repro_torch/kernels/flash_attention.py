@@ -153,25 +153,71 @@ def _probs(qg, k, *, causal: bool, window: int):
     return torch.softmax(scores, dim=-1)
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          chunk: int = 0):
     """Plain PyTorch version of :func:`flash_attention`: fp32 scores,
     softmax and PV over the whole masked score matrix, output in
-    ``q.dtype``."""
+    ``q.dtype``.  ``chunk > 0`` runs the queries ``chunk`` rows at a
+    time against the keys up to the chunk's last position (queries stay
+    right-aligned), so the live score buffer is (B, H, chunk, Sk) at most:
+    the same numbers, the reference's query-chunked attention (causal
+    only; ``chunk`` is ignored otherwise)."""
     b, h, sq, hd = q.shape
+    if 0 < chunk < sq and causal:
+        return torch.cat([flash_attention_plain(q[:, :, lo:hi], *_chunk_keys(k, v, hi, sq),
+                                                causal=causal, window=window)
+                          for lo, hi in _chunks(sq, chunk)], dim=2)
     hkv = k.shape[1]
     p = _probs(q.float().reshape(b, hkv, h // hkv, sq, hd), k, causal=causal, window=window)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return out.reshape(b, h, sq, hd).to(q.dtype)
 
 
-def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0):
+def _chunks(sq: int, chunk: int):
+    """[lo, hi) query ranges of ``chunk`` rows (the last may be short)."""
+    return [(lo, min(lo + chunk, sq)) for lo in range(0, sq, chunk)]
+
+
+def _chunk_keys(k, v, hi: int, sq: int):
+    """K and V up to the position of query row ``hi - 1`` (queries
+    right-aligned to the keys): the keys a causal chunk ending there can
+    see, which keeps that chunk right-aligned."""
+    end = hi + k.shape[2] - sq
+    return k[:, :, :end], v[:, :, :end]
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True, window: int = 0,
+                             chunk: int = 0):
     """Gradients (dq, dk, dv) of :func:`flash_attention` at (q, k, v) with
     output ``out``, for the output gradient ``dout``, in fp32 torch ops
     and cast to the inputs' dtypes.  P is recomputed from q and k (never
     saved); then dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dO * O)),
     dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd), dK and dV summed over
     the query heads of each KV head.  Holds the (B, H, Sq, Sk) fp32 P and
-    dP: quadratic in the sequence, as the reference's XLA gradient is."""
+    dP: quadratic in the sequence, as the reference's XLA gradient is;
+    ``chunk > 0`` takes the queries ``chunk`` rows at a time (causal: each
+    chunk against the keys up to its last position), so P and dP are
+    (B, H, chunk, Sk) at most and dK, dV sum over the chunks in fp32."""
+    sq = q.shape[2]
+    if 0 < chunk < sq and causal:
+        dqs = []
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for lo, hi in _chunks(sq, chunk):
+            kc, vc = _chunk_keys(k, v, hi, sq)
+            dq_c, dk_c, dv_c = _attention_grads(q[:, :, lo:hi], kc, vc, out[:, :, lo:hi],
+                                                dout[:, :, lo:hi], causal=causal,
+                                                window=window)
+            dqs.append(dq_c.to(q.dtype))
+            dk[:, :, :kc.shape[2]] += dk_c
+            dv[:, :, :vc.shape[2]] += dv_c
+        return torch.cat(dqs, dim=2), dk.to(k.dtype), dv.to(v.dtype)
+    dq, dk, dv = _attention_grads(q, k, v, out, dout, causal=causal, window=window)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _attention_grads(q, k, v, out, dout, *, causal: bool, window: int):
+    """fp32 (dq, dk, dv) of :func:`flash_attention_backward`."""
     b, h, sq, hd = q.shape
     hkv = k.shape[1]
     g = h // hkv
@@ -186,7 +232,7 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True, window:
     scale = 1.0 / hd ** 0.5
     dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
     dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
-    return dq.reshape(b, h, sq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.reshape(b, h, sq, hd), dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):

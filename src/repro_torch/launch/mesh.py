@@ -42,18 +42,28 @@ def ensure_fake_group(world_size: int) -> None:
         if dist.get_backend() != "fake":
             raise RuntimeError(f"a {dist.get_backend()} group of {dist.get_world_size()} "
                                f"ranks is up; a mesh of {world_size} needs its own")
-        dist.destroy_process_group()
+        destroy_fake_group()
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
 def destroy_fake_group() -> None:
-    """Tear down the fake group, if one is up."""
+    """Tear down the fake group, if one is up, and clear ``DTensor``'s
+    caches of sharding decisions.  Those hold the meshes they were made on,
+    each with its groups' names, and a mesh over the next group that equals
+    an old one (same layout and names) would be handed the old mesh and its
+    torn-down groups ("Could not resolve the process group")."""
     import torch.distributed as dist
 
     if dist.is_initialized() and dist.get_backend() == "fake":
         dist.destroy_process_group()
+        from torch.distributed.tensor import DTensor
+
+        DTensor._op_dispatcher.sharding_propagator.propagate_op_sharding.cache_clear()
+        clear_fast_path = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+        if clear_fast_path is not None:  # the C++ dispatch fast path's cache, where torch has one
+            clear_fast_path()
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device: str = MESH_DEVICE):

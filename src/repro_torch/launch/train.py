@@ -21,6 +21,8 @@ their gradients, ``eager`` their plain versions.  An architecture whose
 parameters, gradients and fp32 Adam moments do not fit one card is
 refused at full size (``--reduce`` trains its small variant).  Every
 step waits for the device, so the step times are whole steps.
+Step ``n`` draws its dropout masks (a config with ``dropout_rate > 0``)
+from seed ``n``, as the reference's step takes ``jax.random.PRNGKey(n)``.
 """
 from __future__ import annotations
 
@@ -88,7 +90,7 @@ def train(cfg: ModelConfig, *, steps: int = 200, batch: int = 8, seq: int = 128,
     for step in range(1, steps + 1):
         ts = time.perf_counter()
         b = batch_to_device(next(pipe), dev)
-        params, opt_state, metrics = step_fn(params, opt_state, b)
+        params, opt_state, metrics = step_fn(params, opt_state, b, step)
         if cuda:
             torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - ts)

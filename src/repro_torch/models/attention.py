@@ -149,16 +149,16 @@ def _cache_attention(q, k_cache, v_cache, mask=None):
     return out.reshape(b, s, h, hd)
 
 
-def _attention(q, k, v, *, causal: bool, window: int, backend: str):
+def _attention(q, k, v, *, causal: bool, window: int, backend: str, chunk: int = 0):
     """Attention on (B, H, S, hd) views: ``ops.flash_attention``, or on the
-    eager backend under a mesh or a dry-run counter the plain attention
-    on local shards (:class:`_LocalAttentionFn`)."""
-    if backend == "eager" and (mesh_active() or counter.active() is not None):
+    eager backend under a mesh, a dry-run counter or a query ``chunk``
+    the plain attention on local shards (:class:`_LocalAttentionFn`)."""
+    if backend == "eager" and (chunk or mesh_active() or counter.active() is not None):
         from torch.distributed.tensor import DTensor
 
         if isinstance(q, DTensor):
             k, v = _align_kv(q, k), _align_kv(q, v)
-        return _LocalAttentionFn.apply(q, k, v, causal, window)
+        return _LocalAttentionFn.apply(q, k, v, causal, window, chunk)
     return ops.flash_attention(q, k, v, causal=causal, window=window, backend=backend)
 
 
@@ -178,10 +178,18 @@ class _LocalAttentionFn(torch.autograd.Function):
     sharded along the sequence see the keys up to their own last position:
     the plain version right-aligns its queries to its keys, so the keys are
     cut there (the rest are masked anyway), and the K/V gradients are
-    partial sums over the query shards."""
+    partial sums over the query shards.
+
+    ``chunk > 0`` is the reference's query-chunked attention
+    (``_chunked_causal_attention``): the queries go ``chunk`` rows at a
+    time, forward and backward, so the score buffers are (B, H, chunk, S)
+    where the whole attention's are (B, H, S, S).  On queries sharded
+    along the sequence a chip takes its share of each chunk's rows
+    (``chunk`` x local rows / all rows), as the chunk's buffer would be
+    laid out over the chips."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int = 0):
         from torch.distributed.tensor import DTensor
 
         ctx.dist = isinstance(q, DTensor)
@@ -191,12 +199,16 @@ class _LocalAttentionFn(torch.autograd.Function):
             q_off = local_shape_offset(q.shape, q.device_mesh, q.placements)[1][2]
             sk = q_off + ql.shape[2] + k.shape[2] - q.shape[2]
         kl, vl = kl[:, :, :sk], vl[:, :, :sk]
+        if chunk:
+            chunk = max(1, chunk * ql.shape[2] // q.shape[2])
+        ctx.chunk = chunk
         # the counts split the whole attention's work evenly over the chips
         ctx.bwd_cost = counter.attention_cost(q, k, v, q, causal=causal, window=window,
                                               backward=True)
         with counter.function(*counter.attention_cost(q, k, v, q, causal=causal,
                                                       window=window)):
-            out = _flash.flash_attention_plain(ql, kl, vl, causal=causal, window=window)
+            out = _flash.flash_attention_plain(ql, kl, vl, causal=causal, window=window,
+                                               chunk=chunk)
             # laid out (B, Sq, H, hd) in memory, as the kernel writes it
             out = out.transpose(1, 2).contiguous().transpose(1, 2)
         ctx.save_for_backward(ql, kl, vl, out)
@@ -219,20 +231,21 @@ class _LocalAttentionFn(torch.autograd.Function):
             dout = dout.redistribute(mesh, q_pl).to_local()
         with counter.function(*ctx.bwd_cost):
             dq, dk, dv = _flash.flash_attention_backward(ql, kl, vl, out, dout,
-                                                         causal=ctx.causal, window=ctx.window)
+                                                         causal=ctx.causal, window=ctx.window,
+                                                         chunk=ctx.chunk)
         if dk.shape[2] < ctx.sk:
             pad = ctx.sk - dk.shape[2]
             dk = torch.cat([dk, dk.new_zeros(dk.shape[:2] + (pad,) + dk.shape[3:])], dim=2)
             dv = torch.cat([dv, dv.new_zeros(dv.shape[:2] + (pad,) + dv.shape[3:])], dim=2)
         if not ctx.dist:
-            return dq, dk, dv, None, None
+            return dq, dk, dv, None, None, None
         # K/V met only this chip's queries: their gradients sum over the query shards
         kv_pl = tuple(Partial() if isinstance(qp, Shard) and qp.dim == 2 else kp
                       for qp, kp in zip(q_pl, ctx.k_pl))
         # (global strides follow the local tensors' own layouts)
         return (DTensor.from_local(dq, mesh, q_pl, run_check=False),
                 DTensor.from_local(dk, mesh, kv_pl, run_check=False),
-                DTensor.from_local(dv, mesh, kv_pl, run_check=False), None, None)
+                DTensor.from_local(dv, mesh, kv_pl, run_check=False), None, None, None)
 
 
 def self_attention_block(
@@ -259,11 +272,13 @@ def self_attention_block(
     int ``offset`` selects chunked prefill: the chunk is written at
     ``[offset, offset + S)`` and attends to every position before it.
 
-    The reference's query-chunked prefill attention (``cfg.attn_chunk``,
-    its ``_chunked_causal_attention``) only caps the size of its score
-    buffer; the flash kernel never holds that buffer, so every prefill
-    here, chunked or not, takes the kernel path whatever ``attn_chunk``
-    says (it is 0 in every config).
+    ``cfg.attn_chunk`` (train and one-shot prefill of more than
+    ``attn_chunk`` rows, a multiple of it) is the reference's query-chunked
+    attention (``_chunked_causal_attention``): on the eager backend the
+    queries go ``attn_chunk`` rows at a time, so the score buffer is (B, H,
+    chunk, S), not (B, H, S, S), which the dry run's peak memory sees.
+    The kernel backend keeps the flash kernel, which never holds that
+    buffer.
     """
     chunked = mode == "prefill" and cache_index is not None
     if chunked:
@@ -293,9 +308,12 @@ def self_attention_block(
                          v_cache[:, :off + s].transpose(1, 2), causal=True, window=0,
                          backend=backend).transpose(1, 2)
     elif mode in ("train", "prefill"):
+        chunk = cfg.attn_chunk if 0 < cfg.attn_chunk < s else 0
+        if chunk and s % chunk:
+            raise ValueError(f"attn_chunk {chunk} must divide the sequence, {s}")
         out = _attention(q.transpose(1, 2), _expand_kv(k, cfg).transpose(1, 2),
                          _expand_kv(v, cfg).transpose(1, 2), causal=True, window=window,
-                         backend=backend).transpose(1, 2)
+                         backend=backend, chunk=chunk).transpose(1, 2)
         if mode == "prefill":
             new_cache = _write_prefill_cache(cache, k, v, window)
     elif mode == "decode":

@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import connective_norm, connective_residual, gelu
+from repro_torch.models.layers import (batched_products, connective_norm, connective_residual,
+                                       gelu)
 from repro_torch.models.sharding import constrain
 
 CAPACITY_FACTOR = 2.0
@@ -108,7 +109,8 @@ def moe_apply(p: Dict, x, cfg: ModelConfig, *, capacity_factor: float = 0.0
     combine = constrain(combine.to(x.dtype), ("expert_group", None, "experts", None))
 
     # --- expert FFN: one batched GEMM per matrix over the experts ----------
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    with batched_products():  # batched over the groups, as in the reference
+        xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
     xe = constrain(xe, ("expert_group", "experts", None, None))
     if cfg.activation in ("swiglu", "geglu"):
         act = F.silu if cfg.activation == "swiglu" else gelu
@@ -123,7 +125,8 @@ def moe_apply(p: Dict, x, cfg: ModelConfig, *, capacity_factor: float = 0.0
     # experts and slots merged experts-major, so under a mesh the experts'
     # shard is the merged dim's (an einsum may merge them slots-major)
     e_c = combine.shape[2] * combine.shape[3]
-    out = torch.bmm(combine.reshape(g, t, e_c), ye.reshape(g, e_c, d)).reshape(b, s, d)
+    with batched_products():
+        out = torch.bmm(combine.reshape(g, t, e_c), ye.reshape(g, e_c, d)).reshape(b, s, d)
 
     # --- aux losses --------------------------------------------------------
     top1 = (top_idx[:, :, 0, None] == experts).float()

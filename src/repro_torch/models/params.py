@@ -261,7 +261,8 @@ def _draw(ps: PSpec, shape, generator, device, dtype):
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> Dict:
-    """Random weights in ``cfg.param_dtype``, drawn on ``device`` from
+    """Random weights in ``cfg.param_dtype`` (fp8 too: drawn in fp32, then
+    cast), drawn on ``device`` from
     ``generator`` with the reference's initializers: norms at zero (RMSNorm
     scales by 1 + scale) or one, the fan-in-scaled normal, and ``lru_a``.
     Grouped leaves are drawn one group at a time, so the fp32 draw never
@@ -293,16 +294,24 @@ def params_from_numpy(tree: Dict, *, device=None) -> Dict:
     """The reference's ``init_params`` tree (leaves as numpy arrays or
     anything ``np.asarray`` takes) -> the same tree of tensors on
     ``device``, each in its own dtype (numpy-side bfloat16 arrives as
-    ``torch.bfloat16``)."""
+    ``torch.bfloat16``; float8_e4m3fn and float8_e5m2 bit for bit, through
+    their bytes)."""
     out: Dict = {}
     for path, leaf in _leaves(tree):
         arr = np.asarray(leaf)
-        bf16 = arr.dtype.name == "bfloat16"
-        t = torch.from_numpy(np.array(arr, dtype=np.float32 if bf16 else arr.dtype))
-        if bf16:
-            t = t.to(torch.bfloat16)
+        name = arr.dtype.name
+        if name in _FP8:
+            t = torch.from_numpy(np.array(arr).view(np.uint8)).view(_FP8[name])
+        elif name == "bfloat16":
+            t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr, dtype=arr.dtype))
         _set(out, path, t.to(device=device))
     return out
+
+
+#: numpy (ml_dtypes) fp8 names -> torch dtypes of the same bits
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
 
 
 def group_params(params: Dict, g: int) -> Dict:

@@ -15,20 +15,35 @@ row).  Prefill and decode update the cache of
 
 In train mode with ``cfg.remat`` each block group runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps its
-group scan in ``jax.checkpoint``: the backward recomputes the group's
-forward, so the flash and scan kernels launch twice per layer and step.
+group scan in ``jax.checkpoint``.  ``remat_policy="full"`` recomputes the
+group's whole forward in the backward, so the flash and scan kernels
+launch twice per layer and step.  ``"dots"`` is the reference's
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` through
+selective checkpointing (:func:`dots_policy`): the outputs of products
+with no batch dimension are saved, everything else is recomputed.
+``"none"`` keeps every activation.
+
+Dropout (``cfg.dropout_rate``, train steps given a ``generator`` and
+``deterministic=False``, as the reference's ``rng``) drops each connective
+block's sub-layer output with a mask drawn per (step seed, layer, site)
+(``models/layers.py:DropoutStream``), layer ``g * len(pattern) + i`` as
+the reference's ``jax.random.fold_in``: a recomputed group draws the same
+masks again.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import cross_attention_block, self_attention_block
-from repro_torch.models.layers import apply_norm, sinusoidal_pos
+from repro_torch.models.layers import (DropoutStream, apply_norm, dropout_scope, products_batched,
+                                       sinusoidal_pos)
 from repro_torch.models.mlp import mlp_block
 from repro_torch.models.moe import AUX_KEYS, moe_block
 from repro_torch.models.params import group_slices, padded_vocab
@@ -38,8 +53,9 @@ from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 
 def _maybe_cast(tree, cfg: ModelConfig):
-    """Weights stored in a lower ``param_dtype`` are cast to the compute
-    dtype one group at a time (transient, never resident)."""
+    """Weights stored in another ``param_dtype`` (fp8 for serving, fp32
+    masters) are cast to the compute dtype one group at a time (transient,
+    never resident), as jnp type promotion does at use in the reference."""
     target = getattr(torch, cfg.dtype)
     if cfg.param_dtype == cfg.dtype:
         return tree
@@ -117,19 +133,58 @@ def _store(dst: Dict, src: Dict) -> None:
             dst[name].copy_(t)
 
 
-def _check_train(cfg: ModelConfig) -> bool:
-    """Whether train mode recomputes each group in the backward; refuses
-    what the port does not train."""
-    if cfg.dropout_rate > 0:
-        # jax.random dropout masks have no torch twin, and no arch the
-        # trainer offers has dropout
+#: products with no batch dimension: JAX's ``dot_general`` with empty
+#: batch dimension numbers
+_PLAIN_PRODUCTS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.mv,
+                   torch.ops.aten.dot}
+#: batched products, and the operand that carries the batch extent
+_BATCHED_PRODUCTS = {torch.ops.aten.bmm: 0, torch.ops.aten.baddbmm: 1}
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The reference's ``dots_with_no_batch_dims_saveable`` on aten ops:
+    save the output of a product with no batch dimension, recompute
+    everything else.
+
+    JAX keys on ``dot_general``'s batch dimensions; here ``mm``,
+    ``addmm``, ``mv`` and ``dot`` have none.  ``torch.einsum`` lowers every
+    contraction to ``bmm`` and folds the batch dims into its first one, so
+    a ``bmm``/``baddbmm`` with batch extent 1 is a 2-D product in a view
+    (``bsd,df->bsf``: saved) and one with a larger extent carries real
+    batch dims (attention's QK^T and PV, the MoE expert einsums, per-head
+    block-diagonal gates: recomputed).  Where batch dims may all have
+    extent 1 (the MoE's token groups, one group for a short batch) the
+    model code marks the product (``layers.batched_products``), and it is
+    recomputed as JAX would.  The flash and scan kernels write through
+    ``ctypes`` into ``empty`` outputs, which are recomputed, never cached:
+    the recompute relaunches the kernel."""
+    packet = op._overloadpacket
+    if products_batched():
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    if packet in _PLAIN_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    arg = _BATCHED_PRODUCTS.get(packet)
+    if arg is not None and args[arg].shape[0] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: the checkpoint contexts of the remat policies that recompute
+_REMAT_CONTEXTS = {"full": noop_context_fn,
+                   "dots": functools.partial(create_selective_checkpoint_contexts, dots_policy)}
+#: remat policies the trainer takes
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def _check_train(cfg: ModelConfig) -> Optional[str]:
+    """The remat policy a train step's groups run under (None: keep every
+    activation); refuses a policy the port does not have."""
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise NotImplementedError(
-            f"{cfg.name}: dropout_rate {cfg.dropout_rate} > 0 is not ported "
-            "(the port trains with dropout off)")
-    if cfg.remat and cfg.remat_policy not in ("full", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy {cfg.remat_policy!r}; the port has 'full' and 'none'")
-    return cfg.remat and cfg.remat_policy == "full"
+            f"{cfg.name}: remat_policy {cfg.remat_policy!r}; one of {REMAT_POLICIES}")
+    if not cfg.remat or cfg.remat_policy == "none":
+        return None
+    return cfg.remat_policy
 
 
 def _input_device(params) -> torch.device:
@@ -149,6 +204,8 @@ def apply_model(
     backend: str = "kernel",
     rows=None,
     aux: Optional[Dict] = None,
+    generator: Union[torch.Generator, DropoutStream, None] = None,
+    deterministic: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits, new_cache).
 
@@ -171,6 +228,12 @@ def apply_model(
     codebook dim before V.  aux: a dict that, when given,
     receives the MoE aux values summed over the layers (``moe_lb_loss``,
     ``moe_z_loss``, ``moe_drop_frac``; zeros for a model without experts).
+    generator, deterministic: the reference's ``rng`` and
+    ``deterministic``: with ``deterministic=False``, a generator and
+    ``cfg.dropout_rate > 0`` each connective block drops its sub-layer's
+    output.  The masks come from a :class:`~repro_torch.models.layers.
+    DropoutStream` seeded with ``generator.initial_seed()`` (or the stream
+    given), one generator per (layer, site).
     """
     if mode in ("prefill", "decode") and cache is None:
         raise ValueError(f"{mode} needs a cache from serving.kvcache.make_cache")
@@ -180,7 +243,11 @@ def apply_model(
     if chunked and (cfg.window > 0 or any(k != "attn" for k in cfg.layer_kinds())):
         # checked before any block runs, so no cache is half written
         raise ValueError("chunked prefill requires full-causal attention")
-    remat = mode == "train" and _check_train(cfg)
+    remat = _check_train(cfg) if mode == "train" else None
+    stream = None
+    if not deterministic and generator is not None and cfg.dropout_rate > 0:
+        stream = (generator if isinstance(generator, DropoutStream)
+                  else DropoutStream(generator.initial_seed()))
     dtype = getattr(torch, cfg.dtype)
     dev = _input_device(params)
     if cfg.input_mode == "token":
@@ -215,13 +282,17 @@ def apply_model(
     kw = dict(mode=mode, positions=positions, cache_index=cache_index, backend=backend,
               img_embeds=img_embeds)
 
-    def run(blocks, x, caches):
-        """Blocks [(kind, params, key)] in order; returns x and, for an
+    per_group = len(cfg.block_pattern)
+
+    def run(blocks, x, caches, first_layer):
+        """Blocks [(kind, params, key)] in order, the first of them layer
+        ``first_layer`` (its dropout masks' index); returns x and, for an
         MoE model, the aux values they add."""
         sums = ()
-        for kind, p, key in blocks:
+        for i, (kind, p, key) in enumerate(blocks):
             c = None if caches is None else caches[key]
-            x, c_new, a = _apply_block(kind, p, x, cfg, cache=c, **kw)
+            with dropout_scope(stream, first_layer + i, cfg.dropout_rate):
+                x, c_new, a = _apply_block(kind, p, x, cfg, cache=c, **kw)
             if c_new is not None:
                 _store(c, c_new)
             if a is not None:
@@ -237,19 +308,20 @@ def apply_model(
             key: {n: t[g] for n, t in cache["groups"][key].items()}
             for key in cache["groups"]}
         return run([(kind, gparams[f"b{i}_{kind}"], f"b{i}_{kind}")
-                    for i, kind in enumerate(cfg.block_pattern)], x, caches)
+                    for i, kind in enumerate(cfg.block_pattern)], x, caches, g * per_group)
 
     sums = []  # each group's (and the tail's) MoE aux values
     for g in range(cfg.num_groups):
         if remat:
-            out = checkpoint(run_group, g, x, use_reentrant=False, preserve_rng_state=False)
+            out = checkpoint(run_group, g, x, use_reentrant=False, preserve_rng_state=False,
+                             context_fn=_REMAT_CONTEXTS[remat])
         else:
             out = run_group(g, x)
         x, part = out[0], out[1:]
         sums.append(part)
     out = run([(kind, _maybe_cast(params["tail"][f"t{i}_{kind}"], cfg), f"t{i}_{kind}")
                for i, kind in enumerate(cfg.tail_pattern)], x,
-              None if cache is None else cache["tail"])
+              None if cache is None else cache["tail"], cfg.num_groups * per_group)
     x = out[0]
     sums.append(out[1:])
     if aux is not None:

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import DropoutStream
 from repro_torch.models.moe import AUX_KEYS
 from repro_torch.models.sharding import Rules, axis_rules, by_rows
 from repro_torch.models.transformer import apply_model
@@ -84,13 +85,16 @@ def model_inputs(batch: Dict, cfg: ModelConfig) -> Dict:
     return kwargs
 
 
-def loss_fn(params, batch: Dict, cfg: ModelConfig, *, backend: str = "kernel"
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params, batch: Dict, cfg: ModelConfig, *, backend: str = "kernel",
+            seed: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
     """The reference's loss: cross-entropy, plus ``load_balance_loss_weight
     * moe_lb_loss + 1e-3 * moe_z_loss`` for an MoE model.  Returns (loss,
-    metrics)."""
+    metrics).  ``seed``: the step's dropout seed (the reference's ``rng``);
+    dropout runs when it is given and ``cfg.dropout_rate > 0``."""
     aux: Dict = {}
     logits, _ = apply_model(params, cfg, mode="train", backend=backend, aux=aux,
+                            generator=None if seed is None else DropoutStream(seed),
+                            deterministic=cfg.dropout_rate == 0.0,
                             **model_inputs(batch, cfg))
     ce = cross_entropy(logits, batch["labels"].to(logits.device), cfg)
     loss = ce
@@ -105,20 +109,22 @@ def _detach(metrics: Dict) -> Dict:
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, rules: Optional[Rules] = None, *,
                     backend: str = "kernel"):
-    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``params`` is updated in place (and returned); the
-    metrics are device scalars (``loss``, ``ce_loss``, the MoE aux values,
-    ``grad_norm``) and the host float ``lr``.  ``batch`` holds tensors on
-    the params' device (or numpy arrays).  ``rules`` are active inside the
-    step."""
+    """Returns ``train_step(params, opt_state, batch, seed=None) ->
+    (params, opt_state, metrics)``.  ``params`` is updated in place (and
+    returned); the metrics are device scalars (``loss``, ``ce_loss``, the
+    MoE aux values, ``grad_norm``) and the host float ``lr``.  ``batch``
+    holds tensors on the params' device (or numpy arrays).  ``seed`` is
+    the step's dropout seed, as the reference's ``rng`` (``launch/train.py``
+    passes the step number, as the reference passes ``PRNGKey(step)``).
+    ``rules`` are active inside the step."""
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, seed: Optional[int] = None):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         try:
             with axis_rules(rules):
-                loss, metrics = loss_fn(params, batch, cfg, backend=backend)
+                loss, metrics = loss_fn(params, batch, cfg, backend=backend, seed=seed)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:

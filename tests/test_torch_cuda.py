@@ -937,3 +937,71 @@ def test_rglru_scan_gradient_through_the_kernel(cuda):
     for name, x, e in zip(("a", "b", "h0"), got, want):
         err = (x - e).abs().max()
         assert err <= 1e-5 * e.abs().max(), (name, err.item())
+
+
+def _train_grads(cfg, params, batch, backend):
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import loss_fn
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = loss_fn(params, batch, cfg, backend=backend)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "recurrentgemma-9b"])
+def test_remat_dots_equals_full_through_the_kernels(cuda, arch):
+    """Remat "dots" (selective checkpointing: the products with no batch
+    dimension saved) against "full" on the kernel backend, fp32, a reduced
+    config: loss and every gradient bitwise equal, and the flash and scan
+    kernels relaunched in the recompute (their ``ctypes`` outputs are
+    recomputed, never cached): flash twice a layer, the scan three times."""
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), remat=True)
+    params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(3),
+                         device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=g, device=cuda)
+             for k in ("tokens", "labels")}
+    out = {}
+    for policy in ("full", "dots"):
+        ops.reset_launch_counts()
+        out[policy] = _train_grads(dataclasses.replace(cfg, remat_policy=policy), params,
+                                   batch, "kernel")
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == 2 * cfg.count_kind("attn"), counts
+        assert counts["rglru_scan"] == 3 * cfg.count_kind("rec"), counts
+    assert torch.equal(out["dots"][0], out["full"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["dots"][1], out["full"][1]))
+
+
+def test_chunked_eager_attention_matches_the_kernel(cuda):
+    """The eager backend's query-chunked attention (``attn_chunk``) against
+    the flash kernel, which ignores the chunk, on the card: fp32 logits of
+    a reduced qwen prefill of 256 rows in chunks of 64 within 1e-4."""
+    from repro_torch.models import apply_model
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.kvcache import make_cache
+
+    cfg = dataclasses.replace(reduced(get_config("qwen1.5-0.5b")), attn_chunk=64)
+    params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(5),
+                         device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256),
+                           generator=torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    logits = {}
+    with torch.no_grad():
+        for backend in ("kernel", "eager"):
+            ops.reset_launch_counts()
+            logits[backend], _ = apply_model(params, cfg, tokens=tokens, mode="prefill",
+                                             cache=make_cache(cfg, 2, 256, device=cuda),
+                                             backend=backend)
+            launched = ops.launch_counts()["flash_attention"]
+            assert launched == (cfg.count_kind("attn") if backend == "kernel" else 0)
+    torch.testing.assert_close(logits["eager"], logits["kernel"], atol=1e-4, rtol=1e-4)

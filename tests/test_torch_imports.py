@@ -50,11 +50,20 @@ def test_import_leaves_jax_and_reference_out():
                                     "repro_torch.launch.shapes", "repro_torch.launch.dryrun",
                                     "repro_torch.roofline.analysis",
                                     "repro_torch.roofline.counter",
-                                    "repro_torch.roofline.report"])
+                                    "repro_torch.roofline.report",
+                                    "repro_torch.models.layers",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.experiments.hillclimb",
+                                    "repro_torch.experiments.calibrate",
+                                    "repro_torch.examples.quickstart",
+                                    "repro_torch.examples.plan_heterogeneous",
+                                    "repro_torch.examples.serve_collaborative",
+                                    "repro_torch.examples.train_small"])
 def test_module_alone_leaves_jax_and_reference_out(module):
     """Each module of the Galaxy serving path and its telemetry, the zoo's MoE and
-    xLSTM blocks, the training path (data, training, the trainer), and the multi-chip
-    layout (sharding rules, meshes, shapes, the dry run and its roofline), imported
+    xLSTM blocks, the training path (data, training, the trainer, dropout and remat),
+    the multi-chip layout (sharding rules, meshes, shapes, the dry run and its
+    roofline), the experiments (hillclimb, calibration) and the examples, imported
     alone in a fresh interpreter, pulls in neither ``jax`` nor ``repro``."""
     code = (
         f"import importlib, sys\nimportlib.import_module({module!r})\n"
@@ -85,10 +94,11 @@ def test_no_source_imports_jax_or_reference():
 
 @pytest.mark.parametrize("entry", ["serve", "main", "trace_main", "zoo_main", "spec_main",
                                    "telemetry_main", "host_profiler", "train_main",
-                                   "train", "trace_train"])
+                                   "train", "trace_train", "calibrate", "quickstart",
+                                   "serve_collaborative", "train_small"])
 def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
-    """Without CUDA, the serving and training entry points raise unless
-    device='cpu'."""
+    """Without CUDA, the serving and training entry points, the calibration's
+    measurement and the examples raise unless device='cpu'."""
     from repro_torch import resolve_device
     from repro_torch.launch import serve, trace_serve, trace_train, train
 
@@ -113,6 +123,14 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, entry):
             from repro_torch.configs import get_config, reduced
 
             train.train(reduced(get_config("qwen1.5-0.5b")), steps=1)
+        elif entry == "calibrate":
+            from repro_torch.experiments import calibrate
+
+            calibrate.main([])
+        elif entry in ("quickstart", "serve_collaborative", "train_small"):
+            import importlib
+
+            importlib.import_module(f"repro_torch.examples.{entry}").main([])
         elif entry == "trace_train":
             trace_train.main(["--arch", "qwen1.5-0.5b", "--reduce", "--steps", "1"])
         elif entry == "zoo_main":

@@ -263,12 +263,19 @@ def test_remat_recomputes_to_the_same_gradients():
 
 
 def test_training_refuses_dropout_and_the_dots_policy():
+    """Dropout and remat "dots" are ported (``tests/test_torch_train_options.py``
+    holds them to the reference); what is still refused is a remat policy
+    the reference does not have, and dropout runs only when a step asks
+    for it (``deterministic=False`` and a generator), as the reference's
+    ``rng``/``deterministic`` arguments decide."""
     _, cfg, tree, batch = _setup("qwen1.5-0.5b")
     params = params_from_numpy(tree)
-    with pytest.raises(NotImplementedError, match="dropout_rate"):
-        apply_model(params, dataclasses.replace(cfg, dropout_rate=0.1), tokens=batch["tokens"])
+    plain, _ = apply_model(params, cfg, tokens=batch["tokens"])
+    with_rate, _ = apply_model(params, dataclasses.replace(cfg, dropout_rate=0.1),
+                               tokens=batch["tokens"])
+    assert torch.equal(plain, with_rate)
     with pytest.raises(NotImplementedError, match="remat_policy"):
-        apply_model(params, dataclasses.replace(cfg, remat=True, remat_policy="dots"),
+        apply_model(params, dataclasses.replace(cfg, remat=True, remat_policy="offload"),
                     tokens=batch["tokens"])
 
 

@@ -226,6 +226,9 @@ def test_chunked_prefill_refused_for_recurrent_stacks(model):
     with pytest.raises(ValueError, match="full-causal"):
         apply_model(model["params"], cfg, tokens=np.zeros((1, 8), np.int64), mode="prefill",
                     cache=make_cache(cfg, 1, 16), cache_index=8)
-    with pytest.raises(NotImplementedError, match="dropout_rate"):
-        apply_model(model["params"], dataclasses.replace(cfg, dropout_rate=0.1),
-                    tokens=np.zeros((1, 8), np.int64))
+    # dropout is ported: a config with a rate runs, and without a step's
+    # generator (deterministic, the default) gives the logits of rate 0
+    tokens = np.zeros((1, 8), np.int64)
+    with_rate, _ = apply_model(model["params"], dataclasses.replace(cfg, dropout_rate=0.1),
+                               tokens=tokens)
+    assert torch.equal(with_rate, apply_model(model["params"], cfg, tokens=tokens)[0])

@@ -276,6 +276,27 @@ The training path and the rest of the zoo run after them:
              a chip than "full", or query-chunked attention not lowering
              codeqwen's prefill peak (or raising granite's).
 
+Galaxy across processes runs last:
+
+34. ranks — ``launch.serve --ranks 4`` as a user starts it: GPT2-L at full
+             width and depth in fp16 on the 3:2:2:1 plan, one process per
+             edge device (``core/ring.ProcessRing`` over gloo on loopback,
+             CUDA tensors staged through pinned host buffers), the four
+             ranks time-slicing the one card.  Phase 5's traffic and
+             then phase 13's (prefix cache, chunks of 128): every rank's
+             greedy tokens equal to phase 5's and 13's ``LocalRing``
+             serves, launch counts per rank exact by ``galaxy_expect`` for
+             one held device (a one-shot prefill: 576 GEMMs, 36
+             attention, 72 connectives), every launch on its fast path,
+             equal stats on every rank, the hop route printed.  Then
+             ``launch.ring_times --ranks 4``: the median hop (a 72 x 1280
+             fp16 tile, host-staged) and bytes per hop, and the prefill of
+             the stack at S 256 under the overlapped ring with and
+             without double buffering and under the sync schedule,
+             launches per rank exact for each.  A rank that fails or outlives its
+             limit fails the phase.  Four contexts on one card are not
+             four devices: no number here is a four-device speed-up.
+
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
 ``python -m repro_torch.launch.trace_serve``.
@@ -291,8 +312,11 @@ import gc
 import itertools
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1564,20 +1588,23 @@ def phase_chunk_parity(torch, card):
         f"{tol}; {card})")
 
 
-def galaxy_expect(st, layers=36, devices=4, draft=None, draft_layers=6):
+def galaxy_expect(st, layers=36, devices=4, draft=None, draft_layers=6, held=None):
     """Exact launches of the three Galaxy kernels from a serve's stats: a
     one-shot prefill or a chunk runs 4 ring GEMMs x D steps x D devices a
     layer and 2 connective sites; the one-shot (and a wave prefill) also D
     attention launches a layer (a chunk's context attention is torch ops);
     a decode step 4 GEMMs a device a layer.  The one-device draft: 4 GEMMs
     a layer per prefill and per step, 1 attention and 2 sites a layer per
-    prefill."""
+    prefill.  ``held`` devices of the D (default all: a ``LocalRing``; 1 on
+    a rank of a ``ProcessRing``) launch their own GEMMs and attention, and
+    each site is still one connective launch."""
+    held = devices if held is None else held
     oneshots = st["prefill_oneshots"] + st["prefill_waves"]
     chunks = st["prefill_chunks"] + st["spec_steps"]
     decodes = st["decode_steps"] - st["spec_steps"]
-    ring = 4 * devices * devices * layers
-    expect = {"tiled_gemm_valid": ring * (oneshots + chunks) + 4 * devices * layers * decodes,
-              "ragged_flash_attention": devices * layers * oneshots,
+    ring = 4 * devices * held * layers
+    expect = {"tiled_gemm_valid": ring * (oneshots + chunks) + 4 * held * layers * decodes,
+              "ragged_flash_attention": held * layers * oneshots,
               "fused_connective": 2 * layers * (oneshots + chunks)}
     if draft is not None:
         expect["tiled_gemm_valid"] += 4 * draft_layers * (draft.prefills + draft.steps)
@@ -3232,6 +3259,120 @@ def phase_hillclimb(torch, card):
         f"{time.perf_counter() - t0:.1f} s on fake tensors; the host ran it, {card}")
 
 
+#: seconds the ranks of one four-rank run may take, start-up included
+RANKS_TIMEOUT = 300
+
+
+def _ranks_run(module, args, what):
+    """``python -m module args`` from the checkout, as a user starts it;
+    its standard output (it fails the phase if the run fails)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    # a session of its own: if the launcher outlives its limit, its ranks
+    # are stopped with it
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=RANKS_TIMEOUT + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{what}: still running after {RANKS_TIMEOUT + 60} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+    log("ranks", f"{what}: done in {time.perf_counter() - t0:.1f} s, start-up included")
+    return out
+
+
+def ranks_serve(rec, card, what, local, extra):
+    """``launch.serve --ranks 4`` with phase 5's traffic plus ``extra``:
+    every rank's tokens equal the ``LocalRing`` serve's (``local``), its
+    launches exact for one held device and on their fast paths, its stats
+    equal to rank 0's.  The ranks' launches add to the kernels' records."""
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = _ranks_run("repro_torch.launch.serve", [
+            "--model", "gpt2-l", "--capacities", "3,2,2,1", "--ranks", "4",
+            "--requests", "8", "--prompt-len", "37-300", "--max-new", "16",
+            "--max-batch", "4", "--page-size", "16", "--dtype", "float16", "--seed", "0",
+            "--rank-timeout", str(RANKS_TIMEOUT), "--report", tmp, *extra], what)
+        reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(4)]
+    line = json.loads(stdout.strip().splitlines()[-1])
+    if (line["ranks"], line["transport"]) != (4, "gloo"):
+        raise AssertionError(f"{what}: serve line {line}")
+    want = {str(uid): toks for uid, toks in local.items()}
+    st = reps[0]["stats"]
+    expect = galaxy_expect(st, held=1)
+    for r, rep in enumerate(reps):
+        if rep["tokens"] != want:
+            bad = [u for u in want if rep["tokens"].get(u) != want[u]]
+            raise AssertionError(f"{what}: rank {r} tokens differ from the LocalRing serve's "
+                                 f"for requests {bad}")
+        if rep["stats"] != st:
+            raise AssertionError(f"{what}: rank {r} stats {rep['stats']} != rank 0's {st}")
+        counts = {n: rep["launches"][n] for n in expect}
+        if counts != expect or any(rep["launches"][n] for n in ZOO_KERNELS + ("tiled_gemm",)):
+            raise AssertionError(f"{what}: rank {r} launches {rep['launches']} != {expect}")
+        paths = rep["paths"]
+        fast = {"tiled_gemm_valid": ("mma", "fma"), "ragged_flash_attention": ("mma", "simt"),
+                "fused_connective": ("warp", "loop")}
+        for n, (good, slow) in fast.items():
+            if paths[n][good] != counts[n] or paths[n][slow]:
+                raise AssertionError(f"{what}: rank {r} {n} off its fast path: {paths[n]}")
+        if set(rep["routes"]) != {"host-staged"} or rep["hops"] <= 0:
+            raise AssertionError(f"{what}: rank {r} hops {rep['hops']} by {rep['routes']}")
+    for n in GALAXY_KERNELS:
+        rec[n].d["launches"] += sum(rep["launches"][n] for rep in reps)
+    log("ranks", f"{what}: 4 ranks' tokens equal the LocalRing serve's for all "
+        f"{len(want)} requests; launches per rank "
+        f"{', '.join(f'{n} {expect[n]}' for n in GALAXY_KERNELS)} (as expected from "
+        f"{st['prefill_oneshots']} one-shot and {st['prefill_chunks']} chunk prefills, "
+        f"{st['decode_steps']} decode steps), all on the fast paths")
+    log("ranks", f"{what}: hop route {reps[0]['routes']}; hops per rank "
+        f"{[rep['hops'] for rep in reps]}, bytes per hop "
+        f"{[round(rep['hop_bytes'] / rep['hops']) for rep in reps]}")
+    log("ranks", f"{what}: {line['new_tokens']} new tokens in {line['seconds']:.2f} s: "
+        f"{line['tokens_per_s']:.2f} tok/s, TTFT p50 {1e3 * line['ttft_p50_s']:.1f} ms on "
+        f"4 ranks time-slicing one card, not four devices ({card})")
+
+
+def phase_ranks(torch, rec, card, local):
+    """Galaxy across processes (phase 34): the two four-rank serves, then
+    ``launch.ring_times``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks_serve(rec, card, "4-rank serve", local["serve"], [])
+    ranks_serve(rec, card, "4-rank prefix-cache + chunk serve", local["prefix"],
+                ["--shared-prefix", "256", "--prefix-cache", "on", "--prefill-chunk", "128"])
+    out = _ranks_run("repro_torch.launch.ring_times",
+                     ["--ranks", "4", "--timeout", str(RANKS_TIMEOUT)], "ring_times --ranks 4")
+    res = json.loads(out.strip().splitlines()[-1])
+    ring = {"tiled_gemm_valid": 576, "ragged_flash_attention": 36, "fused_connective": 72}
+    want = {"ring": ring, "ring_double_buffer": ring,
+            "sync": {**ring, "tiled_gemm_valid": 144}}
+    for rr in res["per_rank"]:
+        for sched, counts in want.items():
+            got = {n: rr["launches"][sched][n] for n in counts}
+            if got != counts:
+                raise AssertionError(f"ring_times: rank {rr['rank']} {sched} prefill "
+                                     f"launches {rr['launches'][sched]} != {counts}")
+        for sched, err in rr["logit_err_vs_sync"].items():
+            if not (math.isfinite(err) and err < GALAXY_FP16_TOL):
+                raise AssertionError(f"ring_times: {sched} vs sync logits differ by {err}")
+    per = res["per_rank"]
+    log("ranks", f"hop of a {res['pad_tile']} x 1280 fp16 tile ({per[0]['hop_bytes']} bytes, "
+        f"route {per[0]['routes']}): median per rank "
+        f"{[round(rr['hop_ms'], 3) for rr in per]} ms, min "
+        f"{[round(rr['hop_ms_min'], 3) for rr in per]} ms ({card})")
+    ms = {s: [round(rr["prefill_ms"][s], 1) for rr in per] for s in want}
+    log("ranks", f"prefill of GPT2-L 36 layers fp16 at S {res['seq']} on 4 ranks, medians per "
+        f"rank: ring with double buffering {ms['ring_double_buffer']} ms, without "
+        f"{ms['ring']} ms (the pair differs only in overlap), sync {ms['sync']} ms "
+        f"(its psum all-gathers whole partials); launches per rank exact (576/144 GEMMs, "
+        f"36 attention, 72 connectives); logits vs sync max abs err "
+        f"{per[0]['logit_err_vs_sync']} ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -3279,6 +3420,7 @@ def main() -> int:
     phase_parity(cfg, plan, torch)
     out = phase_serve(torch, rec)
     check_served_token(out, torch)
+    local_tokens = {"serve": {r.uid: r.output for r in out["requests"]}}
     del out
     torch.cuda.empty_cache()
     out = phase_serve(torch, None, dtype="bfloat16", n_req=4, max_new=4)
@@ -3291,6 +3433,7 @@ def main() -> int:
         phase_chunk_parity(torch, card)
         torch.cuda.empty_cache()
         out = phase_prefix_serve(torch, rec, card)
+        local_tokens["prefix"] = {r.uid: r.output for r in out["requests"]}
         del out
         torch.cuda.empty_cache()
         fp16 = phase_spec_serve(torch, rec, card)
@@ -3353,6 +3496,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_remat_dots(torch, rec, card)
     phase_hillclimb(torch, card)
+    phase_ranks(torch, rec, card, local_tokens)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,4 +1,4 @@
-"""Hybrid Model Parallelism (paper §III-B) over a single-process ring.
+"""Hybrid Model Parallelism (paper §III-B) over a ring of devices.
 
 The paper's Fig. 5 on a post-LN Transformer layer (Fig. 2): TP over heads
 (MHA) and FFN columns (MLP), SP over the connective blocks, a
@@ -6,10 +6,14 @@ ReduceScatter exiting each TP block and an AllGather entering it, each
 fused with its adjacent GEMM as a tile ring (``core/ring.py``).
 
 The D devices of an :class:`~repro_torch.core.execplan.ExecPlan` are the
-shards of a :class:`~repro_torch.core.ring.LocalRing`: every per-device
-quantity is a list of D tensors, each phase runs every device's body in
-turn, ring hops are device copies and the decode all-reduce is a sum over
-shards.  The plan's uneven head/column counts are materialized as shards
+devices of a ring (``core/ring.py``): a
+:class:`~repro_torch.core.ring.LocalRing` holds all D in one process, a
+:class:`~repro_torch.core.ring.ProcessRing` one per process.  Every
+per-device quantity is a list over ``ring.devices``, the devices this
+process holds, and each phase runs the body of each held device in turn;
+the collectives (ring hops, the decode all-reduce, the gathers) are the
+ring's, so the same program runs on either ring and no branch depends on
+the rank.  The plan's uneven head/column counts are materialized as shards
 padded to ``max(units)`` with zero weights, and its uneven sequence tiles
 as a padded ragged layout (``SeqLayout``): real rows at per-device
 offsets, pad rows masked out of the ring and the attention, K/V written to
@@ -47,7 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.execplan import ExecPlan, SeqLayout
 from repro_torch.core.ring import (
-    LocalRing,
+    Ring,
     RingSchedule,
     matmul_ring_reducescatter,
     ring_allgather_matmul,
@@ -154,19 +158,24 @@ def reference_stack(layers: Sequence[Dict], x):
 
 # --- per-device shards ----------------------------------------------------------
 
-def shard_layer_params(plan: ExecPlan, p: Dict) -> List[Dict[str, torch.Tensor]]:
-    """Reference- or padded-layout layer params -> one dict per device.
+def shard_layer_params(plan: ExecPlan, p: Dict,
+                       devices: Optional[Sequence[int]] = None) -> List[Dict[str, torch.Tensor]]:
+    """Reference- or padded-layout layer params -> one dict per device of
+    ``devices`` (default: all of the plan's).
 
     Device ``d`` gets its padded head slots as a fused ``wqkv`` (d_model,
     3 * pad_heads * hd) — three column segments q | k | v, each with the
     device's real heads as the valid prefix — its ``wo`` rows (pad_heads *
     hd, d_model), and its padded ``w1`` columns / ``w2`` rows; the LN
-    params are shared.  Every tensor is contiguous."""
+    params are shared.  Every tensor is contiguous, and a subset of the
+    devices holds copies only (no view keeps the whole layer alive)."""
     p = plan.ensure_padded(p)
     d_model = p["wq"].shape[0]
     ph, pc, hd = plan.pad_heads, plan.pad_columns, plan.head_dim
+    devices = range(plan.num_devices) if devices is None else devices
+    own = len(devices) < plan.num_devices
     shards = []
-    for i in range(plan.num_devices):
+    for i in devices:
         hs, cs = slice(i * ph, (i + 1) * ph), slice(i * pc, (i + 1) * pc)
         shard = {
             "wqkv": torch.cat([p[n][:, hs].reshape(d_model, ph * hd)
@@ -176,14 +185,21 @@ def shard_layer_params(plan: ExecPlan, p: Dict) -> List[Dict[str, torch.Tensor]]
             "w2": p["w2"][cs].contiguous(),
         }
         shard.update({n: p[n] for n in _LN})
+        if own:
+            shard = {n: t.clone() for n, t in shard.items()}
         shards.append(shard)
     return shards
 
 
-def _as_shards(plan: ExecPlan, p) -> List[Dict[str, torch.Tensor]]:
-    """Accept per-device shards (from ``shard_layer_params``) or a layer
-    dict in reference/padded layout."""
-    return p if isinstance(p, (list, tuple)) else shard_layer_params(plan, p)
+def _as_shards(plan: ExecPlan, p, ring: Ring) -> List[Dict[str, torch.Tensor]]:
+    """Accept the held devices' shards (from ``shard_layer_params``) or a
+    layer dict in reference/padded layout."""
+    if isinstance(p, (list, tuple)):
+        if len(p) != len(ring.devices):
+            raise ValueError(f"{len(p)} layer shards for the {len(ring.devices)} "
+                             "devices this process holds")
+        return p
+    return shard_layer_params(plan, p, ring.devices)
 
 
 class _KernelCompute:
@@ -230,7 +246,7 @@ class _KernelCompute:
                                     valid_heads=self.valid_heads)
 
 
-def _make_compute(plan: ExecPlan, layout: Optional[SeqLayout],
+def _make_compute(plan: ExecPlan, ring: Ring, layout: Optional[SeqLayout],
                   seq_total: Optional[int]) -> Optional[List[_KernelCompute]]:
     if plan.compute_backend != "kernel":
         return None
@@ -240,13 +256,13 @@ def _make_compute(plan: ExecPlan, layout: Optional[SeqLayout],
         positions = np.arange(seq_total)
     else:
         positions = None  # decode: attention stays on the gather path
-    return [_KernelCompute(plan, i, positions) for i in range(plan.num_devices)]
+    return [_KernelCompute(plan, i, positions) for i in ring.devices]
 
 
 def _hook(computes: Optional[List[_KernelCompute]], name: str):
     if computes is None:
         return None
-    return lambda dev, tile, w, valid: getattr(computes[dev], name)(tile, w, valid)
+    return lambda j, tile, w, valid: getattr(computes[j], name)(tile, w, valid)
 
 
 def _local_mask(layout: Optional[SeqLayout], s: int, device) -> torch.Tensor:
@@ -276,21 +292,21 @@ def _ctx_attention(q, k, v, ctx_k, ctx_v, offset: int, local_mask):
     return _attention(q, kf, vf, mask=mask)
 
 
-def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
+def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: Ring, *,
                     plan: ExecPlan, overlap: bool,
                     layout: Optional[SeqLayout] = None, ctx=None):
-    """One layer on every ring device.  xs[i]: (B, S_loc, d) sequence shard
-    of device i; ps[i] its head/column shards.  TP blocks see the full
-    sequence, connective blocks the local shard (paper Fig. 5).  Returns
-    the output shards and each device's K/V head shards over the full
-    (padded) sequence.
+    """One layer on every held ring device.  xs[j]: (B, S_loc, d) sequence
+    shard of device ``ring.devices[j]``; ps[j] its head/column shards.  TP
+    blocks see the full sequence, connective blocks the local shard (paper
+    Fig. 5).  Returns the output shards and each held device's K/V head
+    shards over the full (padded) sequence.
 
     ``layout`` (a *ragged* SeqLayout; dense layouts pass None) drives the
     uneven-SP masking: the ring primitives zero pad rows per step and the
     attention masks pad keys, so garbage in pad rows stays in pad rows.
 
-    ``ctx = (ctx_ks, ctx_vs, offset)`` (chunked prefill): device i's
-    queries also attend to its context K/V ``ctx_ks[i]``/``ctx_vs[i]``
+    ``ctx = (ctx_ks, ctx_vs, offset)`` (chunked prefill): held device j's
+    queries also attend to its context K/V ``ctx_ks[j]``/``ctx_vs[j]``
     (``_ctx_attention``).  That attention is plain PyTorch under either
     backend; the ring GEMMs and connectives still go through the kernels."""
     ag_mm = ring_allgather_matmul if overlap else sync_allgather_matmul
@@ -303,7 +319,7 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
     else:
         base = RingSchedule.dense(d, s_loc, transport=plan.transport,
                                   double_buffer=plan.double_buffer)
-    computes = _make_compute(plan, layout, d * s_loc)
+    computes = _make_compute(plan, ring, layout, d * s_loc)
     # the padded_len^2 mask feeds the eager attention and a chunk's context
     # attention; the kernel derives its masking from layout.positions
     attn_mask = None
@@ -318,13 +334,13 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
     # ---- MHA block (TP over heads): AllGather ⊗ GEMM1 ----
     qkv = ag_mm(xs, [p["wqkv"] for p in ps], ring, schedule=sched("qkv_gemm"))
     attn, ks, vs = [], [], []
-    for i in range(d):
-        shape = (*qkv[i].shape[:2], ph, hd)
-        q, k, v = (t.reshape(shape) for t in qkv[i].split(ph * hd, dim=-1))
+    for j, t in enumerate(qkv):
+        shape = (*t.shape[:2], ph, hd)
+        q, k, v = (u.reshape(shape) for u in t.split(ph * hd, dim=-1))
         if ctx is not None:
-            a = _ctx_attention(q, k, v, ctx[0][i], ctx[1][i], ctx[2], attn_mask)
+            a = _ctx_attention(q, k, v, ctx[0][j], ctx[1][j], ctx[2], attn_mask)
         elif computes is not None:
-            a = computes[i].attention(q, k, v)
+            a = computes[j].attention(q, k, v)
         else:
             a = _attention(q, k, v, mask=attn_mask)
         attn.append(a.reshape(*shape[:2], ph * hd))
@@ -335,8 +351,9 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
 
     # ---- connective block (SP over the local sequence shard) ----
     def connective(x, res, s, b):
-        """``_ln(res + x)`` on every device's shard; the kernel backend
-        computes all D shards in one fused launch."""
+        """``_ln(res + x)`` on every held device's shard; the kernel
+        backend computes them in one fused launch (all D shards on a
+        LocalRing, this rank's one on a ProcessRing)."""
         if computes is not None:
             return ops.connective_group(x, res, [p[s] for p in ps], [p[b] for p in ps])
         return [_ln(r + t, p[s], p[b]) for t, r, p in zip(x, res, ps)]
@@ -351,7 +368,7 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: LocalRing, *,
     return out, ks, vs
 
 
-def _resolve_layout(plan: ExecPlan, ring: LocalRing, x,
+def _resolve_layout(plan: ExecPlan, ring: Ring, x,
                     seq: Optional[int]) -> Optional[SeqLayout]:
     """The ragged layout of ``x`` under the plan; None for a dense one."""
     if plan.num_devices != ring.num_devices:
@@ -370,32 +387,35 @@ def _resolve_layout(plan: ExecPlan, ring: LocalRing, x,
     return None if layout.is_dense else layout
 
 
-def _split_seq(x, d: int) -> List[torch.Tensor]:
-    t = x.shape[1] // d
-    return [x[:, i * t:(i + 1) * t] for i in range(d)]
+def _split_seq(x, ring: Ring) -> List[torch.Tensor]:
+    """The held devices' sequence tiles of ``x`` (replicated on every
+    process)."""
+    t = x.shape[1] // ring.num_devices
+    return [x[:, i * t:(i + 1) * t] for i in ring.devices]
 
 
-def hmp_layer(p, x, ring: LocalRing, *, plan: ExecPlan, overlap: bool = False,
+def hmp_layer(p, x, ring: Ring, *, plan: ExecPlan, overlap: bool = False,
               seq: Optional[int] = None):
     """Galaxy HMP layer.  x: (B, S, d) global, in the plan's padded ragged
     layout for the logical length ``seq`` (``plan.seq_layout(seq).scatter
     (x)``) when that layout is ragged.  ``p`` is a layer dict in reference
     or padded layout, or per-device shards."""
     layout = _resolve_layout(plan, ring, x, seq)
-    out, _, _ = _hmp_layer_body(_as_shards(plan, p),
-                                _split_seq(x, ring.num_devices), ring,
+    out, _, _ = _hmp_layer_body(_as_shards(plan, p, ring), _split_seq(x, ring), ring,
                                 plan=plan, overlap=overlap, layout=layout)
-    return torch.cat(out, dim=1)
+    return ring.all_gather(out, dim=1)
 
 
 # --- serving path: dense per-wave cache or paged pool ---------------------------
 
 def make_kv_cache(batch: int, cache_len: int, num_layers: int, plan: ExecPlan, *,
-                  device=None, dtype=torch.float32) -> List[Dict[str, List[torch.Tensor]]]:
+                  device=None, dtype=torch.float32,
+                  devices: Optional[Sequence[int]] = None) -> List[Dict[str, List[torch.Tensor]]]:
     """KV storage for a stack of HMP layers: the dense per-wave cache, or
     the paged pool.
 
-    Each layer holds, per ring device, k/v of shape (batch, cache_len,
+    Each layer holds, per ring device of ``devices`` (default: all of the
+    plan's; a ProcessRing's rank holds its own), k/v of shape (batch, cache_len,
     pad_heads, hd): the device's padded head slots, so shards line up with
     the weight shards and pad slots stay zero.  As the wave cache, rows are
     absolute positions, so cache_len only needs the longest bucketed prompt
@@ -404,15 +424,15 @@ def make_kv_cache(batch: int, cache_len: int, num_layers: int, plan: ExecPlan, *
     (``serving/kvpool.py``): idle-slot writes land there and masked reads
     never see it."""
     shape = (batch, cache_len, plan.pad_heads, plan.head_dim)
+    n = plan.num_devices if devices is None else len(devices)
 
     def shards():
-        return [torch.zeros(shape, device=device, dtype=dtype)
-                for _ in range(plan.num_devices)]
+        return [torch.zeros(shape, device=device, dtype=dtype) for _ in range(n)]
 
     return [{"k": shards(), "v": shards()} for _ in range(num_layers)]
 
 
-def hmp_prefill(layers: Sequence, x, ring: LocalRing, cache: List[Dict], *,
+def hmp_prefill(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
                 plan: ExecPlan, overlap: bool = False, seq: Optional[int] = None,
                 block_row=None, offset: Optional[int] = None):
     """Run a stack of HMP layers over a prompt, writing its K/V into the
@@ -443,29 +463,28 @@ def hmp_prefill(layers: Sequence, x, ring: LocalRing, cache: List[Dict], *,
                           overlap=overlap, seq=seq, offset=offset)
 
 
-def _prefill_dense(layers: Sequence, x, ring: LocalRing, cache: List[Dict], *,
+def _prefill_dense(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
                    plan: ExecPlan, overlap: bool, seq: Optional[int]):
     layout = _resolve_layout(plan, ring, x, seq)
     s = x.shape[1] if layout is None else layout.seq
     rows = None if layout is None else torch.as_tensor(layout.rows, device=x.device)
-    xs = _split_seq(x, ring.num_devices)
+    xs = _split_seq(x, ring)
     for p, c in zip(layers, cache):
-        xs, ks, vs = _hmp_layer_body(_as_shards(plan, p), xs, ring, plan=plan,
+        xs, ks, vs = _hmp_layer_body(_as_shards(plan, p, ring), xs, ring, plan=plan,
                                      overlap=overlap, layout=layout)
-        for i in range(ring.num_devices):
-            k, v = ks[i], vs[i]
+        for j, (k, v) in enumerate(zip(ks, vs)):
             if rows is not None:
                 k, v = k[:, rows], v[:, rows]
-            c["k"][i][:, :s] = k
-            c["v"][i][:, :s] = v
-    return torch.cat(xs, dim=1), cache
+            c["k"][j][:, :s] = k
+            c["v"][j][:, :s] = v
+    return ring.all_gather(xs, dim=1), cache
 
 
-def _prefill_paged(layers: Sequence, x, ring: LocalRing, pages: List[Dict],
+def _prefill_paged(layers: Sequence, x, ring: Ring, pages: List[Dict],
                    block_row, *, plan: ExecPlan, overlap: bool,
                    seq: Optional[int], offset: Optional[int]):
     """Paged-pool prefill (see ``hmp_prefill``).  With ``offset`` each
-    layer first gathers every device's context K/V from its own pool shard
+    layer first gathers every held device's context K/V from its own pool shard
     (the pages below the offset, only the device's valid head slots), then
     runs the chunk, then scatters the chunk's K/V: the gather comes before
     the scatter, so the chunk's own keys enter the attention once."""
@@ -492,24 +511,23 @@ def _prefill_paged(layers: Sequence, x, ring: LocalRing, pages: List[Dict],
         # of the last one are masked in _ctx_attention
         ctx_row = block_row[None, :-(-base // page_size)]
         head_ok = [torch.arange(plan.pad_heads, device=x.device) < plan.heads[i]
-                   for i in range(ring.num_devices)]
-    xs = _split_seq(x, ring.num_devices)
+                   for i in ring.devices]
+    xs = _split_seq(x, ring)
     for p, c in zip(layers, pages):
         ctx = None
         if offset is not None:
-            ctx = ([_paged_kv_gather(c["k"][i], ctx_row, head_ok[i])[0]
-                    for i in range(ring.num_devices)],
-                   [_paged_kv_gather(c["v"][i], ctx_row, head_ok[i])[0]
-                    for i in range(ring.num_devices)], base)
-        xs, ks, vs = _hmp_layer_body(_as_shards(plan, p), xs, ring, plan=plan,
+            ctx = ([_paged_kv_gather(k, ctx_row, ok)[0] for k, ok in zip(c["k"], head_ok)],
+                   [_paged_kv_gather(v, ctx_row, ok)[0] for v, ok in zip(c["v"], head_ok)],
+                   base)
+        xs, ks, vs = _hmp_layer_body(_as_shards(plan, p, ring), xs, ring, plan=plan,
                                      overlap=overlap, layout=layout, ctx=ctx)
-        for i in range(ring.num_devices):
-            k, v = ks[i][0], vs[i][0]
+        for j, (k, v) in enumerate(zip(ks, vs)):
+            k, v = k[0], v[0]
             if rows is not None:
                 k, v = k[rows], v[rows]
-            c["k"][i][phys, within] = k
-            c["v"][i][phys, within] = v
-    return torch.cat(xs, dim=1), pages
+            c["k"][j][phys, within] = k
+            c["v"][j][phys, within] = v
+    return ring.all_gather(xs, dim=1), pages
 
 
 def _paged_kv_gather(pool, block_table, head_ok):
@@ -543,7 +561,7 @@ def _decode_qkv(p, x, compute: Optional[_KernelCompute], ph: int, hd: int):
 
 
 def _tp_exit(ps: List[Dict], x, gs: List[torch.Tensor],
-             computes: Optional[List[_KernelCompute]], ring: LocalRing):
+             computes: Optional[List[_KernelCompute]], ring: Ring):
     """The tail of a replicated-x TP layer (decode, Megatron): the MHA
     block's partial outputs ``gs`` exit through an all-reduce, then the
     connective, the TP MLP (all-reduce exit) and the second connective,
@@ -551,45 +569,45 @@ def _tp_exit(ps: List[Dict], x, gs: List[torch.Tensor],
     p0 = ps[0]
     x = _ln(x + ring.psum(gs), p0["ln1_s"], p0["ln1_b"])
     fs = []
-    for i in range(ring.num_devices):
-        comp = None if computes is None else computes[i]
+    for j, p in enumerate(ps):
+        comp = None if computes is None else computes[j]
         if comp is not None:
-            fs.append(comp.w2_gemm(_gelu(comp.w1_gemm(x, ps[i]["w1"])), ps[i]["w2"]))
+            fs.append(comp.w2_gemm(_gelu(comp.w1_gemm(x, p["w1"])), p["w2"]))
         else:
-            fs.append(torch.matmul(_gelu(torch.matmul(x, ps[i]["w1"])), ps[i]["w2"]))
+            fs.append(torch.matmul(_gelu(torch.matmul(x, p["w1"])), p["w2"]))
     return _ln(x + ring.psum(fs), p0["ln2_s"], p0["ln2_b"])
 
 
 def _decode_layer(ps: List[Dict], x, kv_step, valid, *, plan: ExecPlan,
-                  ring: LocalRing):
-    """Single-token TP step of one layer on every ring device.
+                  ring: Ring):
+    """Single-token TP step of one layer on every held ring device.
 
-    x: (S, 1, d) replicated slot batch.  ``kv_step(i, k_new, v_new)``
-    writes device i's new K/V head shard into its cache and returns the
+    x: (S, 1, d) replicated slot batch.  ``kv_step(j, k_new, v_new)``
+    writes held device j's new K/V head shard into its cache and returns the
     keys and values each slot attends to, (S, T, ph, hd); ``valid`` (S, T)
     masks them by slot length.  The TP blocks exit through an all-reduce,
     and the connective blocks run once on the replicated result (the SP
     axis is degenerate at one token).  The projections go through the
     backend; the attention core is plain PyTorch."""
-    computes = _make_compute(plan, None, None)
+    computes = _make_compute(plan, ring, None, None)
     ph, hd = plan.pad_heads, plan.head_dim
     s = x.shape[0]
     gs = []
-    for i in range(ring.num_devices):
-        comp = None if computes is None else computes[i]
-        q, k_new, v_new = _decode_qkv(ps[i], x, comp, ph, hd)
-        ks, vs = kv_step(i, k_new[:, 0], v_new[:, 0])
+    for j, p in enumerate(ps):
+        comp = None if computes is None else computes[j]
+        q, k_new, v_new = _decode_qkv(p, x, comp, ph, hd)
+        ks, vs = kv_step(j, k_new[:, 0], v_new[:, 0])
         scores = torch.einsum("bqhd,bthd->bhqt", q, ks).float() / math.sqrt(hd)
         scores = torch.where(valid[:, None, None, :], scores,
                              torch.full((), NEG_INF, device=x.device))
         probs = torch.softmax(scores, dim=-1).to(vs.dtype)
         attn = torch.einsum("bhqt,bthd->bqhd", probs, vs).reshape(s, 1, ph * hd)
-        gs.append(comp.wo_gemm(attn, ps[i]["wo"]) if comp is not None
-                  else torch.matmul(attn, ps[i]["wo"]))
+        gs.append(comp.wo_gemm(attn, p["wo"]) if comp is not None
+                  else torch.matmul(attn, p["wo"]))
     return _tp_exit(ps, x, gs, computes, ring)
 
 
-def hmp_decode(layers: Sequence, x, ring: LocalRing, cache: List[Dict],
+def hmp_decode(layers: Sequence, x, ring: Ring, cache: List[Dict],
                positions, *, plan: ExecPlan, block_table=None):
     """One decode step for a stack of HMP layers.
 
@@ -621,37 +639,37 @@ def hmp_decode(layers: Sequence, x, ring: LocalRing, cache: List[Dict],
         phys = block_table[rows, positions // page_size]
         within = positions % page_size
         head_ok = [torch.arange(plan.pad_heads, device=x.device) < plan.heads[i]
-                   for i in range(ring.num_devices)]
+                   for i in ring.devices]
     valid = torch.arange(t, device=x.device)[None, :] <= positions[:, None]
     for p, c in zip(layers, cache):
         if block_table is None:
-            def kv_step(i, k_new, v_new, c=c):
-                c["k"][i][rows, positions] = k_new
-                c["v"][i][rows, positions] = v_new
-                return c["k"][i], c["v"][i]
+            def kv_step(j, k_new, v_new, c=c):
+                c["k"][j][rows, positions] = k_new
+                c["v"][j][rows, positions] = v_new
+                return c["k"][j], c["v"][j]
         else:
-            def kv_step(i, k_new, v_new, c=c):
-                c["k"][i][phys, within] = k_new
-                c["v"][i][phys, within] = v_new
+            def kv_step(j, k_new, v_new, c=c):
+                c["k"][j][phys, within] = k_new
+                c["v"][j][phys, within] = v_new
                 # read only this device's valid head slots of live pages;
                 # pad slots route to the (zero) null page
-                return (_paged_kv_gather(c["k"][i], block_table, head_ok[i]),
-                        _paged_kv_gather(c["v"][i], block_table, head_ok[i]))
-        x = _decode_layer(_as_shards(plan, p), x, kv_step, valid, plan=plan,
+                return (_paged_kv_gather(c["k"][j], block_table, head_ok[j]),
+                        _paged_kv_gather(c["v"][j], block_table, head_ok[j]))
+        x = _decode_layer(_as_shards(plan, p, ring), x, kv_step, valid, plan=plan,
                           ring=ring)
     return x, cache
 
 
 # --- baselines (paper §IV): Megatron-LM TP and pure sequence parallelism -------
 
-def _even_plan(p: Dict, ring: LocalRing) -> ExecPlan:
+def _even_plan(p: Dict, ring: Ring) -> ExecPlan:
     """The equal split of a reference-layout layer over the ring."""
     return ExecPlan.even(ring.num_devices, num_heads=p["wq"].shape[1],
                          d_ff=p["w1"].shape[1], head_dim=p["wq"].shape[2],
                          d_model=p["wq"].shape[0])
 
 
-def megatron_layer(p, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
+def megatron_layer(p, x, ring: Ring, *, plan: Optional[ExecPlan] = None):
     """Megatron-LM TP baseline.  x: (B, S, d) replicated on every device;
     each device runs its head and column shards over the whole sequence,
     each block exits through an all-reduce, and the connective blocks run
@@ -664,23 +682,23 @@ def megatron_layer(p, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
     if plan.num_devices != ring.num_devices:
         raise ValueError(f"plan covers {plan.num_devices} devices but the ring "
                          f"has {ring.num_devices}")
-    ps = _as_shards(plan, p)
-    computes = _make_compute(plan, None, x.shape[1])
+    ps = _as_shards(plan, p, ring)
+    computes = _make_compute(plan, ring, None, x.shape[1])
     ph, hd = plan.pad_heads, plan.head_dim
     gs = []
-    for i in range(ring.num_devices):
-        comp = None if computes is None else computes[i]
-        q, k, v = _decode_qkv(ps[i], x, comp, ph, hd)
+    for j, sh in enumerate(ps):
+        comp = None if computes is None else computes[j]
+        q, k, v = _decode_qkv(sh, x, comp, ph, hd)
         if comp is not None:
             attn = comp.attention(q, k, v).reshape(*x.shape[:2], ph * hd)
-            gs.append(comp.wo_gemm(attn, ps[i]["wo"]))
+            gs.append(comp.wo_gemm(attn, sh["wo"]))
         else:
             attn = _attention(q, k, v).reshape(*x.shape[:2], ph * hd)
-            gs.append(torch.matmul(attn, ps[i]["wo"]))
+            gs.append(torch.matmul(attn, sh["wo"]))
     return _tp_exit(ps, x, gs, computes, ring)
 
 
-def sp_layer(p: Dict, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
+def sp_layer(p: Dict, x, ring: Ring, *, plan: Optional[ExecPlan] = None):
     """Pure sequence-parallelism baseline.  x: (B, S, d) split evenly over
     the ring's devices; the weights (reference layout) are replicated on
     each (the memory wall), and K and V need the whole sequence: two
@@ -694,14 +712,14 @@ def sp_layer(p: Dict, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
     if x.shape[1] % d:
         raise ValueError(f"sequence of {x.shape[1]} rows does not split evenly "
                          f"over {d} devices")
-    xs = _split_seq(x, d)
+    xs = _split_seq(x, ring)
     s_loc = xs[0].shape[1]
     qs = [torch.einsum("bsd,dhk->bshk", t, p["wq"]) for t in xs]
     k = ring.all_gather([torch.einsum("bsd,dhk->bshk", t, p["wk"]) for t in xs], dim=1)
     v = ring.all_gather([torch.einsum("bsd,dhk->bshk", t, p["wv"]) for t in xs], dim=1)
     k_pos = torch.arange(k.shape[1], device=x.device)
     outs = []
-    for i, (xl, q) in enumerate(zip(xs, qs)):
+    for i, xl, q in zip(ring.devices, xs, qs):
         # causal offset of the local query block
         q_pos = i * s_loc + torch.arange(s_loc, device=x.device)
         attn = _attention(q, k, v, mask=k_pos[None, :] <= q_pos[:, None])
@@ -710,7 +728,7 @@ def sp_layer(p: Dict, x, ring: LocalRing, *, plan: Optional[ExecPlan] = None):
         h = _gelu(torch.einsum("bsd,df->bsf", xl, p["w1"]))
         f = torch.einsum("bsf,fd->bsd", h, p["w2"])
         outs.append(_ln(xl + f, p["ln2_s"], p["ln2_b"]))
-    return torch.cat(outs, dim=1)
+    return ring.all_gather(outs, dim=1)
 
 
 SCHEDULES = {

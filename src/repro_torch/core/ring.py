@@ -10,13 +10,17 @@ tile's GEMM.  The program is one object:
   (``pad_tile``), the transport mode, double buffering, and the per-tile
   compute hook (``gemm``).
 
-The D devices are the shards of a :class:`LocalRing`: one process holds
-every device's tensors (a list of D tensors per quantity) and runs each
-device's step in turn.  A hop is an explicit device copy of the held tile
-to the next device; under bucketed transport a hop ships row segments and
-a receiver not named in a segment's pairs gets exact zeros, the
-partial-permutation rule of the reference's ``ppermute``.  So the shard
-compute is real and the wire is not timed.
+The D devices live on one of two rings with one interface.  On a
+:class:`LocalRing` one process holds every device's tensors (a list of D
+tensors per quantity) and runs each device's step in turn; a hop is a
+device copy, so the shard compute is real and the wire is not timed.  On a
+:class:`ProcessRing` each of D processes (``torch.distributed`` ranks) holds
+its own device's tensors (lists of one) and a hop is a point-to-point
+transfer over the process group.  ``ring.devices`` names the devices a
+process holds; every per-device list is in that order.  Under bucketed
+transport a hop ships row segments and a receiver not named in a
+segment's pairs gets exact zeros, the partial-permutation rule of the
+reference's ``ppermute``.
 
 Ragged sequence tiles ride the ring padded to ``pad_tile`` rows; at each
 step the pad rows of the held tile are masked out of the GEMM (or the
@@ -27,13 +31,15 @@ bitwise-equal results: the dataflow and summation order are unchanged.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-# per-tile GEMM hook: (device, x_tile (B,S,d), w (d,F), valid_rows | None)
-# -> (B,S,F) with pad rows (rows >= valid_rows) exactly zero
+# per-tile GEMM hook: (j, x_tile (B,S,d), w (d,F), valid_rows | None) ->
+# (B,S,F) with pad rows (rows >= valid_rows) exactly zero; j indexes the
+# devices this process holds (``ring.devices[j]``)
 TileGemm = Callable[..., torch.Tensor]
 
 #: supported wire formats for ragged tiles
@@ -47,20 +53,41 @@ def _perm(d: int, shift: int = 1):
     return [(i, (i + shift) % d) for i in range(d)]
 
 
+def _sum_in_order(vals: Sequence[torch.Tensor]) -> torch.Tensor:
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = acc + v
+    return acc
+
+
+class _Done:
+    """A hop that completed when it was posted (``permute_start``)."""
+
+    def __init__(self, vals: List[torch.Tensor]):
+        self._vals = vals
+
+    def wait(self) -> List[torch.Tensor]:
+        return self._vals
+
+
 class LocalRing:
     """D logical ring devices held as D shards in one process.
 
     Every per-device quantity is a list of D tensors on one card (or the
-    CPU).  ``permute`` is the ring hop, ``psum`` the all-reduce and
-    ``all_gather`` the gather; all are explicit, so the same program later
-    maps onto real point-to-point transport.  With one device there is no
-    hop: the ring primitives run their single step and ship nothing.
+    CPU), one per device of ``devices`` (all of them).  ``permute`` is the
+    ring hop, ``psum`` the all-reduce and ``all_gather`` the gather; the
+    same program runs on :class:`ProcessRing`, one process per device.
+    With one device there is no hop: the ring primitives run their single
+    step and ship nothing.
     """
+
+    transport = "local"
 
     def __init__(self, num_devices: int):
         if num_devices < 1:
             raise ValueError(f"a ring needs >= 1 device, got {num_devices}")
         self.num_devices = num_devices
+        self.devices = tuple(range(num_devices))
 
     def permute(self, vals: Sequence[torch.Tensor], pairs) -> List[torch.Tensor]:
         """Send ``vals[src]`` to ``dst`` for each ``(src, dst)`` pair (a
@@ -72,17 +99,168 @@ class LocalRing:
         return [o if o is not None else torch.zeros_like(v)
                 for o, v in zip(out, vals)]
 
+    def permute_start(self, vals: Sequence[torch.Tensor], pairs,
+                      tag: int = 0) -> _Done:
+        """``permute`` as a posted hop (``.wait()`` gives its result); a
+        copy completes when it is posted."""
+        return _Done(self.permute(vals, pairs))
+
     def psum(self, vals: Sequence[torch.Tensor]) -> torch.Tensor:
         """Sum over the D shards (the all-reduce of the decode step)."""
-        acc = vals[0]
-        for v in vals[1:]:
-            acc = acc + v
-        return acc
+        return _sum_in_order(vals)
 
     def all_gather(self, vals: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
         """The D shards joined along ``dim`` in device order (what every
         device holds after the all-gather of the SP baseline)."""
         return torch.cat(list(vals), dim=dim)
+
+    def agree(self, t: torch.Tensor) -> torch.Tensor:
+        """The value every device takes for a host decision (sampled token
+        ids): one process decides alone, so ``t`` itself."""
+        return t
+
+
+class _Posted:
+    """The point-to-point operations of one :class:`ProcessRing` hop, in
+    flight; ``wait`` completes them and gives the received tile."""
+
+    def __init__(self, works, finish: Callable[[], List[torch.Tensor]],
+                 keep: Sequence[torch.Tensor]):
+        self._works = works
+        self._finish = finish
+        self._keep = keep  # send buffers stay alive until the sends complete
+
+    def wait(self) -> List[torch.Tensor]:
+        for w in self._works:
+            w.wait()
+        self._keep = ()
+        return self._finish()
+
+
+class ProcessRing:
+    """D ring devices, one per process: this process is rank ``rank`` of
+    ``group`` (the default group when None) and holds device ``rank``.
+
+    The interface is :class:`LocalRing`'s with lists of one tensor (this
+    device's).  ``permute`` posts this rank's part of the hop (a send where
+    it is a source in ``pairs``, a receive where it is a destination) with
+    ``dist.batch_isend_irecv``; a rank named in no pair posts nothing and
+    gets exact zeros.  Every rank calls the ring primitives in the same
+    order with the same arguments, so the operations the ranks post always
+    match.  ``psum`` is an all-gather followed by a sum in device order,
+    as ``LocalRing.psum`` adds, so every rank holds the same bits and a
+    run equals a ``LocalRing`` run bit for bit.
+
+    The transport is gloo.  CUDA tensors are staged through pinned host
+    buffers here and nowhere else (route "host-staged"); CPU tensors go as
+    they are ("direct").  ``hops``, ``hop_bytes`` and ``routes`` count the
+    hops this rank took part in, the bytes it sent and each route's hops.
+    """
+
+    transport = "gloo"
+
+    def __init__(self, rank: int, num_devices: int, group=None):
+        if num_devices < 1:
+            raise ValueError(f"a ring needs >= 1 device, got {num_devices}")
+        size = dist.get_world_size(group)
+        if size != num_devices:
+            raise ValueError(f"the process group has {size} ranks but the ring "
+                             f"needs {num_devices}")
+        if not 0 <= rank < num_devices:
+            raise ValueError(f"rank {rank} is outside a ring of {num_devices}")
+        self.group = group
+        self.rank = rank
+        self.num_devices = num_devices
+        self.devices = (rank,)
+        self.hops = 0
+        self.hop_bytes = 0
+        self.routes = {}  # route -> hops that took it
+
+    def _peer(self, device: int) -> int:
+        return device if self.group is None else dist.get_global_rank(self.group, device)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> torch.Tensor:
+        """A contiguous host copy the transport may read (CPU tensors are
+        sent from their own memory)."""
+        if not t.is_cuda:
+            return t.contiguous()
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return buf
+
+    @staticmethod
+    def _host_like(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+
+    @staticmethod
+    def _to_device(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        # the pinned buffer is not reused until this copy has run: the
+        # caching host allocator records the copy's stream on it
+        return buf.to(like.device, non_blocking=True) if like.is_cuda else buf
+
+    def permute_start(self, vals: Sequence[torch.Tensor], pairs,
+                      tag: int = 0) -> Union[_Posted, _Done]:
+        """Post this rank's part of the hop ``pairs``; ``.wait()`` gives
+        the received tile (exact zeros when nothing is received).
+        ``tag`` tells apart the hops posted together (bucketed segments)."""
+        (v,) = vals
+        me = self.rank
+        dst = [d for s, d in pairs if s == me]
+        src = [s for s, d in pairs if d == me]
+        if dst == [me]:  # a one-device ring keeps its own tile
+            return _Done([v.clone()])
+        ops, sends = [], []
+        if dst:
+            host = self._to_host(v)
+            sends.append(host)
+            ops.append(dist.P2POp(dist.isend, host, self._peer(dst[0]), self.group, tag))
+            self.hop_bytes += host.numel() * host.element_size()
+        recv = None
+        if src:
+            recv = self._host_like(v)
+            ops.append(dist.P2POp(dist.irecv, recv, self._peer(src[0]), self.group, tag))
+        if not ops:
+            return _Done([torch.zeros_like(v)])
+        self.hops += 1
+        route = "host-staged" if v.is_cuda else "direct"
+        self.routes[route] = self.routes.get(route, 0) + 1
+        works = dist.batch_isend_irecv(ops)
+
+        def finish():
+            return [torch.zeros_like(v) if recv is None else self._to_device(recv, v)]
+
+        return _Posted(works, finish, sends)
+
+    def permute(self, vals: Sequence[torch.Tensor], pairs) -> List[torch.Tensor]:
+        return self.permute_start(vals, pairs).wait()
+
+    def _gather(self, v: torch.Tensor) -> List[torch.Tensor]:
+        """Every device's tensor, in device order, on ``v``'s device."""
+        host = self._to_host(v)
+        parts = [self._host_like(v) for _ in range(self.num_devices)]
+        dist.all_gather(parts, host, group=self.group)
+        return [self._to_device(p, v) for p in parts]
+
+    def psum(self, vals: Sequence[torch.Tensor]) -> torch.Tensor:
+        (v,) = vals
+        return _sum_in_order(self._gather(v))
+
+    def all_gather(self, vals: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        (v,) = vals
+        return torch.cat(self._gather(v), dim=dim)
+
+    def agree(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank (token ids sampled on each rank;
+        the host state of every rank moves on from the same ids)."""
+        host = self._to_host(t).clone()
+        dist.broadcast(host, src=self._peer(0), group=self.group)
+        return self._to_device(host, t)
+
+
+#: either ring: the HMP program is written once against this interface
+Ring = Union[LocalRing, ProcessRing]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,33 +410,55 @@ class RingSchedule:
 
     # --- the hop itself -------------------------------------------------------
 
-    def ship(self, tiles: Sequence[torch.Tensor], ring: LocalRing,
-             hop: int) -> List[torch.Tensor]:
-        """One ring hop (device i -> i+1) of the currently held tiles.
+    def ship_start(self, tiles: Sequence[torch.Tensor], ring: "Ring", hop: int):
+        """Post one ring hop (device i -> i+1) of the currently held tiles;
+        ``.wait()`` gives the received tiles.
 
-        Padded transport copies each whole tile.  Bucketed transport ships
-        the row segments between consecutive bucket boundaries; a segment
-        names only the devices whose held tile reaches that boundary, so
-        receivers of an omitted segment get exact zeros (their pad rows).
+        Padded transport sends each whole tile.  Bucketed transport ships
+        the row segments between consecutive bucket boundaries, all posted
+        together; a segment names only the devices whose held tile reaches
+        that boundary, so receivers of an omitted segment get exact zeros
+        (their pad rows).
         """
         d = self.num_devices
         if not self.is_bucketed:
-            return ring.permute(tiles, _perm(d))
+            return ring.permute_start(tiles, _perm(d))
         buckets = self.buckets
         bounds = self.segment_bounds
-        parts: List[List[torch.Tensor]] = [[] for _ in range(d)]
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
+        posted = []
+        for seg, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
             pairs = [(i, (i + 1) % d) for i in range(d)
                      if buckets[(i - hop) % d] >= hi]
-            moved = ring.permute([t[:, lo:hi] for t in tiles], pairs)
-            for i in range(d):
-                parts[i].append(moved[i])
-        if bounds[-1] < self.pad_tile:
-            for i, t in enumerate(tiles):
+            posted.append(ring.permute_start([t[:, lo:hi] for t in tiles], pairs,
+                                             tag=seg))
+        return _Segments(posted, tiles, self.pad_tile - bounds[-1])
+
+    def ship(self, tiles: Sequence[torch.Tensor], ring: "Ring",
+             hop: int) -> List[torch.Tensor]:
+        """One ring hop, posted and completed (``ship_start``)."""
+        return self.ship_start(tiles, ring, hop).wait()
+
+
+class _Segments:
+    """The bucketed segments of one hop in flight; ``wait`` joins each
+    device's received segments and its zero tail past the last bucket."""
+
+    def __init__(self, posted, tiles: Sequence[torch.Tensor], tail: int):
+        self._posted = posted
+        self._tiles = tiles
+        self._tail = tail
+
+    def wait(self) -> List[torch.Tensor]:
+        moved = [p.wait() for p in self._posted]
+        out = []
+        for j, t in enumerate(self._tiles):
+            parts = [m[j] for m in moved]
+            if self._tail > 0:
                 shape = list(t.shape)
-                shape[1] = self.pad_tile - bounds[-1]
-                parts[i].append(t.new_zeros(shape))
-        return [p[0] if len(p) == 1 else torch.cat(p, dim=1) for p in parts]
+                shape[1] = self._tail
+                parts.append(t.new_zeros(shape))
+            out.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1))
+        return out
 
 
 def _masked_rows(tile: torch.Tensor, valid: int) -> torch.Tensor:
@@ -311,58 +511,63 @@ def _resolve_scatter(schedule: Optional[RingSchedule], *, d: int,
     return schedule
 
 
-def _tile_gemm(sched: RingSchedule, dev: int, tile, w, valid: Optional[int]):
+def _tile_gemm(sched: RingSchedule, j: int, tile, w, valid: Optional[int]):
     if sched.gemm is not None:
         # valid-length kernel: masks pad rows itself and skips pad blocks
-        return sched.gemm(dev, tile, w, valid)
+        return sched.gemm(j, tile, w, valid)
     if valid is not None:
         tile = _masked_rows(tile, valid)
     return torch.matmul(tile, w)
 
 
 def ring_allgather_matmul(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
-                          ring: LocalRing, *,
+                          ring: Ring, *,
                           schedule: Optional[RingSchedule] = None):
     """Overlapped ``all_gather(x, seq) @ w_local`` on every ring device.
 
-    xs[i]: (B, S_loc, d) — device i's sequence tile (paper's H_i)
-    ws[i]: (d, F_loc)    — device i's column shard (paper's W_i^D)
-    returns: per device (B, D*pad_tile, F_loc) — full-sequence activation
-             (padded layout when ragged), local columns.
+    xs[j]: (B, S_loc, d) — the sequence tile of device i = ring.devices[j]
+             (paper's H_i)
+    ws[j]: (d, F_loc)    — device i's column shard (paper's W_i^D)
+    returns: per held device (B, D*pad_tile, F_loc) — full-sequence
+             activation (padded layout when ragged), local columns.
 
-    Step r computes the GEMM for the tile received r hops ago while the
-    next tile is in flight; the final step does no communication.
+    Step r computes the GEMM for the tile received r hops ago.  Under
+    double buffering the next hop is posted before the step's GEMMs and
+    waited on after them, so it is in flight while they run; the final
+    step does no communication.
     """
     d = ring.num_devices
     b, s_loc, _ = xs[0].shape
     sched = _resolve_allgather(schedule, d=d, s_loc=s_loc)
     vs = sched.valid_sizes if sched.is_masked else None
     ts = sched.pad_tile
-    outs = [xs[i].new_empty((b, d * ts, ws[i].shape[1])) for i in range(d)]
+    outs = [x.new_empty((b, d * ts, w.shape[1])) for x, w in zip(xs, ws)]
     tiles = list(xs)
     for r in range(d):
-        nxt = None
+        hop = None
         if sched.double_buffer and r != d - 1:
             # issue hop r before the GEMMs that free its buffer
-            nxt = sched.ship(tiles, ring, r)
-        for i in range(d):
+            hop = sched.ship_start(tiles, ring, r)
+        for j, i in enumerate(ring.devices):
             src = sched.source(i, r)  # owner of the tile device i holds
             vrows = None if vs is None else int(vs[src])
-            outs[i][:, src * ts:(src + 1) * ts] = _tile_gemm(
-                sched, i, tiles[i], ws[i], vrows)
+            outs[j][:, src * ts:(src + 1) * ts] = _tile_gemm(
+                sched, j, tiles[j], ws[j], vrows)
         if r != d - 1:
-            tiles = nxt if nxt is not None else sched.ship(tiles, ring, r)
+            tiles = (hop if hop is not None else sched.ship_start(tiles, ring, r)).wait()
     return outs
 
 
 def matmul_ring_reducescatter(hs: Sequence[torch.Tensor],
-                              ws: Sequence[torch.Tensor], ring: LocalRing, *,
+                              ws: Sequence[torch.Tensor], ring: Ring, *,
                               schedule: Optional[RingSchedule] = None):
     """Overlapped ``psum_scatter(h_local @ w_local, seq)`` over the ring.
 
-    hs[i]: (B, S, F_loc) — full sequence, device i's column shard (E_i)
-    ws[i]: (F_loc, d)    — row shard of the second GEMM (W_i^E)
-    returns: per device (B, pad_tile, d) — its tile of the summed output.
+    hs[j]: (B, S, F_loc) — full sequence, the column shard (E_i) of
+             device i = ring.devices[j]
+    ws[j]: (F_loc, d)    — row shard of the second GEMM (W_i^E)
+    returns: per held device (B, pad_tile, d) — its tile of the summed
+             output.
 
     At step r device i GEMMs its tile (i - r + D - 1) mod D and adds the
     partial sum arriving from its predecessor, which processed the same
@@ -376,21 +581,20 @@ def matmul_ring_reducescatter(hs: Sequence[torch.Tensor],
 
     acc = None
     for r in range(d):
-        inc = None
+        hop = None
         if acc is not None and sched.double_buffer:
             # the partial-accumulator hop is issued before this step's GEMMs
-            inc = sched.ship(acc, ring, r)
+            hop = sched.ship_start(acc, ring, r)
         parts = []
-        for i in range(d):
+        for j, i in enumerate(ring.devices):
             t = (i - r + d - 1) % d  # tile index device i processes this step
-            tile = hs[i][:, t * ts:(t + 1) * ts]
-            parts.append(_tile_gemm(sched, i, tile, ws[i],
+            tile = hs[j][:, t * ts:(t + 1) * ts]
+            parts.append(_tile_gemm(sched, j, tile, ws[j],
                                     None if vs is None else int(vs[t])))
         if acc is None:
             acc = parts
         else:
-            if inc is None:
-                inc = sched.ship(acc, ring, r)
+            inc = (hop if hop is not None else sched.ship_start(acc, ring, r)).wait()
             acc = [p + c for p, c in zip(parts, inc)]
     return acc
 
@@ -409,7 +613,7 @@ def _mask_global(x: torch.Tensor, vs: np.ndarray, tile_size: int):
 
 
 def sync_allgather_matmul(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
-                          ring: LocalRing, *,
+                          ring: Ring, *,
                           schedule: Optional[RingSchedule] = None):
     """Unoverlapped oracle for ``ring_allgather_matmul`` (same schedule arg).
 
@@ -418,26 +622,25 @@ def sync_allgather_matmul(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]
     """
     d = ring.num_devices
     sched = _resolve_allgather(schedule, d=d, s_loc=xs[0].shape[1])
-    xg = torch.cat(list(xs), dim=1)
+    xg = ring.all_gather(xs, dim=1)
     if sched.is_masked:
         # the gathered sequence mixes per-tile valid counts, which the
         # prefix-valid kernel cannot express: mask rows here either way
         xg = _mask_global(xg, sched.valid_sizes, sched.pad_tile)
-    return [_tile_gemm(sched, i, xg, ws[i], None) for i in range(d)]
+    return [_tile_gemm(sched, j, xg, w, None) for j, w in enumerate(ws)]
 
 
 def sync_matmul_reducescatter(hs: Sequence[torch.Tensor],
-                              ws: Sequence[torch.Tensor], ring: LocalRing, *,
+                              ws: Sequence[torch.Tensor], ring: Ring, *,
                               schedule: Optional[RingSchedule] = None):
     """Unoverlapped oracle for ``matmul_ring_reducescatter``."""
     d = ring.num_devices
     sched = _resolve_scatter(schedule, d=d, s=hs[0].shape[1])
     outs = []
-    for i in range(d):
-        h = hs[i]
+    for j, (h, w) in enumerate(zip(hs, ws)):
         if sched.is_masked:
             h = _mask_global(h, sched.valid_sizes, sched.pad_tile)
-        outs.append(_tile_gemm(sched, i, h, ws[i], None))
+        outs.append(_tile_gemm(sched, j, h, w, None))
     total = ring.psum(outs)
     ts = sched.pad_tile
-    return [total[:, i * ts:(i + 1) * ts] for i in range(d)]
+    return [total[:, i * ts:(i + 1) * ts] for i in ring.devices]

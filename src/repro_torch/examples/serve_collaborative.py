@@ -7,8 +7,9 @@ the paper's HMP layer schedules, on the port's executors.
 The ten demos of the reference's example, each on a reduced model:
 
 1. ``serve_demo``: sampled serving of the zoo's ``TransformerExecutor``.
-2. ``hmp_demo``: the four ``core/hmp.py`` ``SCHEDULES`` on a 4-device
-   ``LocalRing`` against ``reference_layer``.
+2. ``hmp_demo``: the four ``core/hmp.py`` ``SCHEDULES`` on four gloo
+   ranks, one process per ring device (``ProcessRing``), against
+   ``reference_layer``.
 3. ``continuous_batching_demo``: continuous batching vs waves on skewed
    output lengths.
 4. ``speculative_decoding_demo``: a draft proposes k = 4 tokens, one chunk
@@ -28,14 +29,18 @@ The ten demos of the reference's example, each on a reduced model:
 The continuous scheduler admits a request when a decode slot is free and
 the paged pool can reserve its worst-case pages, prefills it straight into
 its pages, advances every live slot one token per step at its own depth,
-and refills a retired slot from the queue on the same step.  The D devices
-of a Galaxy plan are D shards of one card (``LocalRing``): the shard
-compute is real, a ring hop is a device copy.
+and refills a retired slot from the queue on the same step.  The serving
+demos hold the D devices of a Galaxy plan as D shards of one card
+(``LocalRing``): the shard compute is real, a ring hop is a device copy.
+``hmp_demo`` runs its ring as four processes (``launch/ranks.py``), as
+the reference runs its schedules on four forced CPU devices; each rank
+holds one device's shards and a hop crosses gloo.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Dict, List, Optional
 
@@ -50,6 +55,7 @@ from repro_torch.core.planner import DeviceProfile, ModelProfile
 from repro_torch.core.profiler import AnalyticProfiler
 from repro_torch.core.ring import LocalRing
 from repro_torch.core.simulator import make_step_pricer, simulate_execplan
+from repro_torch.launch import ranks
 from repro_torch.models.params import init_params
 from repro_torch.obs import DriftMonitor, Tracer
 from repro_torch.serving import (GalaxyHMPExecutor, Request, SamplerConfig, ServingEngine,
@@ -99,20 +105,35 @@ def serve_demo(dev):
     return len(done)
 
 
-def hmp_demo(dev):
-    """The paper's four schedules on a 4-device ring (Figs. 5-7)."""
+def hmp_rank(args) -> None:
+    """One rank of ``hmp_demo``: the four schedules over the process ring;
+    prints this rank's errors as a JSON line."""
+    ring, dev = ranks.init(args.rank, 4, args.init_method, device=args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     p = hmp.init_layer_params(128, 8, 512, generator=gen, device=dev)
     x = torch.randn(1, 64, 128, generator=gen, device=dev)
-    ring = LocalRing(4)
     plan = ExecPlan.even(4, num_heads=8, d_ff=512, head_dim=16, d_model=128)
     ref = hmp.reference_layer(p, x)
-    print("HMP schedules on a 4-device ring (paper Fig. 5-7):")
-    errs = {}
     with torch.no_grad():
-        for name, fn in hmp.SCHEDULES.items():
-            errs[name] = float((fn(p, x, ring, plan=plan) - ref).abs().max())
-            print(f"  {name:10s} matches reference: max_err={errs[name]:.2e}")
+        errs = {name: float((fn(p, x, ring, plan=plan) - ref).abs().max())
+                for name, fn in hmp.SCHEDULES.items()}
+    ranks.finish()
+    print(json.dumps(errs), flush=True)
+
+
+def hmp_demo(dev):
+    """The paper's four schedules on a 4-device ring (Figs. 5-7), one
+    process per device: each rank's output (gathered over the ring)
+    against ``reference_layer``; the largest error over the ranks."""
+    argv = ["--demos", "hmp", "--device", dev.type]
+    outs = ranks.launch(ranks.python_module("repro_torch.examples.serve_collaborative",
+                                            argv), 4, timeout=120, capture=True)
+    per_rank = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in outs]
+    print("HMP schedules on a 4-device ring of 4 gloo ranks (paper Fig. 5-7):")
+    errs = {}
+    for name in hmp.SCHEDULES:
+        errs[name] = max(e[name] for e in per_rank)
+        print(f"  {name:10s} matches reference: max_err={errs[name]:.2e} (4 ranks)")
     return errs
 
 
@@ -346,7 +367,10 @@ def main(argv=None) -> Dict[str, object]:
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="write telemetry_demo's Chrome trace-event JSON here")
     ap.add_argument("--demos", default=",".join(DEMOS), help=f"comma-separated, of {DEMOS}")
+    ranks.add_rank_args(ap)
     args = ap.parse_args(argv)
+    if args.rank is not None:
+        return hmp_rank(args)
     dev = resolve_device(args.device)
     fns = {
         "serve": lambda: serve_demo(dev),

@@ -9,12 +9,17 @@ by a digest of their source, of every ``csrc/`` header it includes
 and of the flags, so an edited source or header is rebuilt and a stale
 library is never loaded.  The build directory is
 ``kernels/_build/`` (listed in ``.gitignore``); ``ptxas``'s register and
-shared-memory report for each source is kept there as ``<name>.log``.
+shared-memory report for each source is kept there as ``<name>.log``.  A
+build holds a file lock on ``_build/.lock`` as well as a thread lock, so
+processes that start together (the ranks of a ``ProcessRing``) compile
+each source once: the first builds, the others wait and find it built.
 :func:`sm_count` gives the launch plans the device's SM count.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -76,18 +81,33 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This process's thread lock, then the build directory's file lock
+    (released when the process ends, however it ends)."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> Dict[str, float]:
     """Compile every source that has no current library, in parallel.
 
     Returns the seconds each compiled source took (empty when all were
-    built already).  Raises ``RuntimeError`` with the compiler's output if
-    any build fails.
+    built already, here or by another process).  Raises ``RuntimeError``
+    with the compiler's output if any build fails.
     """
-    with _lock:
+    if all(_target(n).exists() for n in SOURCES):
+        return {}  # a library appears whole (os.replace) or not at all
+    with _build_lock():
         todo = [n for n in SOURCES if not _target(n).exists()]
         if not todo:
             return {}
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         t0 = time.perf_counter()
         procs: Dict[str, Tuple[subprocess.Popen, Path]] = {}

@@ -130,8 +130,10 @@ def ragged_attention(q, k, v, *, positions, valid_heads=None):
 
 def connective_group(xs, ress, scales, biases):
     """Fused residual-add + layernorm over the (..., S_i, d) activations of
-    every shard of one connective site — the Galaxy connective block as
-    one pass and one launch (dropout off at inference)."""
+    the shards of one connective site that this process holds — the Galaxy
+    connective block as one pass and one launch (dropout off at
+    inference): all D shards on a ``LocalRing``, one a rank on a
+    ``ProcessRing``."""
     return fused_connective_group(xs, ress, None, scales, biases, rate=0.0)
 
 

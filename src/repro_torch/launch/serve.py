@@ -16,10 +16,12 @@ model of the zoo through the continuous scheduler or waves.
       --model xlstm-350m --prompt-lens 256,256,256,256,300,300 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --model gpt2-l \\
       --draft-model distilbert --spec-k 4 --requests 4 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --model gpt2-l \\
+      --capacities 3,2,2,1 --ranks 4 --requests 8 --prompt-len 37-300
 
 ``--executor galaxy`` (the default): profiler -> planner (Alg. 1) ->
-``ExecPlan.from_plan`` -> Galaxy HMP executor on a single-process ring of
-one device per capacity -> the continuous-batching engine.  The cluster is ``len(capacities)`` edge
+``ExecPlan.from_plan`` -> Galaxy HMP executor on a ring of one device per
+capacity -> the continuous-batching engine.  The cluster is ``len(capacities)`` edge
 devices of ``c * 7.1`` GFLOP/s, ``c * 4`` GB/s memory and a 4 GB weight
 budget each, joined by 1 Gbit/s links; the planner splits heads, MLP
 columns and the sequence unevenly over them.  Weights are random, drawn
@@ -66,6 +68,19 @@ placed on the fastest device of the cluster (``place_draft``); with
 ``--executor zoo`` it is a zoo model.  Draft and served model must share
 a vocabulary.  The draft's weights are drawn from ``--seed`` + 2.
 
+``--ranks N`` runs the Galaxy executor's ring as N processes, one per
+edge device (``core/ring.ProcessRing`` over gloo; N must be the plan's
+device count): this process builds the kernels once, starts the ranks
+(``launch/ranks.py``) and waits for them.  Each rank draws the weights
+from ``--seed``, keeps its own layer and pool shards, and runs the same
+engine; rank 0 prints the serve line.  Rank r runs on ``cuda:(r % cards)``
+(or the CPU under ``--device cpu``).  A rank that fails or outlives
+``--rank-timeout`` stops the others and fails the serve.  Speculative
+decoding, the zoo executor, ``--trace``, ``--metrics`` and ``--drift``
+serve on one process and are refused with ``--ranks`` above 1.
+``--report DIR`` has each rank write ``DIR/rank<r>.json``: its served
+tokens, kernel launches and paths, engine stats and ring hops.
+
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
 """
@@ -74,6 +89,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 import time
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -92,8 +109,10 @@ from repro_torch.configs import (
 from repro_torch.core import costmodel, hmp
 from repro_torch.core.execplan import COMPUTE_BACKENDS, ExecPlan
 from repro_torch.core.profiler import AnalyticProfiler
-from repro_torch.core.ring import LocalRing
+from repro_torch.core.ring import LocalRing, ProcessRing, Ring
 from repro_torch.core.simulator import make_step_pricer
+from repro_torch.kernels import ops
+from repro_torch.launch import ranks as rank_procs
 from repro_torch.models.params import init_params, param_bytes
 from repro_torch.obs import DriftMonitor, Tracer
 from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor
@@ -131,16 +150,20 @@ def build_plan(cfg: ModelConfig, capacities: Sequence[float], *,
 
 def build_executor(cfg: ModelConfig, plan: ExecPlan, *, device: torch.device,
                    dtype: torch.dtype, seed: int = 0,
-                   num_layers: Optional[int] = None) -> GalaxyHMPExecutor:
+                   num_layers: Optional[int] = None,
+                   ring: Optional[Ring] = None) -> GalaxyHMPExecutor:
     """Random weights from ``seed`` (normal * 0.02, drawn on ``device``) on
-    a ring of ``plan.num_devices`` shards."""
+    ``ring`` (default: a ``LocalRing`` of ``plan.num_devices`` shards).  On
+    a ``ProcessRing`` every rank draws the same weights and keeps only its
+    own shards."""
     gen = torch.Generator(device=device).manual_seed(seed)
     n = cfg.num_layers if num_layers is None else num_layers
     layers = hmp.init_stack_params(n, cfg.d_model, cfg.num_heads, cfg.d_ff,
                                    generator=gen, device=device, dtype=dtype)
     embed = (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
                          device=device) * 0.02).to(dtype)
-    return GalaxyHMPExecutor(layers, embed, plan, LocalRing(plan.num_devices))
+    return GalaxyHMPExecutor(layers, embed, plan,
+                             LocalRing(plan.num_devices) if ring is None else ring)
 
 
 def build_draft(executor_kind: str, model: str, capacities: Sequence[float], *,
@@ -243,6 +266,19 @@ def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
             f"card's {CARD_BYTES / 1e9:.0f} GB: it waits for serving across cards")
 
 
+def refuse_across_ranks(executor_kind: str, *, draft: bool = False, tracer: bool = False,
+                        drift: bool = False, metrics: bool = False) -> None:
+    """What serves on one process only: raise on any of it with ranks."""
+    if executor_kind != "galaxy":
+        raise ValueError(f"the {executor_kind} executor serves on one process; "
+                         "--ranks runs the Galaxy executor's ring")
+    for what, on in (("speculative decoding (--draft-model)", draft),
+                     ("span tracing (--trace)", tracer), ("drift pricing (--drift)", drift),
+                     ("the metrics report (--metrics)", metrics)):
+        if on:
+            raise ValueError(f"{what} serves on one process, not across ranks")
+
+
 def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           executor_kind: str = "galaxy", requests: int = 8,
           prompt_len: Tuple[int, int] = (37, 300),
@@ -255,7 +291,8 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           draft_model: Optional[str] = None, spec_k: Optional[int] = None,
           draft_executor=None, temperature: float = 0.0,
           tracer: Optional[Tracer] = None, drift: bool = False,
-          record_times: bool = True, compute_backend: str = "kernel") -> Dict:
+          record_times: bool = True, compute_backend: str = "kernel",
+          ring: Optional[ProcessRing] = None) -> Dict:
     """Build (or take) the executor, serve random prompts and return the
     finished requests, throughput and latency figures, the engine's stats
     and prefix-cache stats, its pool, and the executor (whose weights a
@@ -274,8 +311,12 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     engine's registry is returned as ``"metrics"``.  ``compute_backend`` is
     the Galaxy executor's per-shard compute (``ExecPlan.compute_backend``):
     "kernel" runs the hand-written kernels, "eager" the padded plain
-    versions."""
+    versions.  ``ring`` (a ``ProcessRing``: this process is one rank of the
+    Galaxy ring) serves this rank's shards; every rank calls ``serve``
+    with the same arguments."""
     dev = resolve_device(device)
+    if ring is not None:
+        refuse_across_ranks(executor_kind)  # the engine refuses the rest
     if compute_backend != "kernel" and executor_kind != "galaxy":
         raise ValueError("compute_backend selects the Galaxy executor's per-shard compute; "
                          f"the {executor_kind} executor has none")
@@ -311,9 +352,12 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     if executor is None:
         if executor_kind == "galaxy":
             plan = build_plan(cfg, capacities, compute_backend=compute_backend)
+            if ring is not None and ring.num_devices != plan.num_devices:
+                raise ValueError(f"the plan has {plan.num_devices} devices but the ring "
+                                 f"has {ring.num_devices} ranks")
             executor = build_executor(cfg, plan, device=dev,
                                       dtype=getattr(torch, dtype or cfg.dtype),
-                                      seed=seed)
+                                      seed=seed, ring=ring)
         else:
             executor = build_zoo_executor(cfg, device=dev, dtype=dtype, seed=seed)
     max_prompt = prompt_len[1] if prompt_lens is None else max(prompt_lens)
@@ -345,6 +389,8 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     return {
         "plan": (executor.plan.describe() if executor_kind == "galaxy"
                  else describe_zoo(executor.cfg, resolved)),
+        "ranks": 1 if ring is None else ring.num_devices,
+        "transport": "local" if ring is None else ring.transport,
         "requests": sorted(done, key=lambda r: r.uid),
         "seconds": seconds,
         "new_tokens": new_tokens,
@@ -360,6 +406,52 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "draft_device": draft_device,
         "spec": engine.spec,
     }
+
+
+def write_report(directory: str, out: Dict, rank: int) -> None:
+    """``directory/rank<rank>.json``: what this process served (tokens by
+    request), its kernel launches and paths since the serve began, the
+    engine's stats, and its ring's hops."""
+    ring = getattr(out["executor"], "ring", None)
+    os.makedirs(directory, exist_ok=True)
+    rep = {"rank": rank, "ranks": out["ranks"], "transport": out["transport"],
+           "tokens": {r.uid: r.output for r in out["requests"]},
+           "launches": ops.launch_counts(), "paths": ops.path_counts(),
+           "stats": out["stats"],
+           "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
+           "ttft_p50_s": out["ttft_p50_s"],
+           "hops": getattr(ring, "hops", 0), "hop_bytes": getattr(ring, "hop_bytes", 0),
+           "routes": getattr(ring, "routes", {})}
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+
+
+def launch_ranks(args, capacities: Sequence[float], argv) -> None:
+    """``--ranks N``: check the request, build the kernels once, start the N
+    ranks and wait for them (``SystemExit`` with a message if a rank fails
+    or the ranks time out)."""
+    try:
+        refuse_across_ranks(args.executor, draft=args.draft_model is not None,
+                            tracer=args.trace is not None, drift=args.drift,
+                            metrics=args.metrics)
+    except ValueError as e:
+        raise SystemExit(f"--ranks {args.ranks}: {e}")
+    cfg = get_config(args.model)
+    if args.reduce:
+        cfg = reduced(cfg)
+    plan = build_plan(cfg, capacities, compute_backend=args.compute_backend)
+    if plan.num_devices != args.ranks:
+        raise SystemExit(f"--ranks {args.ranks} does not match the plan's "
+                         f"{plan.num_devices} devices (--capacities {args.capacities})")
+    if resolve_device(args.device).type == "cuda" and args.compute_backend == "kernel":
+        from repro_torch.kernels import build
+        build.build_all()  # once here, not once per rank
+    argv = list(sys.argv[1:] if argv is None else argv)
+    try:
+        rank_procs.launch(rank_procs.python_module("repro_torch.launch.serve", argv),
+                          args.ranks, timeout=args.rank_timeout)
+    except rank_procs.RankFailure as e:
+        raise SystemExit(f"serve --ranks {args.ranks} failed: {e}")
 
 
 def parse_prompt_len(text: str) -> Tuple[int, int]:
@@ -475,15 +567,45 @@ def main(argv=None):
                          "(core/simulator.make_step_pricer) and report "
                          "measured/simulated drift ratios (syncs once per prefill "
                          "chunk)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes of the Galaxy ring, one per edge device "
+                         "(core/ring.ProcessRing over gloo); 1 holds every device "
+                         "in this process (LocalRing).  Must equal the plan's "
+                         "device count")
+    ap.add_argument("--rank-timeout", type=float, default=1800.0, metavar="S",
+                    help="with --ranks: seconds the ranks may take in all")
+    ap.add_argument("--report", default=None, metavar="DIR",
+                    help="each rank writes DIR/rank<r>.json: served tokens, kernel "
+                         "launches and paths, engine stats, ring hops")
+    rank_procs.add_rank_args(ap)
     args = ap.parse_args(argv)
+    capacities = [float(c) for c in args.capacities.split(",")]
+    sched = scheduling_kwargs(args)
+    if args.ranks < 1:
+        raise SystemExit(f"--ranks must be >= 1, got {args.ranks}")
+    if args.ranks > 1 and args.rank is None:
+        return launch_ranks(args, capacities, argv)
+    ring = None
+    device = args.device
+    if args.rank is not None:
+        ring, device = rank_procs.init(args.rank, args.ranks, args.init_method,
+                                       device=args.device)
     tracer = Tracer() if args.trace is not None else None
-    out = serve(args.model, [float(c) for c in args.capacities.split(",")],
+    if args.report is not None:
+        ops.reset_launch_counts()
+    out = serve(args.model, capacities,
                 executor_kind=args.executor, requests=args.requests,
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,
                 max_new=args.max_new, max_batch=args.max_batch,
-                device=args.device, dtype=args.dtype, seed=args.seed,
+                device=device, dtype=args.dtype, seed=args.seed,
                 reduce=args.reduce, tracer=tracer, drift=args.drift,
-                compute_backend=args.compute_backend, **scheduling_kwargs(args))
+                compute_backend=args.compute_backend, ring=ring, **sched)
+    if args.report is not None:
+        write_report(args.report, out, 0 if args.rank is None else args.rank)
+    if args.rank is not None:
+        rank_procs.finish()
+        if args.rank != 0:
+            return
     print(out["plan"])
     print(json.dumps({k: v for k, v in out.items()
                       if k not in ("plan", "requests", "pool", "executor",

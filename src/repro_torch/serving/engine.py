@@ -415,6 +415,18 @@ class ServingEngine:
                                  "executor's prefill_chunk protocol")
             if not getattr(draft_executor, "supports_paged", False):
                 raise ValueError("draft executor must implement the paged protocol")
+        # a Galaxy executor on a ProcessRing runs this engine on every rank:
+        # the ranks agree on each sampled id (``_sample``), so admission,
+        # the prefix cache and the pool move in step on all of them
+        self._ring = getattr(executor, "ring", None)
+        if self._ring is not None and len(self._ring.devices) < self._ring.num_devices:
+            for what, on in (("speculative decoding", spec_k is not None),
+                             ("span tracing", tracer is not None),
+                             ("drift pricing", drift is not None)):
+                if on:
+                    raise ValueError(
+                        f"{what} serves on one process; this executor's ring spans "
+                        f"{self._ring.num_devices} processes")
         self.executor = executor
         self.scheduler = scheduler
         self.max_batch = max_batch
@@ -461,7 +473,13 @@ class ServingEngine:
         self.metrics.gauge("queue_depth").set(len(self.queue))
 
     def _sample(self, logits) -> np.ndarray:
-        return sample(logits, self.generator, self.sampler).cpu().numpy()
+        """Token ids of ``logits``: on a ring of processes, rank 0's
+        (``ring.agree``), so every rank's host state moves on from the same
+        ids."""
+        ids = sample(logits, self.generator, self.sampler).cpu()
+        if self._ring is not None:
+            ids = self._ring.agree(ids)
+        return ids.numpy()
 
     def _sample_positions(self, logits) -> np.ndarray:
         """Per-position sampling of the speculative verify chunk, (B, K, V)

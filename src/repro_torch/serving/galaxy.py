@@ -4,7 +4,12 @@ Bridges the serving engine (``serving/engine.py``) and the heterogeneity-
 aware HMP executor (``core/hmp.py``) under the uneven ``ExecPlan`` the
 planner produced.  Prefill runs the full TP/SP + ring program over the
 ring devices; decode runs the single-token TP step, each device touching
-only its own head shard of the cache.
+only its own head shard of the cache.  On a
+:class:`~repro_torch.core.ring.LocalRing` one executor holds every
+device's shards; on a :class:`~repro_torch.core.ring.ProcessRing` each
+rank's executor holds its own device's layer and pool shards, and the tied
+embedding is replicated: every rank embeds the prompt and computes the
+logits from the rows the ring gathers.
 
 Both scheduler protocols are implemented.  Wave: ``make_cache`` /
 ``prefill`` / ``decode`` against a dense per-wave cache.  Paged
@@ -30,14 +35,15 @@ import torch
 
 from repro_torch.core import hmp
 from repro_torch.core.execplan import ExecPlan
-from repro_torch.core.ring import LocalRing
+from repro_torch.core.ring import Ring
 
 
 class GalaxyHMPExecutor:
     """Wave and paged executor protocols over HMP layers.
 
     layers: stack of layer params in *reference* layout; padded and split
-            into per-device shards once here.
+            once here into the shards of the devices the ring holds (the
+            caller may drop the full layers afterwards).
     embed:  (vocab, d_model) tied embedding / unembedding table; its device
             and dtype are the executor's.
     plan:   compute backend and ring transport come from the plan
@@ -46,13 +52,13 @@ class GalaxyHMPExecutor:
     """
 
     def __init__(self, layers: Sequence[Dict], embed: torch.Tensor,
-                 plan: ExecPlan, ring: LocalRing):
+                 plan: ExecPlan, ring: Ring):
         if plan.num_devices != ring.num_devices:
             raise ValueError(f"plan covers {plan.num_devices} devices but the "
                              f"ring has {ring.num_devices}")
         self.plan = plan
         self.ring = ring
-        self.layers = [hmp.shard_layer_params(plan, p) for p in layers]
+        self.layers = [hmp.shard_layer_params(plan, p, ring.devices) for p in layers]
         self.embed = embed
         self.device = embed.device
 
@@ -106,7 +112,8 @@ class GalaxyHMPExecutor:
         bucketed prompt, not the plan's padded ragged extent."""
         grain = self.plan.seq_grain
         return hmp.make_kv_cache(batch, -(-max_len // grain) * grain, len(self.layers),
-                                 self.plan, device=self.device, dtype=self.embed.dtype)
+                                 self.plan, device=self.device, dtype=self.embed.dtype,
+                                 devices=self.ring.devices)
 
     def prefill(self, tokens, cache, lengths=None):
         """Prefill a wave (B, S), prompts right-padded to S.  Returns the
@@ -139,7 +146,7 @@ class GalaxyHMPExecutor:
     def make_pool(self, num_pages: int, page_size: int) -> List[Dict]:
         return hmp.make_kv_cache(
             num_pages, page_size, len(self.layers), self.plan,
-            device=self.device, dtype=self.embed.dtype,
+            device=self.device, dtype=self.embed.dtype, devices=self.ring.devices,
         )
 
     def prefill_paged(self, tokens, pool, block_row, length: int):

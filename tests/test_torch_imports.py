@@ -58,13 +58,16 @@ def test_import_leaves_jax_and_reference_out():
                                     "repro_torch.examples.quickstart",
                                     "repro_torch.examples.plan_heterogeneous",
                                     "repro_torch.examples.serve_collaborative",
-                                    "repro_torch.examples.train_small"])
+                                    "repro_torch.examples.train_small",
+                                    "repro_torch.core.ring", "repro_torch.launch.ranks",
+                                    "repro_torch.launch.ring_times"])
 def test_module_alone_leaves_jax_and_reference_out(module):
     """Each module of the Galaxy serving path and its telemetry, the zoo's MoE and
     xLSTM blocks, the training path (data, training, the trainer, dropout and remat),
     the multi-chip layout (sharding rules, meshes, shapes, the dry run and its
-    roofline), the experiments (hillclimb, calibration) and the examples, imported
-    alone in a fresh interpreter, pulls in neither ``jax`` nor ``repro``."""
+    roofline), the experiments (hillclimb, calibration), the examples, and the
+    ring across processes (the process ring, its launcher and its timing script),
+    imported alone in a fresh interpreter, pulls in neither ``jax`` nor ``repro``."""
     code = (
         f"import importlib, sys\nimportlib.import_module({module!r})\n"
         "bad = sorted(n for n in sys.modules\n"

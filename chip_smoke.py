@@ -124,7 +124,9 @@ and depth, their three kernels' calls logged at ``kernels/ops.py``:
              against spec off: in fp32 tokens equal, in fp16 equal up to
              near-ties (a top-2 logit gap below 0.05, each printed);
              ``pool.check()`` on both pools after every round; launch
-             counts exact (target and draft).
+             counts exact (target and draft).  The fp16 spec serve is
+             built as ``launch.serve`` builds it (draft seed 2 = ``--seed``
+             + 2): its tokens are phase 34's ``LocalRing`` twin.
 15. wave serve — fp16, the same 4 requests with ``scheduler="wave"``:
              tokens equal the continuous serve's up to near-ties, and
              ``ragged_flash_attention`` launched exactly 36 x 4 x waves.
@@ -293,9 +295,19 @@ Galaxy across processes runs last:
              fp16 tile, host-staged) and bytes per hop, and the prefill of
              the stack at S 256 under the overlapped ring with and
              without double buffering and under the sync schedule,
-             launches per rank exact for each.  A rank that fails or outlives its
-             limit fails the phase.  Four contexts on one card are not
-             four devices: no number here is a four-device speed-up.
+             launches per rank exact for each.  Then phase 14's fp16 spec
+             traffic and draft across the ranks, ``--spec-k 4`` with
+             ``--trace``, ``--metrics`` and ``--drift`` in the same run:
+             every rank's tokens bitwise equal to phase 14's, equal stats
+             and registry counters on every rank with at least one
+             verify chunk, the draft's launches on the rank of
+             ``place_draft``'s device only (printed), rank 0's trace
+             written (the export refuses an open span) with
+             ``spec_round``, ``draft_propose`` and ``spec_verify`` spans,
+             the drift summary with a ``spec_verify`` kind.  A rank that
+             fails or outlives its limit fails the phase.  Four contexts
+             on one card are not four devices: no number here is a
+             four-device speed-up.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -318,6 +330,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1732,8 +1745,9 @@ def phase_spec_serve(torch, rec, card):
     fp16 = {}
     for dtype in ("float32", "float16"):
         ex = galaxy_executor(torch, dtype)
-        draft, where = launch_serve.build_draft("galaxy", "distilbert", (3, 2, 2, 1),
-                                                device=ex.device, dtype=dtype, seed=2)
+        draft = launch_serve.build_draft("galaxy", "distilbert", device=ex.device,
+                                         dtype=dtype, seed=2)
+        where = launch_serve.draft_placement("galaxy", (3, 2, 2, 1))
         ops.reset_launch_counts()
         plain = launch_serve.serve("gpt2-l", (3, 2, 2, 1), executor=ex, dtype=dtype, **kw)
         torch.cuda.synchronize()
@@ -1761,7 +1775,7 @@ def phase_spec_serve(torch, rec, card):
             f"spec off {plain['tokens_per_s']:.1f} tok/s, spec on "
             f"{spec['tokens_per_s']:.1f} tok/s ({card}; random weights: no claim)")
         if dtype == "float16":
-            fp16 = {"executor": ex, "plain": plain}
+            fp16 = {"executor": ex, "plain": plain, "spec": spec["requests"]}
         del draft, spec
     return fp16
 
@@ -2043,8 +2057,8 @@ def phase_telemetry(torch, rec, card):
     del runs, on, stamps, tracer
 
     # (2) a short traced speculative serve
-    draft, _ = launch_serve.build_draft("galaxy", "distilbert", (3, 2, 2, 1),
-                                        device=ex.device, dtype="float16", seed=2)
+    draft = launch_serve.build_draft("galaxy", "distilbert", device=ex.device,
+                                     dtype="float16", seed=2)
     tracer = Tracer()
     ops.reset_launch_counts()
     spec = launch_serve.serve("gpt2-l", (3, 2, 2, 1), executor=ex, requests=2,
@@ -3285,31 +3299,45 @@ def _ranks_run(module, args, what):
     return out
 
 
-def ranks_serve(rec, card, what, local, extra):
-    """``launch.serve --ranks 4`` with phase 5's traffic plus ``extra``:
-    every rank's tokens equal the ``LocalRing`` serve's (``local``), its
-    launches exact for one held device and on their fast paths, its stats
-    equal to rank 0's.  The ranks' launches add to the kernels' records."""
+def ranks_serve(rec, card, what, local, extra, requests=8, trace=False):
+    """``launch.serve --ranks 4`` with phase 5's traffic (``requests`` of
+    them) plus ``extra``: every rank's tokens equal the ``LocalRing``
+    serve's (``local``), its launches exact for one held device (and the
+    draft's, on the draft's rank alone) and on their fast paths, its stats
+    and registry counters equal to rank 0's.  The ranks' launches add to
+    the kernels' records.  Returns rank 0's standard output, its serve
+    line, every rank's report and (``trace``) rank 0's trace events."""
+    events = None
     with tempfile.TemporaryDirectory() as tmp:
         stdout = _ranks_run("repro_torch.launch.serve", [
             "--model", "gpt2-l", "--capacities", "3,2,2,1", "--ranks", "4",
-            "--requests", "8", "--prompt-len", "37-300", "--max-new", "16",
+            "--requests", str(requests), "--prompt-len", "37-300", "--max-new", "16",
             "--max-batch", "4", "--page-size", "16", "--dtype", "float16", "--seed", "0",
-            "--rank-timeout", str(RANKS_TIMEOUT), "--report", tmp, *extra], what)
+            "--rank-timeout", str(RANKS_TIMEOUT), "--report", tmp, *extra]
+            + (["--trace", str(Path(tmp) / "trace.json")] if trace else []), what)
         reps = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(4)]
-    line = json.loads(stdout.strip().splitlines()[-1])
+        if trace:
+            events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+    line = next(json.loads(t) for t in stdout.splitlines() if t.startswith('{"ranks"'))
     if (line["ranks"], line["transport"]) != (4, "gloo"):
         raise AssertionError(f"{what}: serve line {line}")
     want = {str(uid): toks for uid, toks in local.items()}
     st = reps[0]["stats"]
-    expect = galaxy_expect(st, held=1)
+    where = line["draft_device"]
     for r, rep in enumerate(reps):
         if rep["tokens"] != want:
             bad = [u for u in want if rep["tokens"].get(u) != want[u]]
             raise AssertionError(f"{what}: rank {r} tokens differ from the LocalRing serve's "
                                  f"for requests {bad}")
-        if rep["stats"] != st:
-            raise AssertionError(f"{what}: rank {r} stats {rep['stats']} != rank 0's {st}")
+        if rep["stats"] != st or rep["counters"] != reps[0]["counters"]:
+            raise AssertionError(f"{what}: rank {r} stats {rep['stats']} / counters "
+                                 f"{rep['counters']} != rank 0's {st} / {reps[0]['counters']}")
+        draft = rep["draft"]
+        if (draft is not None) != (r == where):
+            raise AssertionError(f"{what}: rank {r} draft {draft}, the draft's device is "
+                                 f"{where}")
+        expect = galaxy_expect(st, held=1, draft=None if draft is None else
+                               types.SimpleNamespace(**draft))
         counts = {n: rep["launches"][n] for n in expect}
         if counts != expect or any(rep["launches"][n] for n in ZOO_KERNELS + ("tiled_gemm",)):
             raise AssertionError(f"{what}: rank {r} launches {rep['launches']} != {expect}")
@@ -3323,22 +3351,52 @@ def ranks_serve(rec, card, what, local, extra):
             raise AssertionError(f"{what}: rank {r} hops {rep['hops']} by {rep['routes']}")
     for n in GALAXY_KERNELS:
         rec[n].d["launches"] += sum(rep["launches"][n] for rep in reps)
+    expect = galaxy_expect(st, held=1)
     log("ranks", f"{what}: 4 ranks' tokens equal the LocalRing serve's for all "
         f"{len(want)} requests; launches per rank "
         f"{', '.join(f'{n} {expect[n]}' for n in GALAXY_KERNELS)} (as expected from "
         f"{st['prefill_oneshots']} one-shot and {st['prefill_chunks']} chunk prefills, "
-        f"{st['decode_steps']} decode steps), all on the fast paths")
+        f"{st['spec_steps']} verify chunks, {st['decode_steps'] - st['spec_steps']} decode "
+        f"steps)" + ("" if where is None else
+                     f", plus the draft's on rank {where} alone ({reps[where]['draft']})")
+        + ", all on the fast paths")
     log("ranks", f"{what}: hop route {reps[0]['routes']}; hops per rank "
         f"{[rep['hops'] for rep in reps]}, bytes per hop "
         f"{[round(rep['hop_bytes'] / rep['hops']) for rep in reps]}")
     log("ranks", f"{what}: {line['new_tokens']} new tokens in {line['seconds']:.2f} s: "
         f"{line['tokens_per_s']:.2f} tok/s, TTFT p50 {1e3 * line['ttft_p50_s']:.1f} ms on "
         f"4 ranks time-slicing one card, not four devices ({card})")
+    return stdout, line, reps, events
+
+
+def spec_ranks_serve(rec, card, local):
+    """Phase 14's fp16 spec serve across the four ranks with all three
+    telemetry flags: the checks of ``ranks_serve``, then the spec stats,
+    rank 0's trace spans and the drift and metrics reports."""
+    what = "4-rank spec + telemetry serve"
+    stdout, line, reps, events = ranks_serve(
+        rec, card, what, local, ["--draft-model", "distilbert", "--spec-k", "4",
+                                 "--metrics", "--drift"], requests=4, trace=True)
+    st = line["stats"]
+    if st["spec_steps"] < 1:
+        raise AssertionError(f"{what}: no verify chunk ran: {st}")
+    spans = {e["name"] for e in events if e["ph"] == "X"}
+    if not {"spec_round", "draft_propose", "spec_verify"} <= spans:
+        raise AssertionError(f"{what}: rank 0's trace has spans {sorted(spans)}")
+    for needle in ("  spec_verify: n=", "metrics snapshot:",
+                   f"repro_spec_steps_total {st['spec_steps']}"):
+        if needle not in stdout:
+            raise AssertionError(f"{what}: rank 0 printed no {needle.strip()!r}")
+    drift = [t.strip() for t in stdout.splitlines() if t.startswith("  ") and ": n=" in t]
+    log("ranks", f"{what}: draft on rank {line['draft_device']} (place_draft), k 4: "
+        f"{st['spec_steps']} verify chunks, acceptance {st['spec_acceptance']:.3f}, accepted "
+        f"per round {st['spec_accept_counts']}; rank 0's trace {len(events)} events with "
+        f"no open span; drift {drift}")
 
 
 def phase_ranks(torch, rec, card, local):
-    """Galaxy across processes (phase 34): the two four-rank serves, then
-    ``launch.ring_times``."""
+    """Galaxy across processes (phase 34): the two four-rank serves,
+    ``launch.ring_times``, then the four-rank spec and telemetry serve."""
     gc.collect()
     torch.cuda.empty_cache()
     ranks_serve(rec, card, "4-rank serve", local["serve"], [])
@@ -3371,6 +3429,7 @@ def phase_ranks(torch, rec, card, local):
         f"(its psum all-gathers whole partials); launches per rank exact (576/144 GEMMs, "
         f"36 attention, 72 connectives); logits vs sync max abs err "
         f"{per[0]['logit_err_vs_sync']} ({card})")
+    spec_ranks_serve(rec, card, local["spec"])
 
 
 def main() -> int:
@@ -3437,6 +3496,7 @@ def main() -> int:
         del out
         torch.cuda.empty_cache()
         fp16 = phase_spec_serve(torch, rec, card)
+        local_tokens["spec"] = {r.uid: r.output for r in fp16["spec"]}
         phase_wave_serve(torch, rec, card, fp16)
         del fp16
         torch.cuda.empty_cache()

@@ -114,9 +114,10 @@ class LocalRing:
         device holds after the all-gather of the SP baseline)."""
         return torch.cat(list(vals), dim=dim)
 
-    def agree(self, t: torch.Tensor) -> torch.Tensor:
+    def agree(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """The value every device takes for a host decision (sampled token
-        ids): one process decides alone, so ``t`` itself."""
+        ids, a draft's proposals) made on device ``src``: one process
+        decides alone, so ``t`` itself."""
         return t
 
 
@@ -251,11 +252,14 @@ class ProcessRing:
         (v,) = vals
         return torch.cat(self._gather(v), dim=dim)
 
-    def agree(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``t`` on every rank (token ids sampled on each rank;
-        the host state of every rank moves on from the same ids)."""
+    def agree(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank (token ids sampled on each
+        rank, or the proposals of a draft that only rank ``src`` holds):
+        every rank posts the broadcast with a ``t`` of the same shape and
+        dtype, and the host state of every rank moves on from the same
+        values."""
         host = self._to_host(t).clone()
-        dist.broadcast(host, src=self._peer(0), group=self.group)
+        dist.broadcast(host, src=self._peer(src), group=self.group)
         return self._to_device(host, t)
 
 

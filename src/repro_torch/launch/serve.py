@@ -75,11 +75,17 @@ device count): this process builds the kernels once, starts the ranks
 from ``--seed``, keeps its own layer and pool shards, and runs the same
 engine; rank 0 prints the serve line.  Rank r runs on ``cuda:(r % cards)``
 (or the CPU under ``--device cpu``).  A rank that fails or outlives
-``--rank-timeout`` stops the others and fails the serve.  Speculative
-decoding, the zoo executor, ``--trace``, ``--metrics`` and ``--drift``
-serve on one process and are refused with ``--ranks`` above 1.
+``--rank-timeout`` stops the others and fails the serve.  With
+``--draft-model`` the draft lives on the rank of the device ``place_draft``
+names (the serve line's ``draft_device``): only that rank builds it and
+runs its prefills and proposals, and it broadcasts each round's proposals
+to every rank, which all verify them.  ``--trace``, ``--metrics`` and
+``--drift`` read rank 0's engine, the one every rank's engine moves in
+step with: rank 0 alone traces, prices and prints.  The zoo executor
+serves on one process and is refused with ``--ranks`` above 1.
 ``--report DIR`` has each rank write ``DIR/rank<r>.json``: its served
-tokens, kernel launches and paths, engine stats and ring hops.
+tokens, kernel launches and paths, engine stats and registry counters,
+the draft's device and (on its rank) the draft's calls, and ring hops.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
@@ -166,26 +172,28 @@ def build_executor(cfg: ModelConfig, plan: ExecPlan, *, device: torch.device,
                              LocalRing(plan.num_devices) if ring is None else ring)
 
 
-def build_draft(executor_kind: str, model: str, capacities: Sequence[float], *,
-                device: torch.device, dtype: Optional[str] = None, seed: int = 0,
-                reduce: bool = False):
-    """The speculative draft and the cluster device it is placed on.
+def build_draft(executor_kind: str, model: str, *, device: torch.device,
+                dtype: Optional[str] = None, seed: int = 0, reduce: bool = False):
+    """The speculative draft, on ``device``, weights drawn from ``seed``.
 
     galaxy: a paper model on a one-device plan (the whole model on one
-    shard, no ring hop), on the fastest device of the cluster; zoo: a zoo
-    model behind ``TransformerExecutor``.  Both on the one card, weights
-    drawn from ``seed``."""
+    shard, no ring hop), run for the cluster device ``draft_placement``
+    names; zoo: a zoo model behind ``TransformerExecutor``."""
     cfg = get_config(model)
     if reduce:
         cfg = reduced(cfg)
     if executor_kind == "zoo":
-        return build_zoo_executor(cfg, device=device, dtype=dtype, seed=seed), 0
-    devs, _ = cluster(capacities)
+        return build_zoo_executor(cfg, device=device, dtype=dtype, seed=seed)
     plan = ExecPlan.even(1, num_heads=cfg.num_heads, d_ff=cfg.d_ff,
                          head_dim=cfg.head_dim, d_model=cfg.d_model).with_backend("kernel")
-    ex = build_executor(cfg, plan, device=device,
-                        dtype=getattr(torch, dtype or cfg.dtype), seed=seed)
-    return ex, place_draft(devs)
+    return build_executor(cfg, plan, device=device,
+                          dtype=getattr(torch, dtype or cfg.dtype), seed=seed)
+
+
+def draft_placement(executor_kind: str, capacities: Sequence[float]) -> int:
+    """The cluster device the draft runs on: the fastest one
+    (``place_draft``) under the Galaxy executor, the one device of the zoo."""
+    return 0 if executor_kind == "zoo" else place_draft(cluster(capacities)[0])
 
 
 def build_zoo_executor(cfg: ModelConfig, *, device: torch.device,
@@ -266,17 +274,11 @@ def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
             f"card's {CARD_BYTES / 1e9:.0f} GB: it waits for serving across cards")
 
 
-def refuse_across_ranks(executor_kind: str, *, draft: bool = False, tracer: bool = False,
-                        drift: bool = False, metrics: bool = False) -> None:
-    """What serves on one process only: raise on any of it with ranks."""
+def refuse_across_ranks(executor_kind: str) -> None:
+    """What serves on one process only: the zoo executor."""
     if executor_kind != "galaxy":
         raise ValueError(f"the {executor_kind} executor serves on one process; "
                          "--ranks runs the Galaxy executor's ring")
-    for what, on in (("speculative decoding (--draft-model)", draft),
-                     ("span tracing (--trace)", tracer), ("drift pricing (--drift)", drift),
-                     ("the metrics report (--metrics)", metrics)):
-        if on:
-            raise ValueError(f"{what} serves on one process, not across ranks")
 
 
 def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
@@ -313,10 +315,11 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     "kernel" runs the hand-written kernels, "eager" the padded plain
     versions.  ``ring`` (a ``ProcessRing``: this process is one rank of the
     Galaxy ring) serves this rank's shards; every rank calls ``serve``
-    with the same arguments."""
+    with the same arguments, and only the rank of the draft's device
+    builds ``draft_model``."""
     dev = resolve_device(device)
     if ring is not None:
-        refuse_across_ranks(executor_kind)  # the engine refuses the rest
+        refuse_across_ranks(executor_kind)
     if compute_backend != "kernel" and executor_kind != "galaxy":
         raise ValueError("compute_backend selects the Galaxy executor's per-shard compute; "
                          f"the {executor_kind} executor has none")
@@ -346,9 +349,10 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         if dcfg.vocab_size != cfg.vocab_size:
             raise ValueError(f"draft {dcfg.name} vocab {dcfg.vocab_size} != target "
                              f"vocab {cfg.vocab_size}")
-        draft_executor, draft_device = build_draft(
-            executor_kind, draft_model, capacities, device=dev, dtype=dtype,
-            seed=seed + 2, reduce=reduce)
+        draft_device = draft_placement(executor_kind, capacities)
+        if ring is None or draft_device in ring.devices:
+            draft_executor = build_draft(executor_kind, draft_model, device=dev,
+                                         dtype=dtype, seed=seed + 2, reduce=reduce)
     if executor is None:
         if executor_kind == "galaxy":
             plan = build_plan(cfg, capacities, compute_backend=compute_backend)
@@ -373,7 +377,7 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
                            prefill_chunk=prefill_chunk,
                            sampler=SamplerConfig(temperature=temperature),
                            draft_executor=draft_executor, spec_k=spec_k,
-                           tracer=tracer, drift=monitor)
+                           draft_device=draft_device, tracer=tracer, drift=monitor)
     for r in reqs:
         engine.submit(r)
     t0 = time.perf_counter()
@@ -411,13 +415,19 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
 def write_report(directory: str, out: Dict, rank: int) -> None:
     """``directory/rank<rank>.json``: what this process served (tokens by
     request), its kernel launches and paths since the serve began, the
-    engine's stats, and its ring's hops."""
+    engine's stats and its registry's counters, the draft's device and,
+    where this process holds the draft, its prefill and decode calls, and
+    its ring's hops."""
     ring = getattr(out["executor"], "ring", None)
+    spec = out["spec"]
     os.makedirs(directory, exist_ok=True)
     rep = {"rank": rank, "ranks": out["ranks"], "transport": out["transport"],
            "tokens": {r.uid: r.output for r in out["requests"]},
            "launches": ops.launch_counts(), "paths": ops.path_counts(),
-           "stats": out["stats"],
+           "stats": out["stats"], "counters": out["metrics"].snapshot()["counters"],
+           "draft_device": out["draft_device"],
+           "draft": None if spec is None else {"prefills": spec.prefills,
+                                               "steps": spec.steps},
            "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
            "ttft_p50_s": out["ttft_p50_s"],
            "hops": getattr(ring, "hops", 0), "hop_bytes": getattr(ring, "hop_bytes", 0),
@@ -431,9 +441,7 @@ def launch_ranks(args, capacities: Sequence[float], argv) -> None:
     ranks and wait for them (``SystemExit`` with a message if a rank fails
     or the ranks time out)."""
     try:
-        refuse_across_ranks(args.executor, draft=args.draft_model is not None,
-                            tracer=args.trace is not None, drift=args.drift,
-                            metrics=args.metrics)
+        refuse_across_ranks(args.executor)
     except ValueError as e:
         raise SystemExit(f"--ranks {args.ranks}: {e}")
     cfg = get_config(args.model)
@@ -590,7 +598,10 @@ def main(argv=None):
     if args.rank is not None:
         ring, device = rank_procs.init(args.rank, args.ranks, args.init_method,
                                        device=args.device)
-    tracer = Tracer() if args.trace is not None else None
+    # telemetry reads one engine's clock: rank 0's, every rank's engine
+    # moving in step with it
+    first = args.rank in (None, 0)
+    tracer = Tracer() if args.trace is not None and first else None
     if args.report is not None:
         ops.reset_launch_counts()
     out = serve(args.model, capacities,
@@ -598,14 +609,14 @@ def main(argv=None):
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=device, dtype=args.dtype, seed=args.seed,
-                reduce=args.reduce, tracer=tracer, drift=args.drift,
+                reduce=args.reduce, tracer=tracer, drift=args.drift and first,
                 compute_backend=args.compute_backend, ring=ring, **sched)
     if args.report is not None:
         write_report(args.report, out, 0 if args.rank is None else args.rank)
     if args.rank is not None:
         rank_procs.finish()
-        if args.rank != 0:
-            return
+    if not first:
+        return
     print(out["plan"])
     print(json.dumps({k: v for k, v in out.items()
                       if k not in ("plan", "requests", "pool", "executor",

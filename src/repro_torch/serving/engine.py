@@ -38,7 +38,9 @@ Two continuous-scheduler extensions, as in the reference:
 
 and **speculative decoding** (``draft_executor=``, ``spec_k=``): a draft
 executor proposes ``spec_k`` greedy tokens per live slot and the target
-verifies them in one ``prefill_chunk`` (``serving/spec.py``).
+verifies them in one ``prefill_chunk`` (``serving/spec.py``).  On a ring
+of processes only the rank of ``draft_device`` holds the draft; it
+broadcasts each round's proposals and every rank verifies them.
 
 Observability (``repro_torch.obs``): every engine owns a
 :class:`~repro_torch.obs.metrics.MetricsRegistry` (``engine.metrics``) and
@@ -386,6 +388,7 @@ class ServingEngine:
                  num_pages: Optional[int] = None, record_times: bool = False,
                  prefix_cache: bool = False, prefill_chunk: Optional[int] = None,
                  draft_executor=None, spec_k: Optional[int] = None,
+                 draft_device: Optional[int] = None,
                  tracer: Optional[Tracer] = None, drift: Optional[DriftMonitor] = None,
                  metrics: Optional[MetricsRegistry] = None):
         if scheduler not in ("auto", "continuous", "wave"):
@@ -397,7 +400,23 @@ class ServingEngine:
         if (prefix_cache or prefill_chunk) and not hasattr(executor, "prefill_chunk"):
             raise ValueError("prefix caching / chunked prefill need an executor with "
                              "the prefill_chunk protocol")
-        if (draft_executor is None) != (spec_k is None):
+        # a Galaxy executor on a ProcessRing runs this engine on every rank:
+        # the ranks agree on each sampled id (``_sample``), so admission,
+        # the prefix cache and the pool move in step on all of them
+        self._ring = getattr(executor, "ring", None)
+        split = self._ring is not None and len(self._ring.devices) < self._ring.num_devices
+        if spec_k is not None and split:
+            # the draft lives on one rank, the one holding cluster device
+            # ``draft_device``: only there is there a draft executor
+            if draft_device is None or not 0 <= draft_device < self._ring.num_devices:
+                raise ValueError(
+                    f"speculative decoding on a ring of {self._ring.num_devices} processes "
+                    f"needs the draft's device index (draft_device), got {draft_device}")
+            if (draft_executor is not None) != (draft_device in self._ring.devices):
+                raise ValueError(
+                    f"the draft executor belongs to the rank of device {draft_device} "
+                    f"alone; this process holds devices {self._ring.devices}")
+        elif (draft_executor is None) != (spec_k is None):
             raise ValueError("speculative decoding needs both draft_executor and spec_k")
         if spec_k is not None:
             if spec_k < 1:
@@ -413,20 +432,11 @@ class ServingEngine:
             if not hasattr(executor, "prefill_chunk"):
                 raise ValueError("speculative verification needs the target "
                                  "executor's prefill_chunk protocol")
-            if not getattr(draft_executor, "supports_paged", False):
+            if draft_executor is not None and not getattr(draft_executor, "supports_paged",
+                                                          False):
                 raise ValueError("draft executor must implement the paged protocol")
-        # a Galaxy executor on a ProcessRing runs this engine on every rank:
-        # the ranks agree on each sampled id (``_sample``), so admission,
-        # the prefix cache and the pool move in step on all of them
-        self._ring = getattr(executor, "ring", None)
-        if self._ring is not None and len(self._ring.devices) < self._ring.num_devices:
-            for what, on in (("speculative decoding", spec_k is not None),
-                             ("span tracing", tracer is not None),
-                             ("drift pricing", drift is not None)):
-                if on:
-                    raise ValueError(
-                        f"{what} serves on one process; this executor's ring spans "
-                        f"{self._ring.num_devices} processes")
+        # the proposals go from the draft's rank to every rank each round
+        self.draft_ring = self._ring if spec_k is not None and split else None
         self.executor = executor
         self.scheduler = scheduler
         self.max_batch = max_batch
@@ -441,6 +451,7 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.draft_executor = draft_executor
         self.spec_k = spec_k
+        self.draft_device = draft_device
         self.queue: deque = deque()
         # the registry is always live (it is the stats' storage); span
         # tracing and drift pricing are the opt-in hooks
@@ -483,9 +494,12 @@ class ServingEngine:
 
     def _sample_positions(self, logits) -> np.ndarray:
         """Per-position sampling of the speculative verify chunk, (B, K, V)
-        -> (B, K); greedy, the only mode speculation runs in, draws nothing
-        from the generator."""
-        return sample_positions(logits, self.generator, self.sampler).cpu().numpy()
+        -> (B, K), agreed as ``_sample`` agrees; greedy, the only mode
+        speculation runs in, draws nothing from the generator."""
+        ids = sample_positions(logits, self.generator, self.sampler).cpu()
+        if self._ring is not None:
+            ids = self._ring.agree(ids)
+        return ids.numpy()
 
     def _emit(self, r: Request, token: int, limit: int) -> bool:
         """Append one token; returns True if the request just finished.
@@ -562,7 +576,7 @@ class ServingEngine:
                 self.metrics.gauge(name).set(value)
         self._pool_gauges(pool)
         spec = None
-        if self.spec_k is not None:
+        if self.draft_executor is not None:
             # the draft pool mirrors the target pool's geometry, so slot
             # indices and position arithmetic are shared between the two
             spec = SpeculativeDecoder(self.draft_executor, self.spec_k, num_slots=n_slots,
@@ -716,10 +730,12 @@ class ServingEngine:
                 if prefill_step(prefills[0]):
                     prefills.popleft()
             live = [i for i, sl in enumerate(slots) if sl is not None]
-            if live and spec is not None:
+            if live and self.spec_k is not None:
                 # speculative round: the draft proposes (batched), the
                 # target verifies each slot's proposals in one chunk, and
-                # rejections roll back by block-table truncation
+                # rejections roll back by block-table truncation; on a
+                # ring of processes every rank runs it, the draft's rank
+                # with the draft (``spec``) and the others without
                 storage, done = run_spec_round(self, spec, slots, live, pool, storage)
                 for i, req in done:
                     slots[i] = None

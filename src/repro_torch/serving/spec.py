@@ -39,6 +39,14 @@ next round replays that token first (``gap_tokens``).
 Expected emitted tokens per round at per-position acceptance ``a`` is
 ``1 + a + ... + a^k`` (``core/costmodel.spec_expected_tokens``).
 
+On a ring of processes (``core/ring.ProcessRing``, one rank per cluster
+device) the draft lives on the rank of the device ``place_draft`` names:
+only that rank builds the :class:`SpeculativeDecoder`, runs the draft's
+prefills and proposals, and broadcasts each round's proposals to every
+rank (:func:`agree_proposals`).  Every rank then verifies them on its own
+shards, and the verify chunk's per-row ids are agreed as the sampled ids
+are, so acceptance, emission and the pool move in step on all ranks.
+
 With a tracer, a round is a ``spec_round`` span holding a
 ``draft_propose`` span and one ``spec_verify`` span per slot, and a
 rejection marks a ``spec_rollback`` event on the request's track; a drift
@@ -47,9 +55,10 @@ monitor prices each verify chunk (``"spec_verify"``).
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.costmodel import DeviceSpec
 from repro_torch.serving.kvpool import PagedKVPool
@@ -171,12 +180,31 @@ class SpeculativeDecoder:
         return drafts
 
 
-def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
+def agree_proposals(ring, src: int, drafts: Optional[Dict[int, List[int]]],
+                    live: Sequence[int], k: int,
+                    k_eff: Dict[int, int]) -> Dict[int, List[int]]:
+    """The round's proposals on every rank of ``ring``, from the rank of
+    device ``src``, the only one that holds the draft (``drafts`` is None
+    on the others).  The broadcast has a shape every rank knows before it,
+    ``(len(live), k)`` int64 with each row zero-padded past its
+    ``k_eff``, and every rank posts it every round, even when every
+    ``k_eff`` is 0, so the ranks' collectives always match."""
+    t = torch.zeros((len(live), k), dtype=torch.int64)
+    if drafts is not None:
+        for row, i in enumerate(live):
+            t[row, :k_eff[i]] = torch.as_tensor(drafts[i][:k_eff[i]], dtype=torch.int64)
+    t = ring.agree(t, src=src)
+    return {i: t[row, :k_eff[i]].tolist() for row, i in enumerate(live)}
+
+
+def run_spec_round(engine, spec: Optional[SpeculativeDecoder], slots, live,
                    pool: PagedKVPool, storage):
     """One speculative round over the live slots: draft k proposals per
     slot (batched on the draft executor), verify each slot's proposals in
     one chunked paged prefill of the target, emit the accepted prefix plus
-    the correction or bonus token, and roll back rejections.
+    the correction or bonus token, and roll back rejections.  ``spec`` is
+    None on a rank of a ring of processes that does not hold the draft:
+    it takes the draft rank's proposals (``engine.draft_ring``).
 
     Returns ``(storage, finished)``, ``finished`` the ``(slot, request)``
     pairs that completed this round (their pages already retired on both
@@ -185,20 +213,25 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
     tr = engine._trace
     tracks = engine._tracks
     drift = engine.drift
-    k_eff, catchup, last, posns = {}, {}, {}, {}
+    k_eff = {}
     for i in live:
         sl = slots[i]
         remaining = sl.limit - len(sl.req.output)
         # never propose past the budget: a request's final token is always
         # the verifier's own (correction or bonus) row
-        k_eff[i] = max(0, min(spec.k, remaining - 1))
-        catchup[i] = spec.gap_tokens(i, sl.next_index, sl.req.output, len(sl.req.prompt))
-        last[i] = sl.last_token
-        posns[i] = sl.next_index
+        k_eff[i] = max(0, min(engine.spec_k, remaining - 1))
     if tr is not None:
         tr.begin("engine", "spec_round", live=len(live))
         tr.begin("engine", "draft_propose")
-    drafts = spec.propose(live, last, posns, k_eff, catchup)
+    drafts = None
+    if spec is not None:
+        catchup = {i: spec.gap_tokens(i, slots[i].next_index, slots[i].req.output,
+                                      len(slots[i].req.prompt)) for i in live}
+        drafts = spec.propose(live, {i: slots[i].last_token for i in live},
+                              {i: slots[i].next_index for i in live}, k_eff, catchup)
+    if engine.draft_ring is not None:
+        drafts = agree_proposals(engine.draft_ring, engine.draft_device, drafts, live,
+                                 engine.spec_k, k_eff)
     if tr is not None:
         tr.end("engine")
 
@@ -249,7 +282,8 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
         new_next = sl.next_index + emitted
         if done:
             pool.retire(i)
-            spec.retire(i)
+            if spec is not None:
+                spec.retire(i)
             finished.append((i, sl.req))
         else:
             sl.last_token = int(toks[accepted])
@@ -258,7 +292,8 @@ def run_spec_round(engine, spec: SpeculativeDecoder, slots, live,
                 if tracks is not None:
                     tracks.event(sl.req.uid, "spec_rollback", rejected=ke - accepted)
                 pool.truncate(i, new_next)
-            spec.observe(i, new_next)
+            if spec is not None:
+                spec.observe(i, new_next)
     if tr is not None:
         tr.end("engine")  # spec_round
     return storage, finished

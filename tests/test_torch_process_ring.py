@@ -8,12 +8,22 @@ against a ``LocalRing`` run of the same case made inside rank 0's process:
 
 * the ring primitives: a partial ``permute`` (exact zeros where nothing
   arrives), a hop posted and waited on later, ``psum``, ``all_gather``,
-  ``agree`` and bucketed segments, bitwise against ``LocalRing``;
+  ``agree`` from rank 0 and from rank 2, and bucketed segments, bitwise
+  against ``LocalRing``;
 * ``hmp_layer`` on the uneven 3:2:2:1 plan of ``tests/test_torch_hmp.py``
   at s 16 and 13, every combination of backend, overlap, transport and
   double buffering; ``megatron_layer`` and ``sp_layer``;
 * ``ServingEngine`` over the ``GalaxyHMPExecutor`` (max_batch 3,
-  continuous, prefix cache with chunks of 8, waves): greedy tokens.
+  continuous, prefix cache with chunks of 8, waves): greedy tokens;
+* speculative decoding, the uneven Galaxy case of
+  ``tests/test_torch_spec.py`` (its 2-layer stack, its reduced
+  qwen1.5-0.5b draft from the reference's initializer, k 4) with the
+  draft on device 2's rank only, both pools checked after every round:
+  tokens equal to the reference's full-context greedy loop and to the
+  ``LocalRing`` spec serve, equal stats on every rank;
+* the same serve with chunks, traced under a tick clock and drift priced
+  on rank 0 alone: its trace events and drift records equal the
+  ``LocalRing`` serve's.
 
 Tolerances: layer outputs within 2e-5 of the reference's
 ``reference_layer`` on valid rows, the bound of ``tests/test_torch_hmp.py``
@@ -26,10 +36,11 @@ Tokens are compared exactly (greedy argmax over fp32 logits whose top-2
 gap is far wider than their error).
 
 Also here: the rank launcher stops the ranks and fails when one rank fails
-or they outlive their time limit; ``launch.serve --ranks`` refuses what
-serves on one process and a rank count that is not the plan's; the kernel
-build's file lock compiles a source once when four processes start
-together; ``launch.serve --ranks 4 --device cpu`` end to end; and
+or they outlive their time limit; ``launch.serve --ranks`` refuses the zoo
+executor and a rank count that is not the plan's; the kernel build's file
+lock compiles a source once when four processes start together;
+``launch.serve --ranks 4 --device cpu`` end to end with speculative
+decoding, ``--trace``, ``--metrics`` and ``--drift``; and
 ``launch.ring_times --ranks 4 --device cpu``.
 """
 import functools
@@ -53,11 +64,12 @@ import numpy as np  # noqa: E402
 from repro.core import hmp as jhmp  # noqa: E402
 from repro_torch.launch import ranks  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_ring_worker as worker  # noqa: E402
+from test_torch_spec import _galaxy_case, _galaxy_requests  # noqa: E402
 
 PLAN = worker.PLAN
 
@@ -96,20 +108,23 @@ def _serving_case():
     return stack, emb, prompts, want
 
 
-#: ``launch.serve --ranks 4`` on the CPU, at the reduced GPT2-L
+#: ``launch.serve --ranks 4`` on the CPU, at the reduced GPT2-L, with a
+#: speculative draft and the three telemetry flags
 CLI_ARGV = ["--model", "gpt2-l", "--reduce", "--device", "cpu", "--requests", "3",
             "--prompt-len", "20-40", "--max-new", "3", "--prefix-cache", "on",
-            "--prefill-chunk", "16"]
+            "--prefill-chunk", "16", "--draft-model", "distilbert", "--spec-k", "2",
+            "--metrics", "--drift"]
 
 
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
     """``launch.serve --ranks 4`` started (its own four ranks beside the
-    fixture below's, so the two overlap); the test takes its result."""
+    fixture below's, so the two overlap); the tests take its result."""
     tmp = tmp_path_factory.mktemp("serve_ranks")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *CLI_ARGV,
-                             "--ranks", "4", "--rank-timeout", "60", "--report", str(tmp)],
+                             "--trace", str(tmp / "trace.json"), "--ranks", "4",
+                             "--rank-timeout", "60", "--report", str(tmp)],
                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
@@ -118,6 +133,18 @@ def cli_run(tmp_path_factory):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def cli_result(cli_run):
+    """The CLI run's standard output, its serve line and every rank's
+    report (it failed the test if the run failed)."""
+    proc, tmp = cli_run
+    stdout, stderr = proc.communicate(timeout=90)
+    assert proc.returncode == 0, stderr[-3000:]
+    line = next(json.loads(t) for t in stdout.splitlines() if t.startswith('{"ranks"'))
+    reps = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
+    return stdout, line, reps, tmp
 
 
 @pytest.fixture(scope="module")
@@ -132,16 +159,38 @@ def rank_results(tmp_path_factory, cli_run):
         arrays.update({f"stack{i}/{k}": np.asarray(v) for k, v in layer.items()})
     arrays.update({f"prompt{i}": np.asarray(pr) for i, pr in enumerate(prompts)})
     arrays.update(emb=emb, n_stack=np.asarray(len(stack)), n_prompts=np.asarray(len(prompts)))
+    arrays.update(_spec_arrays())
     np.savez(tmp / "inputs.npz", **arrays)
     ranks.launch([sys.executable, str(ROOT / "tests" / "torch_ring_worker.py"),
                   str(tmp / "inputs.npz"), str(tmp)], 4, timeout=90, capture=True)
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(4)]
 
 
+def _spec_arrays():
+    """The speculative cases' inputs: ``tests/test_torch_spec.py``'s
+    Galaxy stack and requests, and its draft's weights from the
+    reference's initializer (reduced qwen1.5-0.5b at key 3), flattened."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs import reduced as j_reduced
+    from repro.models import init_params
+
+    layers, emb, _ = _galaxy_case()
+    reqs = _galaxy_requests(Request)
+    tree = init_params(j_reduced(j_get_config(worker.DRAFT_ARCH)), jax.random.PRNGKey(3))
+    arrays = {"draft/" + "/".join(k.key for k in path): np.asarray(leaf)
+              for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    for i, layer in enumerate(layers):
+        arrays.update({f"spec_stack{i}/{k}": np.asarray(v) for k, v in layer.items()})
+    arrays.update({f"spec_prompt{r.uid}": np.asarray(r.prompt) for r in reqs})
+    arrays.update(spec_emb=emb, spec_n_stack=np.asarray(len(layers)),
+                  spec_max_new=np.asarray([r.max_new_tokens for r in reqs]))
+    return arrays
+
+
 # --- the ring primitives ----------------------------------------------------------
 
 @pytest.mark.parametrize("what", ["permute_partial", "permute_async", "psum", "all_gather",
-                                  "agree", "bucketed_ship"])
+                                  "agree", "agree_src", "bucketed_ship"])
 def test_ring_primitive_equals_local_ring(rank_results, what):
     for r, res in enumerate(rank_results):
         got, want = res["primitives"][what]
@@ -203,6 +252,33 @@ def test_engine_on_four_ranks_matches_reference(rank_results, backend, mode):
         assert st["prefix_hits"] >= 1 and st["prefill_chunks"] >= 4
 
 
+@pytest.mark.parametrize("backend", ["eager", "kernel"])
+def test_spec_on_four_ranks_matches_reference(rank_results, backend):
+    """The uneven Galaxy spec serve with the draft on device 2's rank: the
+    reference's full-context greedy tokens on every rank and on
+    ``LocalRing``, equal stats everywhere, at least one rejection, both
+    pools checked after every round and empty at the end, and the draft's
+    pool and calls on rank 2 alone."""
+    *_, want = _galaxy_case()
+    local = rank_results[0]["spec"][backend]["local"]
+    assert local["tokens"] == want and not local["errors"]
+    st = local["stats"]
+    assert 0 < local["rounds"] <= st["spec_steps"]
+    assert st["spec_proposed"] > st["spec_accepted"] > 0, st
+    assert any(c < 4 for c in st["spec_accept_counts"]), "rollback never ran"
+    for r, res in enumerate(rank_results):
+        got = res["spec"][backend]["process"]
+        assert got["tokens"] == want, (r, got["tokens"])
+        assert got["stats"] == st, r
+        assert got["rounds"] == local["rounds"] and not got["errors"], (r, got["errors"])
+        assert got["free"], r
+        if r == worker.DRAFT_DEVICE:
+            assert got["draft"] == local["draft"] and got["draft"]["free"]
+            assert got["draft"]["prefills"] == len(want)
+        else:
+            assert got["draft"] is None, r
+
+
 # --- the launcher, its refusals, the build lock, the CLI ------------------------------
 
 _FAILS = """
@@ -236,10 +312,6 @@ def test_launch_stops_the_ranks_and_fails(fault):
 @pytest.mark.parametrize("extra,match", [
     (["--ranks", "3"], "does not match the plan's 4 devices"),
     (["--ranks", "0"], "must be >= 1"),
-    (["--ranks", "4", "--trace", "t.json"], "span tracing"),
-    (["--ranks", "4", "--metrics"], "metrics"),
-    (["--ranks", "4", "--drift"], "drift"),
-    (["--ranks", "4", "--draft-model", "distilbert", "--spec-k", "2"], "speculative"),
     (["--ranks", "4", "--executor", "zoo", "--model", "qwen1.5-0.5b"], "one process"),
 ])
 def test_serve_refuses_across_ranks(extra, match):
@@ -247,6 +319,67 @@ def test_serve_refuses_across_ranks(extra, match):
     argv = ["--model", "gpt2-l", "--reduce", "--device", "cpu", *extra]
     with pytest.raises(SystemExit, match=match):
         launch_serve.main(argv)
+
+
+@pytest.mark.parametrize("flag", ["trace", "metrics", "drift", "draft-model"])
+def test_serve_cli_features_across_ranks(cli_result, flag):
+    """The one ``launch.serve --ranks 4`` run with ``--draft-model``,
+    ``--trace``, ``--metrics`` and ``--drift``: rank 0 writes a trace with
+    no open span (the export refuses one) and prints the metrics and the
+    drift summary; the draft runs on the rank ``place_draft`` names, and
+    every rank serves the same tokens with the same stats and counters."""
+    stdout, line, reps, tmp = cli_result
+    if flag == "trace":
+        events = json.loads((tmp / "trace.json").read_text())["traceEvents"]
+        assert f"trace: {sum(e['ph'] != 'M' for e in events)} events -> " in stdout
+        assert {"queued", "prefill_chunk", "spec_round", "draft_propose", "spec_verify"} <= {
+            e["name"] for e in events if e["ph"] == "X"}
+    elif flag == "metrics":
+        assert "metrics snapshot:" in stdout and "repro_ttft_s_count 3" in stdout
+        assert f"repro_spec_steps_total {line['stats']['spec_steps']}" in stdout
+        assert all(rep["counters"] == reps[0]["counters"] for rep in reps)
+        assert reps[0]["counters"]["spec_steps"] == line["stats"]["spec_steps"]
+    elif flag == "drift":
+        assert "sim-vs-measured drift" in stdout
+        assert "  spec_verify: n=" in stdout and "  prefill_chunk: n=" in stdout
+    else:
+        st = reps[0]["stats"]
+        assert st["spec_steps"] > 0 and line["stats"] == st
+        where = line["draft_device"]
+        assert where == launch_serve.draft_placement("galaxy", (3, 2, 2, 1))
+        for r, rep in enumerate(reps):
+            assert rep["tokens"] == reps[0]["tokens"] and rep["stats"] == st, r
+            assert rep["draft_device"] == where
+            assert (rep["draft"] is not None) == (r == where), r
+        assert reps[where]["draft"]["prefills"] == 3
+
+
+@pytest.mark.parametrize("what", ["tracer", "drift", "spec"])
+def test_engine_serves_one_process_features_across_ranks(rank_results, what):
+    """The chunked spec serve, traced and drift priced on rank 0 alone:
+    rank 0's trace events (tick clock) and drift records equal the
+    ``LocalRing`` serve's, and every rank serves the reference's tokens
+    with the same stats and registry counters."""
+    local = rank_results[0]["telemetry"]["local"]
+    first = rank_results[0]["telemetry"]["process"]
+    if what == "tracer":
+        assert first["open_spans"] == [] and first["events"] == local["events"]
+        assert {"prefill_chunk", "spec_round", "draft_propose", "spec_verify"} <= {
+            e["name"] for e in first["events"]}
+    elif what == "drift":
+        assert first["drift"] == local["drift"]
+        assert {d["kind"] for d in first["drift"]} == {"prefill_chunk", "spec_verify"}
+    else:
+        *_, want = _galaxy_case()
+        assert local["tokens"] == want and local["stats"]["spec_steps"] > 0
+        assert local["stats"]["prefill_chunks"] > 0
+    for r, res in enumerate(rank_results):
+        got = res["telemetry"]["process"]
+        assert got["tokens"] == local["tokens"], r
+        assert got["stats"] == local["stats"] and got["counters"] == local["counters"], r
+        assert got["ttft_n"] == len(local["tokens"]), r
+        if r:
+            assert got["events"] is None and got["drift"] is None
 
 
 class _SplitRing:
@@ -261,11 +394,15 @@ class _Executor:
         raise AssertionError
 
 
-@pytest.mark.parametrize("kw", [dict(tracer=object()), dict(drift=object()),
-                                dict(draft_executor=_Executor(), spec_k=2)],
-                         ids=["tracer", "drift", "spec"])
-def test_engine_refuses_one_process_features_across_ranks(kw):
-    with pytest.raises(ValueError, match="serves on one process"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(draft_executor=_Executor(), spec_k=2), "draft's device index"),
+    (dict(draft_executor=_Executor(), spec_k=2, draft_device=2), "rank of device 2 alone"),
+    (dict(spec_k=2, draft_device=1), "rank of device 1 alone"),
+])
+def test_engine_places_the_draft_on_its_rank(kw, match):
+    """On a ring of processes the engine needs the draft's device, and a
+    draft executor exactly on that device's rank."""
+    with pytest.raises(ValueError, match=match):
         ServingEngine(_Executor(), **kw)
 
 
@@ -305,21 +442,19 @@ def test_kernel_build_lock_builds_once_across_processes(tmp_path):
     assert sorted(o.strip() for o in outs) == ["['fused_connective']", "[]", "[]", "[]"]
 
 
-def test_serve_cli_on_four_ranks_equals_local_ring(cli_run, rank_results):
+def test_serve_cli_on_four_ranks_equals_local_ring(cli_result, rank_results):
     """``launch.serve --ranks 4 --device cpu`` serves what one process on a
-    ``LocalRing`` serves; rank 0 prints the serve line with the rank count
-    and the transport, and every rank reports its hops."""
-    proc, tmp_path = cli_run
-    stdout, stderr = proc.communicate(timeout=90)
-    assert proc.returncode == 0, stderr[-3000:]
-    line = json.loads(stdout.strip().splitlines()[-1])
+    ``LocalRing`` serves with the same arguments; rank 0 prints the serve
+    line with the rank count and the transport, and every rank reports its
+    hops."""
+    _, line, reps, _ = cli_result
     assert (line["ranks"], line["transport"]) == (4, "gloo")
     out = launch_serve.serve("gpt2-l", (3, 2, 2, 1), reduce=True, device="cpu", requests=3,
                              prompt_len=(20, 40), max_new=3, prefix_cache=True,
-                             prefill_chunk=16)
+                             prefill_chunk=16, draft_model="distilbert", spec_k=2)
     want = {str(r.uid): r.output for r in out["requests"]}
-    for r in range(4):
-        rep = json.loads((tmp_path / f"rank{r}.json").read_text())
+    assert line["stats"] == json.loads(json.dumps(out["stats"]))
+    for r, rep in enumerate(reps):
         assert rep["tokens"] == want, r
         assert rep["hops"] > 0 and rep["routes"] == {"direct": rep["hops"]}
 

@@ -232,8 +232,8 @@ The training path and the rest of the zoo run after them:
              and greedy tokens equal except where the eager top-2 gap is
              below it; musicgen-medium at full width cut to 4 layers,
              fp32: prefill then decode against its train-mode forward.
-29. dryrun — ``launch.dryrun.run_one`` at full width and depth on fake
-             tensors over the fake process group: qwen1.5-0.5b and
+29. dryrun — ``launch.dryrun.run_one`` at full width, cut to 4 layers,
+             on fake tensors over the fake process group: qwen1.5-0.5b and
              granite-moe-3b-a800m (24 heads on the 16-way axis: the SP
              attention layout; experts) at the four ``SHAPES`` on 16 x
              16, and qwen1.5-110b's ``decode_32k`` on 2 x 16 x 16.  The
@@ -278,7 +278,7 @@ The training path and the rest of the zoo run after them:
              a chip than "full", or query-chunked attention not lowering
              codeqwen's prefill peak (or raising granite's).
 
-Galaxy across processes runs last:
+Galaxy across processes, then the zoo across processes, run last:
 
 34. ranks — ``launch.serve --ranks 4`` as a user starts it: GPT2-L at full
              width and depth in fp16 on the 3:2:2:1 plan, one process per
@@ -308,6 +308,42 @@ Galaxy across processes runs last:
              fails or outlives its limit fails the phase.  Four contexts
              on one card are not four devices: no number here is a
              four-device speed-up.
+35. zoo ranks — the model zoo under the HMP sharding rules across four
+             gloo ranks on the one card, a (data 1, model 4) mesh.  First
+             gloo's answer for CUDA tensors as they are: each collective
+             the mesh issues on a pair of ranks joined without staging,
+             the all-gather last (printed; the staging itself is held to
+             the unstaged collectives on the CPU by
+             ``tests/test_torch_zoo_ranks.py``, and runs for real in (a)
+             and (b)).  (a) RecurrentGemma-9B at full width, 5 layers,
+             fp32, TF32 off, kernel backend: phase 7's 2 x 2100-token
+             prefill and 8 decode steps on the four ranks, each rank's
+             weights drawn shard by shard from phase 7's seed; every
+             rank's logits bitwise equal to rank 0's, and within 1e-4 of
+             phase 7's one-process kernel logits (the sharded row-parallel
+             sums only add in another order); 1 flash and 4 scan launches
+             a rank in the prefill, none in decode.  Then the same weights
+             cast to bf16 and the same tokens: every rank's logits bitwise
+             equal, and within 4 bf16 units of the largest logit of one
+             process's on those weights (the one-process kernel-vs-eager
+             difference printed beside).  (b) ``launch.serve --executor
+             zoo --model recurrentgemma-9b --ranks 4`` as a user starts
+             it, with phase 8's traffic in bf16: every rank's tokens
+             bitwise equal to the others'; then one process fed the
+             ranks' 96 tokens wave by wave: at every step the ranks'
+             token is its argmax, or below its top logit by at most twice
+             phase 8's kernel-vs-eager bf16 logit error (every such gap
+             printed, and where each request first parts from phase 8);
+             exactly 12 flash (``mma``) and 26 scan (``tma``) launches a
+             rank a wave; each rank's weights (in (a) too) the bytes
+             reckoned apart from the rules: the model's bytes split four
+             ways but for the norms' scales and wk and wv (one KV head),
+             held whole; rank 0's distinct flash and scan calls
+             (``kernels/ops.call_log``) replayed against their plain
+             versions in bf16; tok/s, TTFT p50, each rank's peak memory
+             and staged collectives printed beside phase 8's, as a ratio
+             within this run (four contexts on one card, not four
+             devices).
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -370,8 +406,12 @@ ZOO_KERNELS = ("flash_attention", "rglru_scan")
 ULP = {"float32": 1e-5, "float16": 2.0 ** -10, "bfloat16": 2.0 ** -7}
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """``[phase] msg``, after the seconds since the script started."""
+    print(f"{time.perf_counter() - _T0:7.1f} s [{phase}] {msg}", flush=True)
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -847,7 +887,9 @@ def phase_zoo_kernels(rec, torch):
 
 def phase_zoo_parity(torch):
     """RecurrentGemma-9B at full width, 5 layers, fp32: kernel vs eager
-    backend logits after a 2100-token prefill and 8 decode steps."""
+    backend logits after a 2100-token prefill and 8 decode steps.  Returns
+    the kernel backend's logits (prefill, then each step, on the host) and
+    the steps' input tokens, which phase 35 holds the four ranks to."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.params import init_params
@@ -875,13 +917,14 @@ def phase_zoo_parity(torch):
     err = (lk - le).abs().max().item()
     if not err <= tol:
         raise AssertionError(f"zoo prefill logits kernel vs eager: max abs err {err} > {tol}")
-    derr, toks = 0.0, []
+    derr, toks, ref = 0.0, [], [lk.cpu()]
     for step in range(steps):
         tok = le.argmax(-1)
         if not torch.equal(tok, lk.argmax(-1)):
             raise AssertionError(f"zoo decode step {step}: greedy tokens differ")
         toks.append(tok.tolist())
         lk, ck = kern.decode(tok[:, None], ck, s + step)
+        ref.append(lk.cpu())
         le, ce = eager.decode(tok[:, None], ce, s + step)
         e = (lk - le).abs().max().item()
         if not e <= tol:
@@ -893,6 +936,7 @@ def phase_zoo_parity(torch):
     log("parity", f"RecurrentGemma-9B width, 5 layers fp32, {b} x {s}-token prefill "
         f"(window {cfg.window}): logits max abs err {err:.3g}; {steps} decode steps "
         f"max abs err {derr:.3g} (tolerance {tol}); greedy tokens equal: {toks}")
+    return {"logits": ref, "tokens": toks}
 
 
 def phase_zoo_serve(torch, rec):
@@ -938,7 +982,8 @@ def phase_zoo_serve(torch, rec):
 def check_zoo_served_tokens(out, torch):
     """The 300-token wave again, kernel vs eager backend at full depth in
     bf16: the kernel prefill reproduces the served first tokens, and each
-    is the eager backend's argmax up to the bf16 disagreement."""
+    is the eager backend's argmax up to the bf16 disagreement.  Returns
+    the two backends' largest logit difference."""
     import numpy as np
 
     from repro_torch.serving.engine import TransformerExecutor
@@ -963,6 +1008,7 @@ def check_zoo_served_tokens(out, torch):
                              f"{le.argmax(-1).tolist()} (gap {gap})")
     log("serve", f"{len(reqs)} x 300 tokens, 38 layers bf16: kernel vs eager prefill logits "
         f"max abs err {err:.3g}; first tokens {first.tolist()} == served")
+    return err
 
 
 def phase_dense_kernels(rec, torch):
@@ -1336,8 +1382,8 @@ class CallLog:
     kernel took while the phases inside ``with`` ran: recorded at
     ``kernels/ops.py``, where every launch passes, as kernel arguments
     (shapes, valid counts, positions; the flash kernel's strides, dtype and
-    masks), so each can be replayed on fresh inputs against its plain
-    version."""
+    masks, which ``ops.CALLS`` keeps), so each can be replayed on fresh
+    inputs against its plain version."""
 
     def __init__(self):
         self.gemm, self.attn, self.conn, self.flash = set(), set(), set(), set()
@@ -1347,9 +1393,10 @@ class CallLog:
         from repro_torch.kernels.tiled_gemm import _resolve
 
         self._ops = ops
+        ops.reset_call_log()
         self._orig = (ops.tiled_gemm_valid, ops.ragged_flash_attention,
-                      ops.fused_connective_group, ops.flash_attention)
-        gemm, attn, conn, flash = self._orig
+                      ops.fused_connective_group)
+        gemm, attn, conn = self._orig
 
         def log_gemm(x, w, **kw):
             m, k = x.shape
@@ -1370,21 +1417,14 @@ class CallLog:
             self.conn.add(tuple(tuple(x.shape) for x in xs))
             return conn(xs, ress, keeps, scales, biases, **kw)
 
-        def log_flash(q, k, v, *, causal=True, window=0, backend="kernel"):
-            if backend == "kernel" and q.is_cuda:
-                self.flash.add((tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
-                                v.stride(), str(q.dtype).removeprefix("torch."),
-                                bool(causal), int(window)))
-            return flash(q, k, v, causal=causal, window=window, backend=backend)
-
         ops.tiled_gemm_valid, ops.ragged_flash_attention = log_gemm, log_attn
-        ops.fused_connective_group, ops.flash_attention = log_conn, log_flash
+        ops.fused_connective_group = log_conn
         return self
 
     def __exit__(self, *exc):
         ops = self._ops
-        (ops.tiled_gemm_valid, ops.ragged_flash_attention,
-         ops.fused_connective_group, ops.flash_attention) = self._orig
+        ops.tiled_gemm_valid, ops.ragged_flash_attention, ops.fused_connective_group = self._orig
+        self.flash = set(ops.CALLS["flash_attention"])
         return False
 
 
@@ -1700,10 +1740,20 @@ def tie_gap(ex, prompt, prefix, torch):
     return (top[0] - top[1]).item()
 
 
-def compare_tokens(a, b, ex, torch, what, exact):
+def wave_tie_gap(ex, prompt, prefix, torch):
+    """``tie_gap`` for an executor of the wave protocol: a one-row prefill
+    of ``prompt + prefix``."""
+    toks = [list(prompt) + list(prefix)]
+    logits, _ = ex.prefill(toks, ex.make_cache(1, len(toks[0])))
+    top = logits.float()[0].topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def compare_tokens(a, b, ex, torch, what, exact, gap_fn=tie_gap, tol=GALAXY_FP16_TOL):
     """Greedy tokens of two runs of the same requests: equal, or (``exact``
-    False, fp16) parted at a step whose top-2 logit gap is below the fp16
-    logit tolerance: each such case is printed."""
+    False) parted at a step whose top-2 logit gap (``gap_fn``) is below
+    ``tol``, the fp16 logit tolerance by default: each such case is
+    printed."""
     for ra, rb in zip(a, b):
         if ra.output == rb.output:
             continue
@@ -1711,13 +1761,13 @@ def compare_tokens(a, b, ex, torch, what, exact):
         if exact:
             raise AssertionError(f"{what}: request {ra.uid} tokens differ at {j}: "
                                  f"{ra.output} vs {rb.output}")
-        gap = tie_gap(ex, ra.prompt, ra.output[:j], torch)
-        if not gap < GALAXY_FP16_TOL:
+        gap = gap_fn(ex, ra.prompt, ra.output[:j], torch)
+        if not gap < tol:
             raise AssertionError(f"{what}: request {ra.uid} parted at token {j} "
                                  f"({ra.output[j]} vs {rb.output[j]}) with a top-2 gap "
-                                 f"{gap} >= {GALAXY_FP16_TOL}")
+                                 f"{gap} >= {tol}")
         log("serve", f"{what}: request {ra.uid} parted at token {j} ({ra.output[j]} vs "
-            f"{rb.output[j]}), a near-tie: top-2 logit gap {gap:.3g} < {GALAXY_FP16_TOL}")
+            f"{rb.output[j]}), a near-tie: top-2 logit gap {gap:.3g} < {tol}")
 
 
 def phase_spec_serve(torch, rec, card):
@@ -2870,11 +2920,15 @@ ROOFLINE_MAX = 1.05
 # the dry run's peak above its arguments against the eager step's peak
 # above what was resident before it (the same buffers, counted or held)
 PEAK_TOL = 0.05
+# layers of each dry-run record: full width, depth cut so the phase counts
+# in ~25 s rather than ~80 s
+DRYRUN_LAYERS = 4
 
 
 def phase_dryrun(torch, card):
     """``run_one`` for qwen1.5-0.5b and granite-moe-3b-a800m x the four
-    shapes on 16 x 16, and qwen1.5-110b decode_32k on 2 x 16 x 16."""
+    shapes on 16 x 16, and qwen1.5-110b decode_32k on 2 x 16 x 16, each cut
+    to ``DRYRUN_LAYERS`` layers."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.shapes import SHAPES
@@ -2888,7 +2942,8 @@ def phase_dryrun(torch, card):
     try:
         for arch, shape, multi_pod in runs:
             records.append(dryrun.run_one(arch, shape, multi_pod=multi_pod, save=False,
-                                          verbose=False))
+                                          verbose=False,
+                                          cfg_overrides={"num_layers": DRYRUN_LAYERS}))
     finally:
         mesh_lib.destroy_fake_group()
     torch.cuda.synchronize()
@@ -2911,7 +2966,7 @@ def phase_dryrun(torch, card):
             f"{r['t_compute_s']:.4g}/{r['t_memory_s']:.4g}/{r['t_collective_s']:.4g} s, "
             f"bottleneck {r['bottleneck']}, useful {r['useful_flops_ratio']:.4f}, roofline "
             f"MFU {r['roofline_mfu']:.4f}, counted in {r['count_s']:.1f} s")
-    log("dryrun", f"{len(records)} records in {time.perf_counter() - t0:.1f} s on fake "
+    log("dryrun", f"{len(records)} records ({DRYRUN_LAYERS} layers each) in {time.perf_counter() - t0:.1f} s on fake "
         f"tensors; memory_allocated {before} -> {after}; the host ran it, {card}")
 
 
@@ -3432,6 +3487,406 @@ def phase_ranks(torch, rec, card, local):
     spec_ranks_serve(rec, card, local["spec"])
 
 
+#: phase 35's question to gloo: each collective the zoo's mesh issues, on a
+#: cuda:0 tensor over a pair of gloo ranks joined without the staging of
+#: ``core/ring.stage_mesh_collectives``, held to its exact result; the
+#: all-gather last, since it may kill the ranks.  Each result is written
+#: to DIR/<collective>.<rank> as it ends.
+_GLOO_PROBE = r"""
+import sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+a = sys.argv
+out = Path(a[1])
+rank, init = int(a[a.index("--rank") + 1]), a[a.index("--init-method") + 1]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+torch.cuda.set_device(0)
+g = dist.group.WORLD
+x = (torch.arange(8.0) + 100 * rank).cuda()
+every = torch.stack([torch.arange(8.0) + 100 * r for r in range(2)])
+probes = {
+    "reduce_scatter_tensor": (lambda: funcol.reduce_scatter_tensor(torch.cat([x, x]), "sum", 0, g),
+                              every.sum(0)),
+    "all_reduce": (lambda: funcol.all_reduce(x, "sum", g), every.sum(0)),
+    "broadcast": (lambda: funcol.broadcast(x, 0, g), every[0]),
+    "all_to_all_single": (lambda: funcol.all_to_all_single(x, None, None, g),
+                          torch.cat([every[r].chunk(2)[rank] for r in range(2)])),
+    "all_gather_into_tensor": (lambda: funcol.all_gather_tensor(x, 0, g), every.reshape(-1)),
+}
+for name, (run, want) in probes.items():
+    try:
+        got = run().wait().cpu()
+        said = "ok" if torch.equal(got, want) else f"wrong: {got.tolist()}"
+    except RuntimeError as e:
+        said = f"refused: {e}"[:200]
+    (out / f"{name}.{rank}").write_text(said)
+dist.barrier()
+dist.destroy_process_group()
+"""
+GLOO_PROBES = ("reduce_scatter_tensor", "all_reduce", "broadcast", "all_to_all_single",
+               "all_gather_into_tensor")
+
+
+def gloo_probe():
+    """Which collectives gloo takes on CUDA tensors as they are:
+    {collective: "ok" | "wrong: ..." | "refused: ..." | "killed its ranks: ..."
+    | "not asked"}; a collective after the one the ranks died in is not
+    asked."""
+    from repro_torch.launch import ranks as rank_procs
+
+    said, died = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            rank_procs.launch([sys.executable, "-c", _GLOO_PROBE, tmp], 2, timeout=120,
+                              capture=True)
+        except rank_procs.RankFailure as e:
+            died = str(e).strip().splitlines()[0].rstrip(":")
+        killed = False
+        for name in GLOO_PROBES:
+            files = [Path(tmp, f"{name}.{r}") for r in range(2)]
+            if all(f.exists() for f in files):
+                texts = sorted({f.read_text() for f in files})
+                said[name] = texts[0] if len(texts) == 1 else f"wrong: ranks said {texts}"
+            elif died is None:
+                raise AssertionError(f"gloo probe: the ranks ended without asking {name}")
+            else:
+                said[name] = "not asked" if killed else f"killed its ranks: {died}"
+                killed = True
+    return said
+
+
+#: the four ranks of phase 35 (a): phase 7's prefill and decode steps
+#: under the HMP rules in fp32, then on the same weights cast to bf16, each
+#: rank's logits and counts written to DIR
+_ZOO_RANKS_WORKER = r"""
+import dataclasses, json, sys
+from pathlib import Path
+import torch
+a = sys.argv
+out = Path(a[1])
+rank, init = int(a[a.index("--rank") + 1]), a[a.index("--init-method") + 1]
+from repro_torch.launch import ranks
+ring, dev = ranks.init(rank, 4, init, timeout=300)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.configs import get_config
+from repro_torch.core.ring import MESH_STAGED
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.params import init_params, local_bytes
+from repro_torch.models.sharding import make_rules
+from repro_torch.serving.engine import TransformerExecutor
+toks = json.loads((out / "tokens.json").read_text())
+cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5, dtype="float32",
+                          param_dtype="float32")
+rules = make_rules(make_mesh((1, 4), ("data", "model"), device="cuda"), "prefill")
+params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5), device=dev,
+                     rules=rules)
+b, s = 2, 2100
+tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(6))
+def cast(tree, dtype):
+    return {k: cast(v, dtype) if isinstance(v, dict) else v.to(dtype) for k, v in tree.items()}
+res = {"weight_bytes": local_bytes(params)}
+for dtype in ("float32", "bfloat16"):
+    c = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
+    ex = TransformerExecutor(cast(params, getattr(torch, dtype)), c, backend="kernel",
+                             rules=rules)
+    ops.reset_launch_counts()
+    logits, cache = ex.prefill(tokens, ex.make_cache(b, s + len(toks)))
+    prefill, paths = ops.launch_counts(), ops.path_counts()
+    outs = [logits.float().cpu()]
+    for step, tok in enumerate(toks):
+        logits, cache = ex.decode(torch.tensor(tok, device=dev)[:, None], cache, s + step)
+        outs.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    res[dtype] = {"logits": outs, "prefill": prefill, "paths": paths,
+                  "all": ops.launch_counts()}
+    del ex, cache
+res.update(staged=dict(MESH_STAGED), peak=torch.cuda.max_memory_allocated())
+torch.save(res, out / f"rank{rank}.pt")
+ranks.finish()
+"""
+
+#: phase 35 (a)'s fp32 tolerance: the same kernels on each rank's shards,
+#: the row-parallel sums split over the ranks adding in another order
+#: (phase 7's kernel-vs-eager bound)
+ZOO_RANKS_TOL = 1e-4
+#: phase 35 (a)'s bf16 tolerance, in bf16 units (2**-7 relative) of the
+#: largest one-process logit: bf16 rounds each rank's partial sums and
+#: every activation, so the ranks and one process may part by a few units
+ZOO_BF16_UNITS = 4
+
+
+def rank_weight_bytes(cfg, ranks: int) -> int:
+    """The bytes of RecurrentGemma's weights one rank should hold on a (data
+    1, model ``ranks``) mesh, reckoned apart from the rules: the whole
+    model's bytes (``param_bytes``) split ``ranks`` ways, but for the leaves
+    every rank holds whole: the norms' scales, and wk and wv, whose one KV
+    head is not split."""
+    from repro_torch.models.params import _leaves, abstract_params, param_bytes
+
+    kept = sum(leaf.numel() * leaf.element_size()
+               for path, leaf in _leaves(abstract_params(cfg))
+               if path[-1] in ("scale", "wk", "wv"))
+    return (param_bytes(cfg) - kept) // ranks + kept
+
+
+def bf16_unit(logits) -> float:
+    """One bf16 unit in the last place at the largest |logit|."""
+    return 2.0 ** (math.floor(math.log2(logits.abs().max().item())) - 7)
+
+
+def cast_tree(tree, dtype):
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
+def zoo_one_bf16(torch, tokens):
+    """Phase 7's 5-layer model cast to bf16 on one process, kernel and eager
+    backends: the logits of the 2 x 2100 prefill and of each decode step
+    fed ``tokens``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", param_dtype="bfloat16")
+    params = cast_tree(params, torch.bfloat16)
+    b, s = 2, 2100
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(6))
+    out = {}
+    for backend in ("kernel", "eager"):
+        ex = TransformerExecutor(params, cfg, backend=backend)
+        logits, cache = ex.prefill(prompt, ex.make_cache(b, s + len(tokens)))
+        outs = [logits.float().cpu()]
+        for step, tok in enumerate(tokens):
+            logits, cache = ex.decode(torch.tensor(tok, device=dev)[:, None], cache, s + step)
+            outs.append(logits.float().cpu())
+        out[backend] = outs
+        del ex, cache
+    return out
+
+
+def zoo_ranks_parity(torch, card, ref):
+    """Phase 35 (a): the four ranks' fp32 logits against phase 7's, and
+    their bf16 logits against one process's on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import ranks as rank_procs
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "tokens.json").write_text(json.dumps(ref["tokens"]))
+        try:  # the launcher puts the checkout's src/ on the ranks' path
+            rank_procs.launch([sys.executable, "-c", _ZOO_RANKS_WORKER, tmp], 4,
+                              timeout=RANKS_TIMEOUT, capture=True)
+        except rank_procs.RankFailure as e:
+            raise AssertionError(f"zoo ranks parity: {e}")
+        reps = [torch.load(Path(tmp, f"rank{r}.pt")) for r in range(4)]
+    t_ranks = time.perf_counter() - t0
+    want = {"flash_attention": 1, "rglru_scan": 4}
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5, dtype="float32",
+                              param_dtype="float32")
+    shard_bytes = rank_weight_bytes(cfg, 4)
+    for r, rep in enumerate(reps):
+        if rep["weight_bytes"] != shard_bytes:
+            raise AssertionError(f"zoo ranks parity: rank {r} holds {rep['weight_bytes']} bytes "
+                                 f"of weights, not the {shard_bytes} reckoned for its shards")
+        for dtype, flash_path in (("float32", "simt"), ("bfloat16", "mma")):
+            run = rep[dtype]
+            got = {n: run["prefill"][n] for n in want}
+            if got != want or run["all"] != run["prefill"]:
+                raise AssertionError(f"zoo ranks parity {dtype}: rank {r} launches "
+                                     f"{run['prefill']} in the prefill, {run['all']} in all; "
+                                     f"want {want}, none in decode")
+            if (run["paths"]["flash_attention"][flash_path] != 1
+                    or run["paths"]["rglru_scan"]["tma"] != 4):
+                raise AssertionError(f"zoo ranks parity {dtype}: rank {r} paths {run['paths']}")
+            for i, (got, base) in enumerate(zip(run["logits"], reps[0][dtype]["logits"])):
+                if not torch.equal(got, base):
+                    raise AssertionError(f"zoo ranks parity {dtype}: rank {r}'s logits at step "
+                                         f"{i} differ from rank 0's")
+    errs = []
+    for i, (got, want_l) in enumerate(zip(reps[0]["float32"]["logits"], ref["logits"])):
+        e = (got - want_l).abs().max().item()
+        if not e <= ZOO_RANKS_TOL:
+            raise AssertionError(f"zoo ranks parity: step {i} logits vs one process: max abs "
+                                 f"err {e} > {ZOO_RANKS_TOL}")
+        errs.append(e)
+    one = zoo_one_bf16(torch, ref["tokens"])
+    unit = max(bf16_unit(t) for t in one["kernel"])
+    e_ranks = max((g - w).abs().max().item()
+                  for g, w in zip(reps[0]["bfloat16"]["logits"], one["kernel"]))
+    e_backends = max((k - e).abs().max().item() for k, e in zip(one["kernel"], one["eager"]))
+    if not e_ranks <= ZOO_BF16_UNITS * unit:
+        raise AssertionError(f"zoo ranks parity bf16: logits vs one process max abs err "
+                             f"{e_ranks} > {ZOO_BF16_UNITS} bf16 units ({unit})")
+    log("zoo ranks", f"(a) RecurrentGemma-9B width, 5 layers fp32 on 4 ranks (kernel backend, "
+        f"flash on the 'simt' fp32 path and scan on 'tma' on each rank's shards): every "
+        f"rank's logits bitwise equal; vs phase 7's one-process kernel logits max abs err "
+        f"prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g} (tolerance {ZOO_RANKS_TOL})")
+    log("zoo ranks", f"(a) the same weights cast to bf16, the same prefill and decode tokens "
+        f"(flash on 'mma'): every rank's logits bitwise equal; vs one process max abs err "
+        f"{e_ranks:.4g} = {e_ranks / unit:.2f} bf16 units of the largest logit ({unit}; "
+        f"tolerance {ZOO_BF16_UNITS}); one process kernel vs eager backend {e_backends:.4g} "
+        f"= {e_backends / unit:.2f} units")
+    log("zoo ranks", f"(a) weights a rank {[rep['weight_bytes'] for rep in reps]} bytes "
+        f"(reckoned {shard_bytes}), peak {[round(rep['peak'] / 2**30, 2) for rep in reps]} GiB; "
+        f"staged collectives rank 0 {reps[0]['staged']}; ranks {t_ranks:.1f} s with "
+        f"start-up ({card})")
+
+
+def teacher_forced_gaps(ex, waves, prompts, served, max_len, torch):
+    """One process fed the tokens the ranks served, wave by wave as the
+    engine ran them (the prompts' prefill, then a decode step per served
+    token): for each request and step, the gap between the one-process top
+    logit and the logit of the token served there."""
+    import numpy as np
+
+    gaps = {}
+    for uids in waves:
+        toks = torch.tensor([served[u] for u in uids], device=ex.device)
+        (s,) = {len(prompts[u]) for u in uids}  # a wave of one prompt length
+        logits, cache = ex.prefill(np.array([prompts[u] for u in uids]),
+                                   ex.make_cache(len(uids), max_len))
+        for step in range(toks.shape[1]):
+            lf = logits.float()
+            gap = lf.max(-1).values - lf.gather(1, toks[:, step:step + 1])[:, 0]
+            for u, g in zip(uids, gap.tolist()):
+                gaps.setdefault(u, []).append(g)
+            if step + 1 < toks.shape[1]:
+                logits, cache = ex.decode(toks[:, step:step + 1], cache, s + step)
+    return gaps
+
+
+def zoo_ranks_serve(torch, rec, card, one):
+    """Phase 35 (b): ``launch.serve --executor zoo --ranks 4`` with phase
+    8's traffic against phase 8's tokens and time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    from repro_torch.launch.serve import build_zoo_executor
+
+    what = "4-rank zoo serve"
+    lens, max_new = [300] * 4 + [2100] * 2, 16
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = _ranks_run("repro_torch.launch.serve", [
+            "--executor", "zoo", "--model", "recurrentgemma-9b", "--ranks", "4",
+            "--prompt-lens", ",".join(map(str, lens)), "--max-new", str(max_new),
+            "--max-batch", "4", "--dtype", "bfloat16", "--seed", "0",
+            "--rank-timeout", str(RANKS_TIMEOUT), "--report", tmp], what)
+        reps = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(4)]
+    line = next(json.loads(t) for t in stdout.splitlines() if t.startswith('{"ranks"'))
+    if (line["ranks"], line["transport"]) != (4, "gloo"):
+        raise AssertionError(f"{what}: serve line {line}")
+    waves = line["stats"]["prefill_waves"]
+    want = {"flash_attention": 12 * waves, "rglru_scan": 26 * waves}
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    shard_bytes = rank_weight_bytes(cfg, 4)
+    for r, rep in enumerate(reps):
+        if rep["tokens"] != reps[0]["tokens"]:
+            raise AssertionError(f"{what}: rank {r}'s tokens differ from rank 0's")
+        got = {n: rep["launches"][n] for n in want}
+        if waves != 2 or got != want or sum(rep["launches"].values()) != sum(want.values()):
+            raise AssertionError(f"{what}: rank {r} launches {rep['launches']} in {waves} "
+                                 f"waves; want {want}")
+        paths = rep["paths"]
+        if (paths["flash_attention"] != {"mma": want["flash_attention"], "simt": 0}
+                or paths["rglru_scan"] != {"tma": want["rglru_scan"], "simt": 0}):
+            raise AssertionError(f"{what}: rank {r} off the fast paths: {paths}")
+        if rep["weight_bytes"] != shard_bytes:
+            raise AssertionError(f"{what}: rank {r} holds {rep['weight_bytes']} bytes of "
+                                 f"weights, not the {shard_bytes} reckoned for its shards")
+    for n in ZOO_KERNELS:
+        rec[n].d["launches"] += sum(rep["launches"][n] for rep in reps)
+
+    # every served token against one process fed the same tokens: the ranks'
+    # token is the one-process argmax, or within twice the bf16 logit
+    # disagreement of phase 8's two one-process backends of it
+    served = {int(u): t for u, t in reps[0]["tokens"].items()}
+    ex = build_zoo_executor(get_config("recurrentgemma-9b"), device=torch.device("cuda"),
+                            dtype="bfloat16", seed=0)
+    gaps = teacher_forced_gaps(ex, [[0, 1, 2, 3], [4, 5]], one["prompts"], served,
+                               max(lens) + max_new, torch)
+    del ex
+    torch.cuda.empty_cache()
+    limit = 2 * one["bf16_err"]
+    flat = [g for u in sorted(gaps) for g in gaps[u]]
+    if len(flat) != len(lens) * max_new or not all(math.isfinite(g) for g in flat):
+        raise AssertionError(f"{what}: teacher-forced gaps {gaps}")
+    off = {u: [(j, round(g, 5)) for j, g in enumerate(gaps[u]) if g > 0] for u in sorted(gaps)}
+    if not max(flat) <= limit:
+        raise AssertionError(f"{what}: a served token's one-process logit is {max(flat)} below "
+                             f"the top, more than {limit}: {off}")
+    parted = {u: next((j for j, (x, y) in enumerate(zip(served[u], one["tokens"][u]))
+                       if x != y), None) for u in sorted(served)}
+
+    # rank 0's distinct kernel calls, replayed in the served dtype
+    g = torch.Generator(device="cuda").manual_seed(35)
+    calls = reps[0]["kernel_calls"]
+    ferr = serr = 0.0
+    for (qs, qst, ks, kst, vst, dtype, causal, window), _ in calls["flash_attention"]:
+        q = strided_randn(qs, qst, dtype, g, torch)
+        k = strided_randn(ks, kst, dtype, g, torch)
+        v = strided_randn(ks, vst, dtype, g, torch)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        plain = flash_attention_plain(q, k, v, causal=causal, window=window)
+        ferr = max(ferr, check_close("flash_attention", out, plain, dtype,
+                                     f"rank 0's q {qs} kv {ks} window {window}"))
+    for (shape, dtype, h0_dtype), _ in calls["rglru_scan"]:
+        a = torch.rand(shape, generator=g, device="cuda").to(getattr(torch, dtype))
+        b = torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dtype))
+        h0 = torch.randn((shape[0], shape[2]), generator=g,
+                         device="cuda").to(getattr(torch, h0_dtype))
+        got, want_s = rglru_scan(a, b, h0), rglru_scan_plain(a, b, h0)
+        serr = max(serr, check_close("rglru_scan", got[0], want_s[0], dtype,
+                                     f"rank 0's scan {shape}"))
+    torch.cuda.synchronize()
+    rec["flash_attention"].err(ferr)
+    rec["rglru_scan"].err(serr)
+    log("zoo ranks", f"(b) {what}: 4 ranks' tokens bitwise equal; each request's first token "
+        f"unlike phase 8's {parted}; one process fed the ranks' {len(flat)} tokens: "
+        f"{sum(g == 0 for g in flat)} its argmax, the others below its top logit by "
+        f"{off} (max {max(flat):.4g}; limit {limit:.4g}, twice phase 8's kernel-vs-eager "
+        f"bf16 logit error {one['bf16_err']:.4g})")
+    log("zoo ranks", f"(b) launches a rank {want} in {waves} waves on mma / tma; rank 0's "
+        f"distinct calls replayed vs plain in bf16: flash {len(calls['flash_attention'])} "
+        f"(q/kv {[(c[0][0], c[0][2]) for c in calls['flash_attention']]}) max abs err "
+        f"{ferr:.3g}, scan {len(calls['rglru_scan'])} "
+        f"({[c[0][0] for c in calls['rglru_scan']]}) max abs err {serr:.3g}")
+    log("zoo ranks", f"(b) weights a rank {[rep['weight_bytes'] for rep in reps]} bytes "
+        f"(reckoned {shard_bytes}, of {rank_weight_bytes(cfg, 1)} whole); peak memory a rank "
+        f"{[round(rep['peak_memory_bytes'] / 2**30, 2) for rep in reps]} GiB; staged "
+        f"collectives rank 0 (calls, bytes sent) {reps[0]['staged_collectives']}")
+    log("zoo ranks", f"(b) {line['new_tokens']} new tokens in {line['seconds']:.2f} s: "
+        f"{line['tokens_per_s']:.2f} tok/s, TTFT p50 {1e3 * line['ttft_p50_s']:.1f} ms; phase "
+        f"8's one process {one['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{1e3 * one['ttft_p50_s']:.1f} ms: ratio {line['tokens_per_s'] / one['tokens_per_s']:.3f}"
+        f" in this run; 4 ranks time-slicing one card, not four devices ({card})")
+
+
+def phase_zoo_ranks(torch, rec, card, ref, one):
+    """The zoo under the HMP rules on four ranks (phase 35): the gloo
+    probe, (a) phase 7's parity on the ranks, (b) phase 8's serve on them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("zoo ranks", f"gloo on CUDA tensors, unstaged: {gloo_probe()} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    zoo_ranks_parity(torch, card, ref)
+    t0 = time.perf_counter()
+    zoo_ranks_serve(torch, rec, card, one)
+    log("zoo ranks", f"(b) {time.perf_counter() - t0:.1f} s with start-up")
+
+
 def main() -> int:
     import torch
 
@@ -3509,10 +3964,13 @@ def main() -> int:
 
     phase_zoo_kernels(rec, torch)
     torch.cuda.empty_cache()
-    phase_zoo_parity(torch)
+    zoo_ref = phase_zoo_parity(torch)
     torch.cuda.empty_cache()
     out = phase_zoo_serve(torch, rec)
-    check_zoo_served_tokens(out, torch)
+    bf16_err = check_zoo_served_tokens(out, torch)
+    zoo_one = {"tokens": {r.uid: r.output for r in out["requests"]}, "bf16_err": bf16_err,
+               "prompts": {r.uid: r.prompt for r in out["requests"]},
+               "tokens_per_s": out["tokens_per_s"], "ttft_p50_s": out["ttft_p50_s"]}
     del out  # RecurrentGemma's 16 GiB go before StableLM is drawn
     torch.cuda.empty_cache()
 
@@ -3557,6 +4015,7 @@ def main() -> int:
     phase_remat_dots(torch, rec, card)
     phase_hillclimb(torch, card)
     phase_ranks(torch, rec, card, local_tokens)
+    phase_zoo_ranks(torch, rec, card, zoo_ref, zoo_one)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

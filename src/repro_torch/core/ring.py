@@ -153,8 +153,9 @@ class ProcessRing:
     run equals a ``LocalRing`` run bit for bit.
 
     The transport is gloo.  CUDA tensors are staged through pinned host
-    buffers here and nowhere else (route "host-staged"); CPU tensors go as
-    they are ("direct").  ``hops``, ``hop_bytes`` and ``routes`` count the
+    buffers here (route "host-staged"), as the zoo mesh's collectives are
+    by :func:`stage_mesh_collectives`; CPU tensors go as they are
+    ("direct").  ``hops``, ``hop_bytes`` and ``routes`` count the
     hops this rank took part in, the bytes it sent and each route's hops.
     """
 
@@ -265,6 +266,68 @@ class ProcessRing:
 
 #: either ring: the HMP program is written once against this interface
 Ring = Union[LocalRing, ProcessRing]
+
+
+#: the collectives a ``DTensor`` mesh issues, as (op namespace, op), each
+#: staged through pinned host memory on a gloo group by
+#: :func:`stage_mesh_collectives`
+MESH_COLLECTIVES = (("_c10d_functional", "all_gather_into_tensor"),
+                    ("_c10d_functional", "reduce_scatter_tensor"),
+                    ("_c10d_functional", "all_reduce"),
+                    ("_c10d_functional", "all_to_all_single"),
+                    ("_c10d_functional", "broadcast"),
+                    ("_dtensor", "shard_dim_alltoall"))
+_STAGING: List = []  # the dispatcher registrations, made once per process
+
+#: {collective: [staged calls, bytes this process sent]} since the process began
+MESH_STAGED: dict = {}
+
+
+def stage_mesh_collectives() -> None:
+    """Route the collectives that ``DTensor`` issues on CUDA tensors over a
+    gloo group through pinned host buffers, as ``ProcessRing`` stages its
+    hops: gloo's all-gather of a CUDA tensor kills its process.  A CUDA
+    kernel is registered for each of :data:`MESH_COLLECTIVES`; on a gloo
+    group it copies the input to pinned host memory, runs the collective
+    there and copies the result back, counting the call in
+    :data:`MESH_STAGED`; on a group of any other backend it runs torch's own
+    kernel.  ``launch/ranks.init`` calls it when a rank joins its gloo group
+    on CUDA.  Once per process."""
+    if _STAGING:
+        return
+    for ns in sorted({ns for ns, _ in MESH_COLLECTIVES}):
+        lib = torch.library.Library(ns, "IMPL")
+        for space, name in MESH_COLLECTIVES:
+            if space == ns:
+                lib.impl(name, _staged_collective(ns, name), "CUDA")
+        _STAGING.append(lib)
+
+
+def mesh_collectives_staged() -> bool:
+    return bool(_STAGING)
+
+
+def _staged_collective(ns: str, name: str):
+    """The staged kernel of one collective (the group's name is its last
+    argument), or torch's own where the group is not gloo."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    op = getattr(getattr(torch.ops, ns), name).default
+
+    def run(t: torch.Tensor, *args):
+        group = args[-1]
+        if isinstance(group, str):
+            group = _resolve_process_group(group)
+        if dist.get_backend(group) != "gloo":
+            return op._op_dk(torch._C.DispatchKey.CompositeExplicitAutograd, t, *args)
+        host = ProcessRing._to_host(t)
+        out = torch.ops._c10d_functional.wait_tensor(op(host, *args))
+        calls = MESH_STAGED.setdefault(name, [0, 0])
+        calls[0] += 1
+        calls[1] += host.numel() * host.element_size()
+        return ProcessRing._to_device(out, t)
+
+    return run
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,11 +19,14 @@ launches the kernel (its plain version on a CPU tensor),
 of :func:`flash_attention` or :func:`rglru_scan` requires a gradient (a
 train step), the kernel backend goes through the kernel's
 ``torch.autograd.Function``, whose forward is the same launch; with no
-gradient (every serving call) it launches the wrapper directly.
+gradient (every serving call) it launches the wrapper directly.  Their
+kernel-backend calls are counted by signature in :data:`CALLS`
+(:func:`call_log`), so a run can replay each one against the plain version.
 """
 from __future__ import annotations
 
-from typing import Dict
+from collections import Counter
+from typing import Dict, List
 
 import torch
 
@@ -62,6 +65,30 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.paths = dict.fromkeys(fn.paths, 0)
+
+
+#: the kernel-backend calls of :func:`flash_attention` and :func:`rglru_scan`
+#: since the last :func:`reset_call_log`, counted by signature: for
+#: attention the shapes and strides of q, k and v, the dtype and the masks;
+#: for the scan the shape of ``a`` and the dtypes of ``a`` and ``h0``.
+#: Enough to replay each distinct call against its plain version.
+CALLS = {"flash_attention": Counter(), "rglru_scan": Counter()}
+
+
+def call_log() -> Dict[str, List]:
+    """``[signature, calls]`` of each distinct kernel-backend call since the
+    last :func:`reset_call_log`, by kernel, in order."""
+    return {name: sorted([list(sig), n] for sig, n in calls.items())
+            for name, calls in CALLS.items()}
+
+
+def reset_call_log() -> None:
+    for calls in CALLS.values():
+        calls.clear()
+
+
+def _dtype(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _check_backend(backend: str) -> None:
@@ -150,6 +177,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _check_backend(backend)
     if backend == "eager":
         return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    CALLS["flash_attention"][(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+                              v.stride(), _dtype(q), bool(causal), int(window))] += 1
     if _needs_grad(q, k, v):
         return _flash.FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
@@ -162,6 +191,7 @@ def rglru_scan(a, b, h0, *, backend: str = "kernel"):
     _check_backend(backend)
     if backend == "eager":
         return _scan.rglru_scan_plain(a, b, h0)
+    CALLS["rglru_scan"][(tuple(a.shape), _dtype(a), _dtype(h0))] += 1
     if _needs_grad(a, b, h0):
         return _scan.RGLRUScanFn.apply(a, b, h0)
     return _scan.rglru_scan(a, b, h0)

@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.core.ring import ProcessRing
+from repro_torch.core.ring import ProcessRing, stage_mesh_collectives
 
 #: seconds a rank waits at the rendezvous and in each collective
 RENDEZVOUS_S = 120
@@ -128,7 +128,9 @@ def init(rank: int, ranks: int, init_method: str, *, device=None,
     """Join the gloo group as ``rank`` of ``ranks`` and return this rank's
     ring and device: ``cuda:(rank % cards)`` unless ``device`` is "cpu"
     (then the ranks split the host's cores).  ``timeout`` bounds the
-    rendezvous and every collective."""
+    rendezvous and every collective.  On CUDA the ``DTensor`` collectives
+    of gloo groups are staged through host memory
+    (``core/ring.stage_mesh_collectives``), as the ring's hops are."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -138,6 +140,8 @@ def init(rank: int, ranks: int, init_method: str, *, device=None,
                                          (os.cpu_count() or 1) // ranks)))
     dist.init_process_group("gloo", init_method=init_method, world_size=ranks, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout))
+    if dev.type == "cuda":
+        stage_mesh_collectives()
     return ProcessRing(rank, ranks), dev
 
 

@@ -18,6 +18,8 @@ model of the zoo through the continuous scheduler or waves.
       --draft-model distilbert --spec-k 4 --requests 4 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --model gpt2-l \\
       --capacities 3,2,2,1 --ranks 4 --requests 8 --prompt-len 37-300
+  PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
+      --model recurrentgemma-9b --ranks 4 --prompt-lens 300,300,300,300,2100,2100
 
 ``--executor galaxy`` (the default): profiler -> planner (Alg. 1) ->
 ``ExecPlan.from_plan`` -> Galaxy HMP executor on a ring of one device per
@@ -81,11 +83,22 @@ names (the serve line's ``draft_device``): only that rank builds it and
 runs its prefills and proposals, and it broadcasts each round's proposals
 to every rank, which all verify them.  ``--trace``, ``--metrics`` and
 ``--drift`` read rank 0's engine, the one every rank's engine moves in
-step with: rank 0 alone traces, prices and prints.  The zoo executor
-serves on one process and is refused with ``--ranks`` above 1.
+step with: rank 0 alone traces, prices and prints.
+
+``--executor zoo --ranks N`` serves the zoo in waves under the HMP sharding
+rules (``models/sharding.make_rules(mesh, "prefill")``) on a (data 1,
+model N) ``DeviceMesh`` over the N gloo ranks: each rank draws the
+weights from ``--seed`` but keeps only its shards, runs the flash and
+RG-LRU scan kernels on its own heads and recurrence columns, and takes
+rank 0's sampled ids; on CUDA the mesh's collectives go through pinned
+host memory (``core/ring.stage_mesh_collectives``).  The continuous
+scheduler (``--scheduler continuous``, or ``auto`` on a model it pages),
+``--prefix-cache``, ``--prefill-chunk`` and ``--draft-model`` still serve
+on one process and are refused with ``--ranks`` above 1.
 ``--report DIR`` has each rank write ``DIR/rank<r>.json``: its served
 tokens, kernel launches and paths, engine stats and registry counters,
-the draft's device and (on its rank) the draft's calls, and ring hops.
+the draft's device and (on its rank) the draft's calls, ring hops, the
+bytes of its weights, its peak device memory and its staged collectives.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
@@ -115,13 +128,16 @@ from repro_torch.configs import (
 from repro_torch.core import costmodel, hmp
 from repro_torch.core.execplan import COMPUTE_BACKENDS, ExecPlan
 from repro_torch.core.profiler import AnalyticProfiler
-from repro_torch.core.ring import LocalRing, ProcessRing, Ring
+from repro_torch.core.ring import MESH_STAGED, LocalRing, ProcessRing, Ring
 from repro_torch.core.simulator import make_step_pricer
 from repro_torch.kernels import ops
 from repro_torch.launch import ranks as rank_procs
-from repro_torch.models.params import init_params, param_bytes
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.params import init_params, local_bytes, param_bytes
+from repro_torch.models.sharding import make_rules
 from repro_torch.obs import DriftMonitor, Tracer
-from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor
+from repro_torch.serving.engine import (Request, ServingEngine, TransformerExecutor,
+                                        paged_capable)
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.spec import place_draft
@@ -198,14 +214,23 @@ def draft_placement(executor_kind: str, capacities: Sequence[float]) -> int:
 
 def build_zoo_executor(cfg: ModelConfig, *, device: torch.device,
                        dtype: Optional[str] = None, seed: int = 0,
-                       backend: str = "kernel") -> TransformerExecutor:
+                       backend: str = "kernel", ranks: int = 1) -> TransformerExecutor:
     """The model zoo at ``cfg``'s width and depth, random weights drawn on
-    ``device`` from ``seed`` (in ``dtype``, default the config's)."""
+    ``device`` from ``seed`` (in ``dtype``, default the config's).  With
+    ``ranks`` > 1 this process is one rank of a process group of that size
+    (``launch/ranks.init``): the executor runs under the HMP rules
+    (``make_rules(mesh, "prefill")``) on a (data 1, model ``ranks``) mesh
+    over the group, and this rank draws every weight but keeps only its
+    shards (``init_params(rules=)``)."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype, param_dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(cfg, generator=gen, device=device)
-    return TransformerExecutor(params, cfg, backend=backend)
+    rules = None
+    if ranks > 1:
+        rules = make_rules(make_mesh((1, ranks), ("data", "model"), device=device.type),
+                           "prefill")
+    params = init_params(cfg, generator=gen, device=device, rules=rules)
+    return TransformerExecutor(params, cfg, backend=backend, rules=rules)
 
 
 def make_requests(cfg: ModelConfig, n: int, prompt_len: Tuple[int, int],
@@ -274,11 +299,24 @@ def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
             f"card's {CARD_BYTES / 1e9:.0f} GB: it waits for serving across cards")
 
 
-def refuse_across_ranks(executor_kind: str) -> None:
-    """What serves on one process only: the zoo executor."""
-    if executor_kind != "galaxy":
-        raise ValueError(f"the {executor_kind} executor serves on one process; "
-                         "--ranks runs the Galaxy executor's ring")
+def refuse_across_ranks(executor_kind: str, cfg: ModelConfig, *, scheduler: str = "auto",
+                        spec: bool = False, prefix_cache: bool = False,
+                        prefill_chunk: Optional[int] = None) -> None:
+    """What serves on one process only: the zoo executor's continuous
+    scheduler (``scheduler`` "continuous", or "auto" on an arch it pages),
+    and with it the prefix cache, chunked prefill and speculative
+    decoding.  Across ranks the zoo serves waves under the HMP rules."""
+    if executor_kind == "galaxy":
+        return
+    if scheduler == "continuous" or (scheduler == "auto" and paged_capable(cfg)):
+        raise ValueError(
+            f"the zoo executor serves {cfg.name} by continuous batching on one process; "
+            f"across ranks it serves waves (--scheduler wave): the paged protocol under a "
+            f"mesh is not ported yet")
+    if spec or prefix_cache or prefill_chunk:
+        raise ValueError("speculative decoding, the prefix cache and chunked prefill need the "
+                         "zoo's continuous scheduler, which serves on one process; across "
+                         "ranks the zoo serves waves")
 
 
 def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
@@ -318,8 +356,6 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     with the same arguments, and only the rank of the draft's device
     builds ``draft_model``."""
     dev = resolve_device(device)
-    if ring is not None:
-        refuse_across_ranks(executor_kind)
     if compute_backend != "kernel" and executor_kind != "galaxy":
         raise ValueError("compute_backend selects the Galaxy executor's per-shard compute; "
                          f"the {executor_kind} executor has none")
@@ -337,6 +373,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         cfg = reduced(cfg)
     elif executor is None:
         check_fits_one_card(cfg, dtype)
+    if ring is not None:
+        refuse_across_ranks(executor_kind, cfg, scheduler=scheduler, spec=spec_k is not None,
+                            prefix_cache=prefix_cache, prefill_chunk=prefill_chunk)
     if (draft_model is None and draft_executor is None) != (spec_k is None):
         raise ValueError("a draft model and spec_k go together")
     draft_device = None
@@ -363,7 +402,8 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
                                       dtype=getattr(torch, dtype or cfg.dtype),
                                       seed=seed, ring=ring)
         else:
-            executor = build_zoo_executor(cfg, device=dev, dtype=dtype, seed=seed)
+            executor = build_zoo_executor(cfg, device=dev, dtype=dtype, seed=seed,
+                                          ranks=1 if ring is None else ring.num_devices)
     max_prompt = prompt_len[1] if prompt_lens is None else max(prompt_lens)
     if shared_prefix is None:
         shared_prefix = max_prompt // 2 if prefix_cache else 0
@@ -416,9 +456,13 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
     """``directory/rank<rank>.json``: what this process served (tokens by
     request), its kernel launches and paths since the serve began, the
     engine's stats and its registry's counters, the draft's device and,
-    where this process holds the draft, its prefill and decode calls, and
-    its ring's hops."""
-    ring = getattr(out["executor"], "ring", None)
+    where this process holds the draft, its prefill and decode calls, its
+    ring's hops, the bytes of the weights it holds, its peak device memory
+    and the mesh collectives it staged through host memory (calls and
+    bytes sent, by collective), and the zoo kernels' distinct calls
+    (``kernels/ops.call_log``)."""
+    ex = out["executor"]
+    ring = getattr(ex, "ring", None)
     spec = out["spec"]
     os.makedirs(directory, exist_ok=True)
     rep = {"rank": rank, "ranks": out["ranks"], "transport": out["transport"],
@@ -431,7 +475,13 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
            "seconds": out["seconds"], "tokens_per_s": out["tokens_per_s"],
            "ttft_p50_s": out["ttft_p50_s"],
            "hops": getattr(ring, "hops", 0), "hop_bytes": getattr(ring, "hop_bytes", 0),
-           "routes": getattr(ring, "routes", {})}
+           "routes": getattr(ring, "routes", {}),
+           "weight_bytes": (local_bytes(ex.params)
+                            if isinstance(ex, TransformerExecutor) else None),
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                 if torch.cuda.is_initialized() else None),
+           "staged_collectives": {k: list(v) for k, v in MESH_STAGED.items()},
+           "kernel_calls": ops.call_log()}
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
         json.dump(rep, f)
 
@@ -440,17 +490,21 @@ def launch_ranks(args, capacities: Sequence[float], argv) -> None:
     """``--ranks N``: check the request, build the kernels once, start the N
     ranks and wait for them (``SystemExit`` with a message if a rank fails
     or the ranks time out)."""
-    try:
-        refuse_across_ranks(args.executor)
-    except ValueError as e:
-        raise SystemExit(f"--ranks {args.ranks}: {e}")
     cfg = get_config(args.model)
     if args.reduce:
         cfg = reduced(cfg)
-    plan = build_plan(cfg, capacities, compute_backend=args.compute_backend)
-    if plan.num_devices != args.ranks:
-        raise SystemExit(f"--ranks {args.ranks} does not match the plan's "
-                         f"{plan.num_devices} devices (--capacities {args.capacities})")
+    try:
+        refuse_across_ranks(args.executor, cfg, scheduler=args.scheduler,
+                            spec=args.spec_k is not None,
+                            prefix_cache=args.prefix_cache == "on",
+                            prefill_chunk=args.prefill_chunk)
+    except ValueError as e:
+        raise SystemExit(f"--ranks {args.ranks}: {e}")
+    if args.executor == "galaxy":
+        plan = build_plan(cfg, capacities, compute_backend=args.compute_backend)
+        if plan.num_devices != args.ranks:
+            raise SystemExit(f"--ranks {args.ranks} does not match the plan's "
+                             f"{plan.num_devices} devices (--capacities {args.capacities})")
     if resolve_device(args.device).type == "cuda" and args.compute_backend == "kernel":
         from repro_torch.kernels import build
         build.build_all()  # once here, not once per rank
@@ -576,15 +630,17 @@ def main(argv=None):
                          "measured/simulated drift ratios (syncs once per prefill "
                          "chunk)")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="processes of the Galaxy ring, one per edge device "
-                         "(core/ring.ProcessRing over gloo); 1 holds every device "
-                         "in this process (LocalRing).  Must equal the plan's "
-                         "device count")
+                    help="galaxy: processes of the ring, one per edge device "
+                         "(core/ring.ProcessRing over gloo), equal to the plan's "
+                         "device count; 1 holds every device in this process "
+                         "(LocalRing).  zoo: ranks of the model axis of the HMP "
+                         "rules' mesh (waves only)")
     ap.add_argument("--rank-timeout", type=float, default=1800.0, metavar="S",
                     help="with --ranks: seconds the ranks may take in all")
     ap.add_argument("--report", default=None, metavar="DIR",
                     help="each rank writes DIR/rank<r>.json: served tokens, kernel "
-                         "launches and paths, engine stats, ring hops")
+                         "launches and paths, engine stats, ring hops; weights, peak "
+                         "memory, staged collectives and (zoo) distinct kernel calls")
     rank_procs.add_rank_args(ap)
     args = ap.parse_args(argv)
     capacities = [float(c) for c in args.capacities.split(",")]
@@ -604,6 +660,7 @@ def main(argv=None):
     tracer = Tracer() if args.trace is not None and first else None
     if args.report is not None:
         ops.reset_launch_counts()
+        ops.reset_call_log()
     out = serve(args.model, capacities,
                 executor_kind=args.executor, requests=args.requests,
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,

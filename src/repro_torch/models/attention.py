@@ -32,10 +32,11 @@ heads do not divide the model axis (24 heads on 16), queries stay
 seq-sharded against gathered K/V instead (the SP pattern of §II-C-2).
 KV heads are repeated to the query heads there so every attention op is
 sharded along heads, and the cache writes go to each chip's own shard
-(``sharding.write_rows``).  On the eager backend under a mesh, or while a
-dry run counts the step (``roofline/counter.py``), attention runs as
-:class:`_LocalAttentionFn`: the plain attention on each chip's shards,
-counted as the attention function rather than as its plain ops.
+(``sharding.write_rows``).  Under a mesh, or while a dry run counts the
+step (``roofline/counter.py``), attention runs as
+:class:`_LocalAttentionFn` on each chip's shards: the flash kernel on the
+kernel backend, the plain attention on the eager one, counted as the
+attention function rather than as its plain ops.
 """
 from __future__ import annotations
 
@@ -48,8 +49,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_norm, connective_norm, connective_residual, rope
-from repro_torch.models.sharding import (constrain, local_shape_offset, logical_axis_size,
-                                         matmul, mesh_active, project, write_rows)
+from repro_torch.models.sharding import (constrain, from_local, local_shape_offset,
+                                         logical_axis_size, matmul, mesh_active, project,
+                                         write_rows)
 from repro_torch.roofline import counter
 
 NEG_INF = -1e30
@@ -149,16 +151,42 @@ def _cache_attention(q, k_cache, v_cache, mask=None):
     return out.reshape(b, s, h, hd)
 
 
+def _decode_attention(q, k_cache, v_cache, mask):
+    """:func:`_cache_attention` of a decode step.  Under a mesh with
+    head-sharded queries and a cache whole along its positions, each chip
+    attends its own query heads to the KV heads they read, on its local
+    shards (no collective): ``DTensor`` cannot always split the grouped
+    product's merged dims (torch 2.11 refuses)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if (not isinstance(q, DTensor) or Shard(2) not in q.placements
+            or Shard(1) in k_cache.placements):
+        return _cache_attention(q, k_cache, v_cache, mask)
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    if Shard(2) not in k_cache.placements:
+        # every KV head is here: keep those this chip's query heads read
+        g = q.shape[2] // k_cache.shape[2]
+        off, hl = local_shape_offset(q.shape, q.device_mesh, q.placements)[1][2], ql.shape[2]
+        if not ((off % g == 0 and hl % g == 0) or (g % hl == 0 and off % hl == 0)):
+            raise ValueError(f"{hl} query heads at {off} do not group onto {g}-head KV groups")
+        kl, vl = (t[:, :, off // g:(off + hl - 1) // g + 1] for t in (kl, vl))
+    out = _cache_attention(ql, kl, vl, mask.to_local() if isinstance(mask, DTensor) else mask)
+    return from_local(out, q.device_mesh, q.placements, q.shape)
+
+
 def _attention(q, k, v, *, causal: bool, window: int, backend: str, chunk: int = 0):
-    """Attention on (B, H, S, hd) views: ``ops.flash_attention``, or on the
-    eager backend under a mesh, a dry-run counter or a query ``chunk``
-    the plain attention on local shards (:class:`_LocalAttentionFn`)."""
-    if backend == "eager" and (chunk or mesh_active() or counter.active() is not None):
+    """Attention on (B, H, S, hd) views: ``ops.flash_attention``, or under a
+    mesh (either backend), a dry-run counter or a query ``chunk`` on the
+    eager backend, attention on local shards (:class:`_LocalAttentionFn`:
+    the flash kernel on each rank's shards on the kernel backend, the plain
+    attention on the eager one)."""
+    if mesh_active() or (backend == "eager" and (chunk or counter.active() is not None)):
         from torch.distributed.tensor import DTensor
 
         if isinstance(q, DTensor):
             k, v = _align_kv(q, k), _align_kv(q, v)
-        return _LocalAttentionFn.apply(q, k, v, causal, window, chunk)
+        return _LocalAttentionFn.apply(q, k, v, causal, window,
+                                       chunk if backend == "eager" else 0, backend)
     return ops.flash_attention(q, k, v, causal=causal, window=window, backend=backend)
 
 
@@ -173,8 +201,10 @@ def _align_kv(q, t):
 
 
 class _LocalAttentionFn(torch.autograd.Function):
-    """Plain attention and its torch-ops gradient (``flash_attention_backward``)
-    on local shards (``DTensor`` inputs) or on whole tensors.  Queries
+    """Attention and its torch-ops gradient (``flash_attention_backward``)
+    on local shards (``DTensor`` inputs) or on whole tensors: on the
+    ``"kernel"`` backend the forward launches ``ops.flash_attention`` on
+    the local shards, on ``"eager"`` it runs the plain version.  Queries
     sharded along the sequence see the keys up to their own last position:
     the plain version right-aligns its queries to its keys, so the keys are
     cut there (the rest are masked anyway), and the K/V gradients are
@@ -189,7 +219,8 @@ class _LocalAttentionFn(torch.autograd.Function):
     laid out over the chips."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int = 0):
+    def forward(ctx, q, k, v, causal: bool, window: int, chunk: int = 0,
+                backend: str = "eager"):
         from torch.distributed.tensor import DTensor
 
         ctx.dist = isinstance(q, DTensor)
@@ -207,8 +238,11 @@ class _LocalAttentionFn(torch.autograd.Function):
                                               backward=True)
         with counter.function(*counter.attention_cost(q, k, v, q, causal=causal,
                                                       window=window)):
-            out = _flash.flash_attention_plain(ql, kl, vl, causal=causal, window=window,
-                                               chunk=chunk)
+            if backend == "kernel":
+                out = ops.flash_attention(ql, kl, vl, causal=causal, window=window)
+            else:
+                out = _flash.flash_attention_plain(ql, kl, vl, causal=causal, window=window,
+                                                   chunk=chunk)
             # laid out (B, Sq, H, hd) in memory, as the kernel writes it
             out = out.transpose(1, 2).contiguous().transpose(1, 2)
         ctx.save_for_backward(ql, kl, vl, out)
@@ -238,14 +272,14 @@ class _LocalAttentionFn(torch.autograd.Function):
             dk = torch.cat([dk, dk.new_zeros(dk.shape[:2] + (pad,) + dk.shape[3:])], dim=2)
             dv = torch.cat([dv, dv.new_zeros(dv.shape[:2] + (pad,) + dv.shape[3:])], dim=2)
         if not ctx.dist:
-            return dq, dk, dv, None, None, None
+            return dq, dk, dv, None, None, None, None
         # K/V met only this chip's queries: their gradients sum over the query shards
         kv_pl = tuple(Partial() if isinstance(qp, Shard) and qp.dim == 2 else kp
                       for qp, kp in zip(q_pl, ctx.k_pl))
         # (global strides follow the local tensors' own layouts)
         return (DTensor.from_local(dq, mesh, q_pl, run_check=False),
                 DTensor.from_local(dk, mesh, kv_pl, run_check=False),
-                DTensor.from_local(dv, mesh, kv_pl, run_check=False), None, None, None)
+                DTensor.from_local(dv, mesh, kv_pl, run_check=False), None, None, None, None)
 
 
 def self_attention_block(
@@ -340,7 +374,7 @@ def self_attention_block(
             span = torch.arange(cache_len, device=x.device)
             k_pos = torch.where(span <= idx, span, -1)
         mask = causal_window_mask(positions, k_pos, window)
-        out = _cache_attention(q, k_cache, v_cache, mask)
+        out = _decode_attention(q, k_cache, v_cache, mask)
     else:
         raise ValueError(mode)
 
@@ -354,9 +388,10 @@ def _write_prefill_cache(cache: Dict, k, v, window: int):
     [0, S).  Sliding window: keep the last W tokens at slots t % W."""
     s = k.shape[1]
     if window > 0 and s > window:
-        # the last W tokens at slots t % W are the last W rolled by (s - W) % W
-        k = torch.roll(k[:, -window:], (s - window) % window, dims=1)
-        v = torch.roll(v[:, -window:], (s - window) % window, dims=1)
+        # the last W tokens at slots t % W are the last W rolled by (s - W) % W,
+        # as two slices joined (a roll has no DTensor sharding rule in torch 2.11)
+        r = (s - window) % window
+        k, v = (torch.cat([t[:, s - r:], t[:, s - window:s - r]], dim=1) for t in (k, v))
     write_rows(cache["k"], k, 1, 0)
     write_rows(cache["v"], v, 1, 0)
     return cache

@@ -10,6 +10,9 @@ from a ``torch.Generator``, so no weight passes through the host) and
 arrays, carried over for the parity tests), and for the multi-chip dry
 run :func:`abstract_params` (fake tensors, nothing allocated) and
 :func:`partition_specs` (each leaf's mesh axes under a rules table).
+Under rules with a real mesh, ``init_params(rules=)`` and
+:func:`place_params` give the tree as ``DTensor``s, each rank holding its
+shards only.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import Rules, abstract_tensor, fake_mode
+from repro_torch.models.sharding import (Rules, abstract_tensor, fake_mode, from_local,
+                                         local_shape_offset)
 from repro_torch.models.xlstm import xlstm_dims
 
 EXPERT_PAD = 16   # the reference's expert-parallel degree the expert dim divides by
@@ -235,6 +239,16 @@ def param_bytes(cfg: ModelConfig) -> int:
     return n * getattr(torch, cfg.param_dtype).itemsize
 
 
+def local_bytes(params: Dict) -> int:
+    """Bytes of the tensors this process holds of a parameter tree: each
+    ``DTensor``'s local shard, each plain tensor whole."""
+    total = 0
+    for _, leaf in _leaves(params):
+        t = leaf.to_local() if hasattr(leaf, "to_local") else leaf
+        total += t.numel() * t.element_size()
+    return total
+
+
 def _leaves(tree: Dict, path=()):
     """(path, leaf) pairs of a nested dict, in insertion order."""
     for key, val in tree.items():
@@ -260,7 +274,8 @@ def _draw(ps: PSpec, shape, generator, device, dtype):
     return (torch.randn(shape, generator=generator, device=device) * ps.scale).to(dtype)
 
 
-def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None) -> Dict:
+def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
+                rules: Optional[Rules] = None) -> Dict:
     """Random weights in ``cfg.param_dtype`` (fp8 too: drawn in fp32, then
     cast), drawn on ``device`` from
     ``generator`` with the reference's initializers: norms at zero (RMSNorm
@@ -268,26 +283,67 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None) ->
     Grouped leaves are drawn one group at a time, so the fp32 draw never
     holds more than one layer's matrix.  The numbers differ from the
     reference's ``jax.random`` streams; the parity tests carry the
-    reference's own weights over with :func:`params_from_numpy`."""
+    reference's own weights over with :func:`params_from_numpy`.
+
+    Under ``rules`` with a mesh each leaf is a ``DTensor`` placed by
+    :func:`partition_specs` that holds only this rank's shard: every rank
+    draws every value in the same order from the same generator, keeps its
+    shard of each draw and drops the rest, so ``full_tensor()`` of a leaf is
+    bitwise the unsharded leaf and a rank's peak is its shards plus one
+    draw (a group slice, or an ungrouped leaf whole)."""
     dtype = getattr(torch, cfg.param_dtype)
+    mesh = None if rules is None else rules.mesh
     out: Dict = {}
     for path, ps in _leaves(model_spec(cfg)):
         grouped = path[0] == "groups"
-        shape = ((cfg.num_groups,) if grouped else ()) + ps.shape
+        shape = _leaf_shape(cfg, path, ps)
+        placements = None
+        local, offset = shape, (0,) * len(shape)
+        if mesh is not None:
+            placements = rules.placements(rules.spec(_leaf_axes(path, ps), shape=shape))
+            local, offset = local_shape_offset(shape, mesh, placements)
+        lead = 1 if grouped else 0  # the group dim is never split
         if ps.init in ("zeros", "ones"):
-            leaf = torch.full(shape, 1.0 if ps.init == "ones" else 0.0,
+            leaf = torch.full(local, 1.0 if ps.init == "ones" else 0.0,
                               dtype=dtype, device=device)
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             ps = dataclasses.replace(ps, scale=min(ps.scale, 1.0 / math.sqrt(max(fan_in, 1))))
             if grouped:
-                leaf = torch.empty(shape, dtype=dtype, device=device)
+                leaf = torch.empty(local, dtype=dtype, device=device)
                 for g in range(cfg.num_groups):
-                    leaf[g] = _draw(ps, ps.shape, generator, device, dtype)
+                    leaf[g] = _narrow(_draw(ps, ps.shape, generator, device, dtype),
+                                      local[lead:], offset[lead:])
             else:
-                leaf = _draw(ps, shape, generator, device, dtype)
-        _set(out, path, leaf)
+                leaf = _narrow(_draw(ps, shape, generator, device, dtype), local, offset)
+        _set(out, path, leaf if mesh is None else from_local(leaf, mesh, placements, shape))
     return out
+
+
+def place_params(params: Dict, cfg: ModelConfig, rules: Rules) -> Dict:
+    """A whole parameter tree (``init_params`` without rules,
+    ``params_from_numpy``) as ``DTensor``s placed by :func:`partition_specs`
+    on the rules' mesh: each rank keeps its own shard of every leaf, cut
+    locally (no collective; a whole leaf is shared, not copied)."""
+    specs = dict(_leaves(partition_specs(cfg, rules)))
+    out: Dict = {}
+    for path, leaf in _leaves(params):
+        placements = rules.placements(specs[path])
+        local, offset = local_shape_offset(leaf.shape, rules.mesh, placements)
+        _set(out, path, from_local(_narrow(leaf, local, offset), rules.mesh, placements,
+                                   leaf.shape))
+    return out
+
+
+def _narrow(t: torch.Tensor, shape, offset) -> torch.Tensor:
+    """The block of ``t`` of ``shape`` at ``offset``: a copy of its own
+    where it is a part (so the whole can be freed), ``t`` itself where it is
+    all of ``t``."""
+    part = t
+    for d, (n, o) in enumerate(zip(shape, offset)):
+        if n != t.shape[d]:
+            part = part.narrow(d, o, n)
+    return part.clone() if part is not t else t
 
 
 def params_from_numpy(tree: Dict, *, device=None) -> Dict:
@@ -295,7 +351,7 @@ def params_from_numpy(tree: Dict, *, device=None) -> Dict:
     anything ``np.asarray`` takes) -> the same tree of tensors on
     ``device``, each in its own dtype (numpy-side bfloat16 arrives as
     ``torch.bfloat16``; float8_e4m3fn and float8_e5m2 bit for bit, through
-    their bytes)."""
+    their bytes).  :func:`place_params` lays it over a mesh."""
     out: Dict = {}
     for path, leaf in _leaves(tree):
         arr = np.asarray(leaf)

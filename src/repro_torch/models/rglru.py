@@ -10,10 +10,12 @@ diagonal (per-channel) rather than block-diagonal dense.
 
 Under a mesh (``models/sharding.py``) TP splits the recurrence width
 (``lru``): the recurrence is diagonal, so the split needs no sync inside
-the block.  There the scan runs as a log-depth (Hillis-Steele) scan in
-torch ops, as the reference runs ``jax.lax.associative_scan``: the
-kernel's plain version steps through the sequence one row at a time,
-which a sharded tensor cannot take.
+the block.  There the kernel backend launches the scan kernel on each
+rank's columns (:func:`_local_scan`); the eager backend, and so the dry
+run's counts, runs a log-depth (Hillis-Steele) scan in torch ops, as the
+reference runs ``jax.lax.associative_scan``: the kernel's plain version
+steps through the sequence one row at a time, which a sharded tensor
+cannot take.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import connective_norm, connective_residual, gelu
-from repro_torch.models.sharding import constrain, mesh_active
+from repro_torch.models.sharding import constrain, from_local, mesh_active
 from repro_torch.roofline import counter
 
 RGLRU_C = 8.0
@@ -107,6 +109,17 @@ class _LogDepthScanFn(torch.autograd.Function):
                     (a[:, 0].float() * g[:, 0]).to(h0.dtype))
 
 
+def _local_scan(a, b, h0):
+    """``ops.rglru_scan`` on each rank's shards: the recurrence is diagonal
+    and ``u`` is laid out ``("batch", None, "lru")``, so every rank holds
+    whole sequences of its own columns and scans them alone."""
+    a, b = (constrain(t, ("batch", None, "lru")) for t in (a, b))
+    h0 = constrain(h0, ("batch", "lru"))
+    h_seq, h_last = ops.rglru_scan(a.to_local(), b.to_local(), h0.to_local())
+    return (from_local(h_seq, a.device_mesh, a.placements, a.shape),
+            from_local(h_last, h0.device_mesh, h0.placements, h0.shape))
+
+
 def rglru_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
                 cache: Optional[Dict], backend: str = "kernel") -> Tuple[torch.Tensor, Optional[Dict]]:
     """Griffin recurrent sub-layer: norm -> (gate branch * conv + RG-LRU
@@ -129,10 +142,12 @@ def rglru_block(p: Dict, x, cfg: ModelConfig, *, mode: str,
     else:
         h0 = (cache["h"] if cache is not None else
               torch.zeros((x.shape[0], a.shape[2]), dtype=torch.float32, device=x.device))
-        if mesh_active():
+        if not mesh_active():
+            h_seq, h_last = ops.rglru_scan(a, b, h0, backend=backend)
+        elif backend == "eager":
             h_seq, h_last = _LogDepthScanFn.apply(a, b, constrain(h0, ("batch", "lru")))
         else:
-            h_seq, h_last = ops.rglru_scan(a, b, h0, backend=backend)
+            h_seq, h_last = _local_scan(a, b, h0)
     h_seq = constrain(h_seq.to(x.dtype), ("batch", None, "lru"))
 
     new_cache = None

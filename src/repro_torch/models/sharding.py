@@ -185,17 +185,18 @@ def project(x, w, names: Sequence[Optional[str]], shape: Sequence[int]):
 
 
 def matmul(x, w):
-    """``x @ w``.  On a ``DTensor`` whose row dims are sharded on two dims
-    (batch and sequence, as the SP layout leaves attention's output) the
-    weight is gathered whole and each chip multiplies its own rows:
-    merging the two sharded dims into one matmul dim gives a strided
-    placement that the sharding propagation does not handle."""
+    """``x @ w``.  On a ``DTensor`` whose row dims are sharded (batch or
+    sequence, as the SP layout leaves attention's output) and whose
+    contracted dim is whole, the weight is gathered whole and each chip
+    multiplies its own rows: merging a sharded row dim into one matmul dim
+    gives a strided placement that the sharding propagation does not
+    handle (torch 2.11 refuses even one such dim)."""
     from torch.distributed.tensor import DTensor, Shard
 
     if not isinstance(x, DTensor):
         return x @ w
-    rows = {p.dim for p in x.placements if isinstance(p, Shard) and p.dim < x.dim() - 1}
-    if len(rows) < 2:
+    dims = {p.dim for p in x.placements if isinstance(p, Shard)}
+    if x.dim() - 1 in dims or not dims:
         return x @ w
     rules = getattr(_STATE, "rules", None)
     return rowwise(lambda a, b: a @ b, x, _place(w, rules, (None,) * w.dim()))
@@ -422,6 +423,16 @@ def select_row(x, dim: int, index: int):
     out_shape = tuple(x.shape[:dim]) + tuple(x.shape[dim + 1:])
     return DTensor.from_local(row, x.device_mesh, pl, run_check=False,
                               shape=torch.Size(out_shape), stride=contiguous_stride(out_shape))
+
+
+def from_local(local: torch.Tensor, mesh, placements, shape):
+    """A ``DTensor`` of global ``shape`` (contiguous strides) over this
+    rank's ``local`` shard, placed by ``placements`` on ``mesh``: no check
+    and no collective."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=contiguous_stride(shape))
 
 
 def contiguous_stride(shape) -> Tuple[int, ...]:

@@ -48,7 +48,8 @@ from repro_torch.models.mlp import mlp_block
 from repro_torch.models.moe import AUX_KEYS, moe_block
 from repro_torch.models.params import group_slices, padded_vocab
 from repro_torch.models.rglru import rglru_block
-from repro_torch.models.sharding import by_rows, constrain, rowwise, select_row
+from repro_torch.models.sharding import (by_rows, constrain, from_local, local_shape_offset,
+                                         rowwise, select_row)
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 
@@ -66,26 +67,85 @@ def _maybe_cast(tree, cfg: ModelConfig):
 
 def embed_tokens(tok_w, tokens):
     """Rows of the token table.  Under a mesh the (vocab, embed)-sharded
-    table is gathered whole once and each chip looks up its own tokens."""
+    table is gathered whole once and each chip looks up its own tokens;
+    where there are fewer tokens than vocab rows and the table is split
+    along its vocab alone (the serving layouts), each chip looks the
+    tokens up in its own vocab shard instead (:func:`_vocab_parallel`)."""
     tokens = constrain(tokens, ("batch", "seq")[:tokens.dim()])
+    if _vocab_parallel(tok_w, 0, tokens.numel()):
+        return _lookup_vocab_shard(tok_w, constrain(tokens, ("batch", None)[:tokens.dim()]))
     return by_rows(lambda rows, ws: ws[0][rows[0]], [tokens],
                    [constrain(tok_w, (None, None))])
+
+
+def _vocab_parallel(w, vocab_dim: int, rows: int) -> bool:
+    """Whether a lookup in, or a product with, the table ``w`` runs on each
+    chip's vocab shard: ``w`` is a ``DTensor`` split along ``vocab_dim``
+    alone, no gradient is taken (training gathers the table), and
+    ``rows`` token rows are fewer than its vocab rows, so moving the rows'
+    results costs less than gathering the table."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(w, DTensor) or (torch.is_grad_enabled() and w.requires_grad):
+        return False
+    splits = {p.dim for p in w.placements if isinstance(p, Shard)}
+    return splits == {vocab_dim % w.dim()} and rows < w.shape[vocab_dim]
+
+
+def _lookup_vocab_shard(tok_w, tokens):
+    """Rows of the vocab-sharded table ``tok_w`` for ``tokens`` whole on the
+    chips that split the vocab: each chip looks up the tokens of its own
+    vocab range and gives zeros for the rest, so the rows are the chips'
+    partial sums, exactly (one chip adds each row, the rest add zeros)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    mesh = tok_w.device_mesh
+    v0 = local_shape_offset(tok_w.shape, mesh, tok_w.placements)[1][0]
+    wl, il = tok_w.to_local(), tokens.to_local() - v0
+    inside = (il >= 0) & (il < wl.shape[0])
+    rows = torch.where(inside[..., None], wl[il.clamp(0, wl.shape[0] - 1)],
+                       torch.zeros((), dtype=wl.dtype, device=wl.device))
+    placements = [Partial() if wp == Shard(0) else tp
+                  for wp, tp in zip(tok_w.placements, tokens.placements)]
+    return from_local(rows, mesh, placements, tuple(tokens.shape) + (tok_w.shape[1],))
+
+
+def _logits_vocab_shard(x, w, fn, vocab_dim: int):
+    """``fn(x, w)`` for a table ``w`` split along ``vocab_dim``: the rows of
+    ``x`` whole on every chip, each chip's product with its vocab shard,
+    the logits split along their last (vocab) dim."""
+    from torch.distributed.tensor import Shard
+
+    x = constrain(x, ("batch",) + (None,) * (x.dim() - 1))
+    out = fn(x.to_local(), w.to_local())
+    split = Shard(vocab_dim % w.dim())
+    placements = [Shard(out.dim() - 1) if wp == split else xp
+                  for wp, xp in zip(w.placements, x.placements)]
+    return from_local(out, x.device_mesh, placements,
+                      tuple(out.shape[:-1]) + (w.shape[vocab_dim],))
 
 
 def compute_logits(params, cfg: ModelConfig, x):
     """x: (..., d) -> logits (..., V_padded) in the model dtype, or (...,
     cb, V_padded) for a model with ``num_codebooks > 1``; the pad vocab
-    columns are -1e30."""
+    columns are -1e30.  Under a mesh the vocab-sharded table is gathered
+    whole before the contraction (a weight AllGather, not a (B, S, V)
+    AllReduce), or, for fewer rows than the vocab on a table split along
+    its vocab alone, each chip multiplies by its own vocab shard and the
+    logits are gathered (:func:`_vocab_parallel`)."""
     vp = padded_vocab(cfg)
+    rows = x.numel() // x.shape[-1]
     if cfg.tie_embeddings:
-        # under a mesh the (vocab, embed)-sharded table is gathered before
-        # the contraction: a weight AllGather, not a (B, S, V) AllReduce
-        w = constrain(_maybe_cast(params["embed"]["tok"], cfg), (None, None))
-        logits = rowwise(lambda x, w: x @ w.T, x, w)
+        w, fn, vocab_dim = _maybe_cast(params["embed"]["tok"], cfg), lambda x, w: x @ w.T, 0
     else:
-        w = constrain(_maybe_cast(params["head"]["w"], cfg), (None, None, None))
-        logits = rowwise(lambda x, w: x @ w[0] if w.shape[0] == 1 else
-                         torch.einsum("...d,cdv->...cv", x, w), x, w)
+        w, vocab_dim = _maybe_cast(params["head"]["w"], cfg), 2
+
+        def fn(x, w):
+            return x @ w[0] if w.shape[0] == 1 else torch.einsum("...d,cdv->...cv", x, w)
+    if _vocab_parallel(w, vocab_dim, rows):
+        logits = _logits_vocab_shard(x, w, fn, vocab_dim)
+    else:
+        logits = rowwise(fn, x, constrain(w, (None,) * w.dim()))
     if vp != cfg.vocab_size:
         valid = torch.arange(vp, device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits,

@@ -78,6 +78,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.execplan import COMPUTE_BACKENDS
+from repro_torch.core.ring import ProcessRing, mesh_collectives_staged
+from repro_torch.models.sharding import Rules, axis_rules
 from repro_torch.models.transformer import apply_model
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.metrics import MetricsRegistry
@@ -108,15 +110,37 @@ def _roundup(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def paged_capable(cfg: ModelConfig) -> bool:
+    """Whether the zoo serves ``cfg`` through the paged protocol on one
+    process: full-causal attention stacks only (recurrent and
+    sliding-window caches are not position-addressable pages)."""
+    kinds = tuple(cfg.block_pattern) + tuple(cfg.tail_pattern)
+    return all(k == "attn" for k in kinds) and cfg.window == 0
+
+
 class TransformerExecutor:
     """The model zoo (``models/transformer.py``) on one device, behind the
-    wave protocol and, for full-causal attention stacks, the paged one.
+    wave protocol and, for full-causal attention stacks, the paged one; or
+    under the HMP sharding rules on a mesh of ranks, behind the wave
+    protocol.
 
     params: the tree of ``models.params.init_params`` /
-            ``params_from_numpy``; its device is the executor's.
+            ``params_from_numpy``; its device is the executor's.  Under
+            ``rules`` with a mesh, the tree as ``DTensor``s
+            (``init_params(rules=)``, ``place_params``).
     backend: "kernel" runs the flash-attention and RG-LRU scan kernels in
-            prefill (their plain versions on CPU tensors); "eager" runs the
-            plain versions on any device (the oracle).
+            prefill (their plain versions on CPU tensors; under a mesh on
+            each rank's local shards); "eager" runs the plain versions on
+            any device (the oracle).
+    rules: ``models.sharding.Rules`` with a ``DeviceMesh`` over the ranks'
+            process group (``make_rules(mesh, "prefill")``, as the
+            reference's ``TransformerExecutor(params, cfg, rules)``): every
+            call runs under ``axis_rules(rules)``, the caches are placed by
+            the rules, the logits come back whole on every rank, and
+            ``ring`` (a ``ProcessRing`` of the group) lets the engine agree
+            on rank 0's sampled ids.  One table serves prefill and decode:
+            the shape-aware spec leaves a one-token step's sequence whole.
+            The paged protocol under a mesh is not here yet.
 
     The paged pool is ``make_cache(cfg, num_pages, page_size)`` read as
     (page, in-page slot).  Each paged call gathers the slot's pages into a
@@ -126,7 +150,8 @@ class TransformerExecutor:
     pool.
     """
 
-    def __init__(self, params, cfg: ModelConfig, *, backend: str = "kernel"):
+    def __init__(self, params, cfg: ModelConfig, *, backend: str = "kernel",
+                 rules: Optional[Rules] = None):
         if backend not in COMPUTE_BACKENDS:
             raise ValueError(f"unknown compute backend {backend!r}; "
                              f"one of {COMPUTE_BACKENDS}")
@@ -134,6 +159,21 @@ class TransformerExecutor:
         self.cfg = cfg
         self.backend = backend
         self.device = params["embed"]["tok"].device
+        self.rules = rules
+        self.mesh = None if rules is None else rules.mesh
+        self.ring = None
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            if self.mesh.size() != dist.get_world_size():
+                raise ValueError(f"the mesh has {self.mesh.size()} ranks, the process group "
+                                 f"{dist.get_world_size()}: the executor's mesh spans the group")
+            if (self.mesh.device_type == "cuda" and dist.get_backend() == "gloo"
+                    and not mesh_collectives_staged()):
+                raise RuntimeError("gloo takes no CUDA all-gather: join the group with "
+                                   "launch.ranks.init, which stages the mesh's collectives "
+                                   "through host memory")
+            self.ring = ProcessRing(dist.get_rank(), dist.get_world_size())
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -143,16 +183,33 @@ class TransformerExecutor:
     @property
     def supports_paged(self) -> bool:
         """Paged serving covers full-causal attention stacks; recurrent and
-        sliding-window caches are not position-addressable pages."""
-        kinds = tuple(self.cfg.block_pattern) + tuple(self.cfg.tail_pattern)
-        return all(k == "attn" for k in kinds) and self.cfg.window == 0
+        sliding-window caches are not position-addressable pages.  Under a
+        mesh the executor serves waves only."""
+        return paged_capable(self.cfg) and getattr(self, "mesh", None) is None
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device).long()
 
+    def _model(self, **kw):
+        """``apply_model`` on this executor's params and backend; under a
+        mesh inside ``axis_rules(rules)``, with plain tensors entering the
+        ``DTensor`` ops replicated, and the logits gathered whole."""
+        if self.mesh is None:
+            return apply_model(self.params, self.cfg, backend=self.backend, **kw)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with axis_rules(self.rules), implicit_replication():
+            logits, cache = apply_model(self.params, self.cfg, backend=self.backend, **kw)
+            return logits.full_tensor(), cache
+
+    def _wave_only(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what}: the paged protocol under a mesh: next slice "
+                                      f"(serve waves: scheduler='wave')")
+
     # --- wave protocol -------------------------------------------------------
     def make_cache(self, batch: int, max_len: int):
-        return make_cache(self.cfg, batch, max_len, device=self.device)
+        return make_cache(self.cfg, batch, max_len, device=self.device, rules=self.rules)
 
     def prefill(self, tokens, cache, lengths=None):
         """Prefill a batch of prompts into ``cache``.  Returns the logits of
@@ -161,24 +218,23 @@ class TransformerExecutor:
         right-padded to a shared length; None takes the last column."""
         tokens = self._tensor(tokens)
         rows = tokens.shape[1] - 1 if lengths is None else self._tensor(lengths) - 1
-        return apply_model(self.params, self.cfg, tokens=tokens, mode="prefill",
-                           cache=cache, backend=self.backend, rows=rows)
+        return self._model(tokens=tokens, mode="prefill", cache=cache, rows=rows)
 
     def decode(self, tokens, cache, index):
         """One decode step of the batch: tokens (B, 1); index a host int
-        (lockstep) or (B,) per-row write positions.  Returns (logits (B, V),
-        cache)."""
+        (lockstep) or (B,) per-row write positions (not under a mesh).
+        Returns (logits (B, V), cache)."""
         if not isinstance(index, int):
             index = self._tensor(index)
-        logits, cache = apply_model(self.params, self.cfg, tokens=self._tensor(tokens),
-                                    mode="decode", cache=cache, cache_index=index,
-                                    backend=self.backend)
+        logits, cache = self._model(tokens=self._tensor(tokens), mode="decode", cache=cache,
+                                    cache_index=index)
         return logits[:, -1], cache
 
     # --- paged protocol ------------------------------------------------------
     def make_pool(self, num_pages: int, page_size: int):
         """Pool storage: the cache tree with (batch, seq) read as (page,
         in-page slot); every leaf is (G?, P, page_size, kv, hd)."""
+        self._wave_only("make_pool")
         return make_cache(self.cfg, num_pages, page_size, device=self.device)
 
     @staticmethod
@@ -216,6 +272,7 @@ class TransformerExecutor:
         ``length - 1``); block_row: (W,) physical pages of this request.
         Returns ``(logits (1, V), pool)``.
         """
+        self._wave_only("prefill_paged")
         tokens = self._tensor(tokens)
         b, s = tokens.shape
         if b != 1:
@@ -242,6 +299,7 @@ class TransformerExecutor:
         gathers the whole block-table row); the attention reads no key past
         ``offset + S``, so the numbers are the same.
         """
+        self._wave_only("prefill_chunk")
         tokens = self._tensor(tokens)
         b, s = tokens.shape
         if b != 1:
@@ -263,6 +321,7 @@ class TransformerExecutor:
         scatter each new K/V entry back into its page.  Rows of idle slots
         carry the null page and position 0.  Returns ``(logits (B, V),
         pool)``."""
+        self._wave_only("decode_paged")
         bt = self._tensor(block_table)
         positions = self._tensor(positions)
         dense = self.gather_pages(pool, bt)

@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import CACHE_AXES, XCACHE_AXES
 from repro_torch.models.rglru import REC_CACHE_AXES
-from repro_torch.models.sharding import Rules, abstract_tensor, fake_mode
+from repro_torch.models.sharding import (Rules, abstract_tensor, fake_mode, from_local,
+                                         local_shape_offset)
 from repro_torch.models.xlstm import MLSTM_CACHE_AXES, SLSTM_CACHE_AXES, xlstm_dims
 
 
@@ -81,18 +82,27 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None,
                abstract: bool = False, rules: Optional[Rules] = None) -> Dict:
     """The fresh cache tree for ``apply_model(mode="prefill"|"decode")``.
     ``abstract=True`` gives fake tensors instead (nothing allocated), as
-    the reference's ``ShapeDtypeStruct``s; under ``rules`` with a mesh each
-    leaf is a ``DTensor`` placed by its logical axes (a grouped leaf's
-    group dim replicated)."""
+    the reference's ``ShapeDtypeStruct``s.  Under ``rules`` with a mesh
+    each leaf is a ``DTensor`` placed by its logical axes (a grouped
+    leaf's group dim replicated); a real one holds this rank's shard
+    only.  (The reference leaves its real cache's layout to XLA under the
+    jitted step's constraints; a ``DTensor`` needs it stated.)"""
+    mesh = None if rules is None else rules.mesh
+
     def leaf(part, key, name, shape, dt):
         kind = key.split("_", 1)[1]
+        axes = tuple(_AXES[kind][name])
+        if part == "groups":
+            axes = (None,) + axes
         if abstract:
-            axes = tuple(_AXES[kind][name])
-            if part == "groups":
-                axes = (None,) + axes
             return abstract_tensor(shape, getattr(torch, dt), rules, axes)
-        return torch.full(shape, _INIT_SPECIAL.get((kind, name), 0.0),
-                          dtype=getattr(torch, dt), device=device)
+        fill = _INIT_SPECIAL.get((kind, name), 0.0)
+        if mesh is None:
+            return torch.full(shape, fill, dtype=getattr(torch, dt), device=device)
+        placements = rules.placements(rules.spec(axes, shape=shape))
+        local = torch.full(local_shape_offset(shape, mesh, placements)[0], fill,
+                           dtype=getattr(torch, dt), device=device)
+        return from_local(local, mesh, placements, shape)
 
     def build():
         return {part: {key: {n: leaf(part, key, n, shape, dt)

@@ -344,6 +344,42 @@ Galaxy across processes, then the zoo across processes, run last:
              and staged collectives printed beside phase 8's, as a ratio
              within this run (four contexts on one card, not four
              devices).
+36. zoo paged ranks — the zoo's paged protocol under the same rules on
+             four ranks.  First the flash kernel at a rank's share of
+             phase 9's StableLM chunk (8 of 32 heads on 2 of 8 KV heads,
+             256 queries at offset 1024; fp32, bf16, fp16 against the
+             plain version, bf16 timed beside it, SDPA and the bound).
+             (a) StableLM-12B at full width, 4 layers, fp32, TF32 off,
+             kernel backend, phase 10's weights drawn shard by shard:
+             phase 10's paged calls (a one-shot 300-token
+             ``prefill_paged``, chunks of 64, the prefix-hit suffix over
+             16 shared pages, 8 ``decode_paged`` steps of two slots) on
+             the four ranks; every rank's logits bitwise equal to rank
+             0's and within 1e-4 of phase 10's one-process kernel logits;
+             4 flash launches a prefill call a rank (``simt``), none in
+             decode; a ``decode_paged`` step stages the collectives of a
+             lockstep ``decode`` step (printed, with a chunk's).  (c) on
+             the same launch: qwen1.5-0.5b at full size in bf16, 2
+             requests of 8 new tokens served by ``launch.serve.serve`` on
+             the ranks with and without a qwen1.5-0.5b draft (seed + 2) on
+             rank 0, k 4: tokens and stats bitwise equal on every rank,
+             spec on equal to spec off up to near-ties within 4 bf16
+             units (each printed), the draft's flash launches on rank 0
+             alone, at least one verify chunk.  (b) ``launch.serve
+             --executor zoo --model stablelm-12b --ranks 4`` as a user
+             starts it, with phase 11's traffic cut to 5 requests (the
+             fewest with a prefix hit on 4 slots) in bf16 at full depth,
+             and one process serving the same: tokens and stats bitwise
+             equal on every rank and the stats one process's, a prefix hit
+             and chunks (each rank's pool refcounts checked at the end of
+             its run), exactly 40 flash launches (``mma``) a prefill call
+             a rank and no other kernel, each rank's pool 51 200 B a
+             position; one process fed the ranks' tokens through the
+             paged protocol: each its argmax, or below its top logit by at
+             most twice the one-process kernel-vs-eager bf16 logit
+             difference over the same calls (printed); each rank's pool,
+             weight and peak bytes, staged collectives, tok/s and TTFT p50
+             beside the one-process serve's as ratios within this run.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -1177,7 +1213,9 @@ def sass_check(torch) -> str:
 def phase_dense_parity(torch):
     """StableLM-12B at full width, 4 layers, fp32: the paged protocol
     (one-shot, chunks of 64, a prefix-hit suffix, 8 decode steps of two
-    slots) against the dense path, on both backends."""
+    slots) against the dense path, on both backends.  Returns the calls'
+    inputs and the kernel backend's logits of each (on the host), which
+    phase 36 holds the ranks to."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import apply_model
@@ -1214,13 +1252,17 @@ def phase_dense_parity(torch):
         return e
 
     errs = {}
+    calls = {"a": a.cpu(), "b": bt.cpu(), "s": s, "page": page, "chunk": chunk,
+             "shared": shared, "width": width, "tokens": [], "logits": []}
     for backend in ("kernel", "eager"):
+        kept = calls["logits"] if backend == "kernel" else []
         ex = TransformerExecutor(params, cfg, backend=backend)
         pool = ex.make_pool(1 + 3 * width, page)
         rows = [list(range(1 + i * width, 1 + (i + 1) * width)) for i in range(3)]
         ops.reset_launch_counts()
         # one-shot prefill of a into rows[0]
         lo, pool = ex.prefill_paged(a, pool, rows[0], length=s)
+        kept.append(lo.float().cpu())
         e = close(f"{backend} one-shot", lo, dense["a"][:, s - 1])
         # a again in chunks of 64 into rows[1]; every real row compared
         n_chunks = 0
@@ -1228,6 +1270,7 @@ def phase_dense_parity(torch):
             size = min(chunk, s_pad - off)
             lc, pool = ex.prefill_chunk(a[:, off:off + size], pool, rows[1], offset=off,
                                         length=s)
+            kept.append(lc.float().cpu())
             real = min(size, s - off)
             e = max(e, close(f"{backend} chunk at {off}", lc[:, :real],
                              dense["a"][:, off:off + real]))
@@ -1240,6 +1283,7 @@ def phase_dense_parity(torch):
         # b shares a's first 16 pages: only its suffix is computed
         rows[2][:shared // page] = rows[0][:shared // page]
         lh, pool = ex.prefill_chunk(bt[:, shared:], pool, rows[2], offset=shared, length=s)
+        kept.append(lh.float().cpu())
         e = max(e, close(f"{backend} prefix-hit suffix", lh[:, :s - shared],
                          dense["b"][:, shared:s]))
         counts = ops.launch_counts()
@@ -1256,6 +1300,9 @@ def phase_dense_parity(torch):
             tok = lr.argmax(-1)
             pos = torch.full((2,), s + step, device=dev)
             lg, pool = ex.decode_paged(tok[:, None], pool, table, pos)
+            kept.append(lg.float().cpu())
+            if backend == "kernel":
+                calls["tokens"].append(tok.cpu())
             lr, cr = eager.decode(tok[:, None], cr, s + step)
             de = max(de, close(f"{backend} decode step {step}", lg, lr))
         if ops.launch_counts() != counts:
@@ -1266,6 +1313,7 @@ def phase_dense_parity(torch):
         f"max abs err kernel {errs['kernel'][0]:.3g} / eager {errs['eager'][0]:.3g}; "
         f"{steps} paged decode steps vs dense decode kernel {errs['kernel'][1]:.3g} / "
         f"eager {errs['eager'][1]:.3g} (tolerance {tol})")
+    return calls
 
 
 def phase_dense_serve(torch, rec):
@@ -3887,6 +3935,382 @@ def phase_zoo_ranks(torch, rec, card, ref, one):
     log("zoo ranks", f"(b) {time.perf_counter() - t0:.1f} s with start-up")
 
 
+# --- the zoo's paged protocol under the HMP rules across ranks ----------------------
+
+#: the four ranks of phase 36 (a) and (c): (a) phase 10's paged calls
+#: under the HMP rules in fp32, each call's logits, launches and staged
+#: collectives; (c) qwen1.5-0.5b served with and without a draft on rank
+#: 0; each rank's results written to DIR
+_ZOO_PAGED_WORKER = r"""
+import dataclasses, json, sys
+from pathlib import Path
+import torch
+a = sys.argv
+out = Path(a[1])
+rank, init = int(a[a.index("--rank") + 1]), a[a.index("--init-method") + 1]
+from repro_torch.launch import ranks
+ring, dev = ranks.init(rank, 4, init, timeout=300)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.configs import get_config
+from repro_torch.core.ring import MESH_STAGED
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.serve import serve
+from repro_torch.models.params import init_params, local_bytes
+from repro_torch.models.sharding import make_rules
+from repro_torch.serving.engine import TransformerExecutor
+inp = torch.load(out / "inputs.pt")
+cfg = dataclasses.replace(get_config("stablelm-12b"), num_layers=4, dtype="float32",
+                          param_dtype="float32")
+rules = make_rules(make_mesh((1, 4), ("data", "model"), device="cuda"), "prefill")
+params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(7), device=dev,
+                     rules=rules)
+ex = TransformerExecutor(params, cfg, backend="kernel", rules=rules)
+s, page, chunk, shared, width = (inp[k] for k in ("s", "page", "chunk", "shared", "width"))
+ta, tb = inp["a"].to(dev), inp["b"].to(dev)
+def staged():
+    return {k: v[0] for k, v in MESH_STAGED.items()}
+def since(before):
+    return {k: n - before.get(k, 0) for k, n in staged().items() if n > before.get(k, 0)}
+res = {"weight_bytes": local_bytes(params), "logits": [], "staged": {}}
+pool = ex.make_pool(1 + 3 * width, page)
+rows = [list(range(1 + i * width, 1 + (i + 1) * width)) for i in range(3)]
+ops.reset_launch_counts()
+lo, pool = ex.prefill_paged(ta, pool, rows[0], length=s)
+res["logits"].append(lo.float().cpu())
+for off in range(0, ta.shape[1], chunk):
+    before = staged()
+    lc, pool = ex.prefill_chunk(ta[:, off:off + chunk], pool, rows[1], offset=off, length=s)
+    res["staged"].setdefault("chunk", since(before))
+    res["logits"].append(lc.float().cpu())
+rows[2][:shared // page] = rows[0][:shared // page]
+lh, pool = ex.prefill_chunk(tb[:, shared:], pool, rows[2], offset=shared, length=s)
+res["logits"].append(lh.float().cpu())
+res["prefill"], res["paths"] = ops.launch_counts(), ops.path_counts()
+table = torch.tensor([rows[0], rows[2]], device=dev)
+for step, tok in enumerate(inp["tokens"]):
+    before = staged()
+    lg, pool = ex.decode_paged(tok.to(dev)[:, None], pool, table,
+                               torch.full((2,), s + step, device=dev))
+    res["staged"].setdefault("decode_paged", since(before))
+    res["logits"].append(lg.float().cpu())
+res["all"] = ops.launch_counts()
+before = staged()  # a lockstep wave decode step of the same batch
+ex.decode(inp["tokens"][0].to(dev)[:, None], ex.make_cache(2, s + len(inp["tokens"])), s)
+res["staged"]["decode"] = since(before)
+torch.cuda.synchronize()
+res["peak"] = torch.cuda.max_memory_allocated()
+del ex, params, pool
+torch.cuda.empty_cache()
+
+# (c) speculative decoding across the ranks, the draft on rank 0
+traffic = dict(executor_kind="zoo", requests=inp["spec_requests"], prompt_len=inp["spec_len"],
+               max_new=inp["spec_new"], device=dev, dtype="bfloat16", seed=0, ring=ring)
+spec = {}
+for name, kw in (("off", {}), ("on", {"draft_model": "qwen1.5-0.5b", "spec_k": 4})):
+    ops.reset_launch_counts()
+    got = serve("qwen1.5-0.5b", **traffic, **kw,
+                **({"executor": spec["executor"]} if spec else {}))
+    spec["executor"] = got["executor"]
+    spec[name] = {"tokens": {r.uid: r.output for r in got["requests"]},
+                  "prompts": {r.uid: r.prompt for r in got["requests"]},
+                  "stats": got["stats"], "launches": ops.launch_counts(),
+                  "draft": None if got["spec"] is None else
+                  {"prefills": got["spec"].prefills, "steps": got["spec"].steps},
+                  "draft_device": got["draft_device"]}
+# where spec on and off part, the top-2 gap of the mesh executor's logits
+ex = spec.pop("executor")
+gaps = {}
+for uid, toks in spec["off"]["tokens"].items():
+    other = spec["on"]["tokens"][uid]
+    j = next((i for i, (x, y) in enumerate(zip(toks, other)) if x != y), None)
+    if j is None:
+        continue
+    seq = spec["off"]["prompts"][uid] + toks[:j]
+    n = -(-len(seq) // 16) * 16
+    t = torch.zeros((1, n), dtype=torch.long, device=dev)
+    t[0, :len(seq)] = torch.tensor(seq, device=dev)
+    logits, _ = ex.prefill_paged(t, ex.make_pool(1 + n // 16, 16), list(range(1, 1 + n // 16)),
+                                 length=len(seq))
+    top = logits.float()[0].topk(2).values
+    gaps[uid] = (j, (top[0] - top[1]).item(), top[0].item())
+spec["gaps"] = gaps
+for name in ("off", "on"):
+    spec[name].pop("prompts")
+res["spec"] = spec
+torch.cuda.synchronize()
+torch.save(res, out / f"rank{rank}.pt")
+ranks.finish()
+"""
+
+#: the bytes of the StableLM-12B pool a rank holds a token on four ranks:
+#: K and V, 40 layers, its 2 of the 8 KV heads, 160 wide, bf16
+STABLELM_RANK_TOKEN_BYTES = 2 * 40 * 2 * 160 * 2
+
+
+def zoo_paged_parity(torch, card, dense):
+    """Phase 36 (a) and (c) on one launch of four ranks: (a) phase 10's
+    paged calls on the ranks against phase 10's one-process kernel logits;
+    (c) the qwen1.5-0.5b spec serve against spec off.  Returns the ranks'
+    results (for the flash launches they add)."""
+    from repro_torch.launch import ranks as rank_procs
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({**{k: v for k, v in dense.items() if k != "logits"},
+                    "spec_requests": 2, "spec_len": (64, 256), "spec_new": 8},
+                   Path(tmp, "inputs.pt"))
+        try:  # the launcher puts the checkout's src/ on the ranks' path
+            rank_procs.launch([sys.executable, "-c", _ZOO_PAGED_WORKER, tmp], 4,
+                              timeout=RANKS_TIMEOUT, capture=True)
+        except rank_procs.RankFailure as e:
+            raise AssertionError(f"zoo paged ranks: {e}")
+        reps = [torch.load(Path(tmp, f"rank{r}.pt")) for r in range(4)]
+    t_ranks = time.perf_counter() - t0
+    n_prefill = 2 + -(-dense["a"].shape[1] // dense["chunk"])
+    want = {"flash_attention": 4 * n_prefill}
+    for r, rep in enumerate(reps):
+        if {n: rep["prefill"][n] for n in want} != want or rep["all"] != rep["prefill"]:
+            raise AssertionError(f"zoo paged ranks (a): rank {r} launches {rep['prefill']} in the "
+                                 f"prefill calls, {rep['all']} in all; want {want}, none in "
+                                 f"decode")
+        if rep["paths"]["flash_attention"] != {"simt": want["flash_attention"], "mma": 0}:
+            raise AssertionError(f"zoo paged ranks (a): rank {r} paths {rep['paths']}")
+        for i, (got, base) in enumerate(zip(rep["logits"], reps[0]["logits"])):
+            if not torch.equal(got, base):
+                raise AssertionError(f"zoo paged ranks (a): rank {r}'s logits of call {i} differ "
+                                     f"from rank 0's")
+        if rep["staged"]["decode_paged"] != rep["staged"]["decode"]:
+            raise AssertionError(f"zoo paged ranks (a): rank {r} stages "
+                                 f"{rep['staged']['decode_paged']} a decode_paged step, "
+                                 f"{rep['staged']['decode']} a lockstep decode step")
+    errs = [(got - want_l).abs().max().item()
+            for got, want_l in zip(reps[0]["logits"], dense["logits"])]
+    if len(errs) != len(dense["logits"]) or not max(errs) <= ZOO_RANKS_TOL:
+        raise AssertionError(f"zoo paged ranks (a): logits vs phase 10's one process: max abs "
+                             f"errs {errs} (tolerance {ZOO_RANKS_TOL})")
+    steps = len(dense["tokens"])
+    log("zoo paged", f"(a) StableLM-12B width, 4 layers fp32 on 4 ranks (kernel backend, each "
+        f"rank's 8 of 32 heads on 2 of 8 KV heads): one-shot {dense['s']}-token prefill, "
+        f"{n_prefill - 2} chunks of {dense['chunk']}, a prefix-hit suffix over "
+        f"{dense['shared'] // dense['page']} shared pages, {steps} decode steps of two slots: "
+        f"every rank's logits bitwise equal; vs phase 10's one-process kernel logits max abs "
+        f"err prefill {max(errs[:-steps]):.3g}, decode {max(errs[-steps:]):.3g} (tolerance "
+        f"{ZOO_RANKS_TOL}); flash {want['flash_attention']} a rank on 'simt', none in decode")
+    log("zoo paged", f"(a) staged a rank (calls by collective): a {dense['chunk']}-token chunk "
+        f"{reps[0]['staged']['chunk']}, a decode_paged step of 2 slots "
+        f"{reps[0]['staged']['decode_paged']} = a lockstep decode step "
+        f"{reps[0]['staged']['decode']}; weights a rank "
+        f"{[rep['weight_bytes'] for rep in reps]} bytes, peak "
+        f"{[round(rep['peak'] / 2**30, 2) for rep in reps]} GiB; ranks {t_ranks:.1f} s with "
+        f"start-up and (c) ({card})")
+    return reps
+
+
+def zoo_spec_ranks(reps, rec):
+    """Phase 36 (c): the four ranks' qwen1.5-0.5b serves, with the draft on
+    rank 0 and without: tokens bitwise equal on every rank, spec on equal
+    to spec off up to near-ties (each printed), the draft's launches on rank
+    0 alone, at least one verify chunk."""
+    from repro_torch.configs import get_config
+
+    layers = get_config("qwen1.5-0.5b").num_layers
+    on0, off0 = reps[0]["spec"]["on"], reps[0]["spec"]["off"]
+    st = on0["stats"]
+    if st["spec_steps"] < 1 or on0["draft_device"] != 0 or on0["draft"] is None:
+        raise AssertionError(f"zoo spec ranks (c): no verify chunk or no draft on rank 0: {st}, "
+                             f"draft {on0['draft']} on {on0['draft_device']}")
+    for r, rep in enumerate(reps):
+        for name in ("off", "on"):
+            got = rep["spec"][name]
+            if got["tokens"] != reps[0]["spec"][name]["tokens"] or got["stats"] != \
+                    reps[0]["spec"][name]["stats"]:
+                raise AssertionError(f"zoo spec ranks (c): rank {r}'s spec-{name} tokens or "
+                                     f"stats differ from rank 0's")
+            s = got["stats"]
+            target = layers * (s["prefill_oneshots"] + s["prefill_chunks"] + s["spec_steps"])
+            draft = got["draft"]
+            if (draft is not None) != (name == "on" and r == 0):
+                raise AssertionError(f"zoo spec ranks (c): rank {r} holds draft {draft}")
+            want = target + (0 if draft is None else layers * draft["prefills"])
+            if got["launches"]["flash_attention"] != want or sum(got["launches"].values()) != want:
+                raise AssertionError(f"zoo spec ranks (c): rank {r} spec {name} launches "
+                                     f"{got['launches']}, want flash {want}")
+        rec["flash_attention"].d["launches"] += sum(rep["spec"][n]["launches"]["flash_attention"]
+                                                    for n in ("off", "on"))
+    parted = []
+    for uid, (j, gap, top) in sorted(reps[0]["spec"]["gaps"].items()):
+        lim = ZOO_BF16_UNITS * 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+        if not gap <= lim:
+            raise AssertionError(f"zoo spec ranks (c): request {uid} parts from spec off at token "
+                                 f"{j} with a top-2 gap {gap} > {lim}")
+        parted.append(f"request {uid} at token {j}, top-2 gap {gap:.4g} <= {lim:.4g}")
+    log("zoo paged", f"(c) qwen1.5-0.5b bf16 on 4 ranks, drafted by qwen1.5-0.5b (seed + 2) on "
+        f"rank 0, k 4: tokens bitwise equal on every rank; {st['spec_steps']} verify chunks, "
+        f"acceptance {st['spec_acceptance']:.3f}; the draft's {on0['draft']['prefills']} "
+        f"prefills ({layers} flash each) and {on0['draft']['steps']} steps on rank 0 alone; "
+        f"vs the 4-rank spec-off serve: "
+        + ("all tokens equal" if not parted else "near-ties " + "; ".join(parted)))
+
+
+def paged_teacher_forced(ex, eager, prompts, served, torch, chunk=256, page=16):
+    """One process fed the tokens the ranks served, through the paged
+    protocol as the engine feeds a prompt: each prompt in ``chunk``-token
+    chunks, then its served tokens but the last as one chunk at the
+    prompt's end.  For each request and position, the gap between the top
+    logit and the served token's; and the largest kernel-vs-eager logit
+    difference of the same calls (``eager``: the same weights on the eager
+    backend)."""
+    gaps, err = {}, 0.0
+    for uid in sorted(served):
+        prompt, toks = prompts[uid], served[uid]
+        s = len(prompt)
+        s_pad = -(-s // page) * page
+        n_pages = -(-(s + len(toks)) // page) + 1
+        rows = {}
+        for name, e in (("kernel", ex), ("eager", eager)):
+            pool = e.make_pool(1 + n_pages, page)
+            row = list(range(1, 1 + n_pages))
+            t = torch.zeros((1, s_pad), dtype=torch.long, device=e.device)
+            t[0, :s] = torch.tensor(prompt, device=e.device)
+            for off in range(0, s_pad, chunk):
+                logits, pool = e.prefill_chunk(t[:, off:off + chunk], pool, row, offset=off,
+                                               length=s)
+                if off <= s - 1 < off + chunk:
+                    first = logits[0, s - 1 - off].float()
+            tail = torch.tensor([toks[:-1]], device=e.device)
+            logits, pool = e.prefill_chunk(tail, pool, row, offset=s, length=s + tail.shape[1])
+            rows[name] = torch.cat([first[None], logits[0].float()])
+        err = max(err, (rows["kernel"] - rows["eager"]).abs().max().item())
+        lf = rows["kernel"]
+        idx = torch.tensor(toks, device=lf.device)[:, None]
+        gaps[uid] = (lf.max(-1).values - lf.gather(1, idx)[:, 0]).tolist()
+    return gaps, err
+
+
+#: phase 36 (b)'s traffic: phase 11's cut to 5 requests, the fewest of
+#: which one is admitted after a prompt entered the prefix tree (4 slots)
+ZOO_PAGED_TRAFFIC = dict(requests=5, prompt_len=(64, 512), shared_prefix=1024, max_new=16,
+                         max_batch=4, page_size=16, prefix_cache=True, prefill_chunk=256)
+
+
+def zoo_paged_serve(torch, rec, card):
+    """Phase 36 (b): ``launch.serve --executor zoo --model stablelm-12b
+    --ranks 4`` with ``ZOO_PAGED_TRAFFIC``, against one process serving the
+    same traffic and fed the ranks' tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving.engine import TransformerExecutor
+
+    what = "4-rank StableLM-12B continuous serve"
+    tr = ZOO_PAGED_TRAFFIC
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout = _ranks_run("repro_torch.launch.serve", [
+            "--executor", "zoo", "--model", "stablelm-12b", "--ranks", "4",
+            "--requests", str(tr["requests"]), "--prompt-len", "-".join(map(str, tr["prompt_len"])),
+            "--shared-prefix", str(tr["shared_prefix"]), "--prefix-cache", "on",
+            "--prefill-chunk", str(tr["prefill_chunk"]), "--max-new", str(tr["max_new"]),
+            "--max-batch", str(tr["max_batch"]), "--page-size", str(tr["page_size"]),
+            "--dtype", "bfloat16", "--seed", "0", "--rank-timeout", str(RANKS_TIMEOUT),
+            "--report", tmp], what)
+        reps = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(4)]
+    line = next(json.loads(t) for t in stdout.splitlines() if t.startswith('{"ranks"'))
+    st = line["stats"]
+    if (line["ranks"], line["transport"]) != (4, "gloo") or "continuous scheduler" not in stdout:
+        raise AssertionError(f"{what}: serve line {line}")
+    if st["prefix_hits"] < 1 or st["prefill_chunks"] < 1:
+        raise AssertionError(f"{what}: no prefix hit or no chunk: {st}")
+    layers = get_config("stablelm-12b").num_layers
+    calls = st["prefill_oneshots"] + st["prefill_chunks"]
+    want = layers * calls
+    for r, rep in enumerate(reps):
+        if rep["tokens"] != reps[0]["tokens"] or rep["stats"] != st:
+            raise AssertionError(f"{what}: rank {r}'s tokens or stats differ from rank 0's")
+        if (rep["launches"]["flash_attention"] != want
+                or sum(rep["launches"].values()) != want
+                or rep["paths"]["flash_attention"] != {"mma": want, "simt": 0}):
+            raise AssertionError(f"{what}: rank {r} launches {rep['launches']} paths "
+                                 f"{rep['paths']['flash_attention']}; want flash {want} on mma")
+        pool = rep["pool"]
+        if pool["bytes"] != pool["pages"] * pool["page_size"] * STABLELM_RANK_TOKEN_BYTES:
+            raise AssertionError(f"{what}: rank {r} holds {pool} of the pool, not "
+                                 f"{STABLELM_RANK_TOKEN_BYTES} B a position")
+    rec["flash_attention"].d["launches"] += sum(rep["launches"]["flash_attention"] for rep in reps)
+
+    # the same traffic on one process, then every served token against one
+    # process fed the same tokens: the one-process argmax, or within twice
+    # its kernel-vs-eager bf16 logit difference over the same calls
+    served = {int(u): t for u, t in reps[0]["tokens"].items()}
+    out = launch_serve.serve("stablelm-12b", executor_kind="zoo", device="cuda",
+                             dtype="bfloat16", seed=0, **tr)
+    one = {"tokens": {r.uid: r.output for r in out["requests"]},
+           "prompts": {r.uid: r.prompt for r in out["requests"]},
+           "tokens_per_s": out["tokens_per_s"], "ttft_p50_s": out["ttft_p50_s"]}
+    if out["stats"] != st:
+        raise AssertionError(f"{what}: stats {st}, one process's {out['stats']}")
+    ex = out.pop("executor")
+    del out
+    eager = TransformerExecutor(ex.params, ex.cfg, backend="eager")
+    gaps, bf16_err = paged_teacher_forced(ex, eager, one["prompts"], served, torch)
+    del ex, eager
+    torch.cuda.empty_cache()
+    limit = 2 * bf16_err
+    flat = [g for u in sorted(gaps) for g in gaps[u]]
+    if len(flat) != sum(map(len, served.values())) or not all(math.isfinite(g) for g in flat):
+        raise AssertionError(f"{what}: teacher-forced gaps {gaps}")
+    off = {u: [(j, round(g, 5)) for j, g in enumerate(gaps[u]) if g > 0] for u in sorted(gaps)}
+    if not max(flat) <= limit:
+        raise AssertionError(f"{what}: a served token's one-process logit is {max(flat)} below "
+                             f"the top, more than {limit}: {off}")
+    parted = {u: next((j for j, (x, y) in enumerate(zip(served[u], one["tokens"][u]))
+                       if x != y), None) for u in sorted(served)}
+    staged = {k: v[0] for k, v in reps[0]["staged_collectives"].items()}
+    log("zoo paged", f"(b) {what}, bf16, full depth ({st['prefill_oneshots']} one-shot and "
+        f"{st['prefill_chunks']} chunk prefills, {st['prefix_hits']} prefix hits, "
+        f"{st['cached_prefix_tokens']} cached tokens, {st['decode_steps']} decode steps): "
+        f"tokens and stats bitwise equal on the 4 ranks, each rank's pool refcounts checked; "
+        f"flash {want} a rank ({layers} a prefill call) on mma, no other kernel")
+    log("zoo paged", f"(b) one process fed the ranks' {len(flat)} tokens: "
+        f"{sum(g == 0 for g in flat)} its argmax, the others below its top logit by {off} (max "
+        f"{max(flat):.4g}; limit {limit:.4g}, twice its kernel-vs-eager bf16 logit difference "
+        f"{bf16_err:.4g} over the same calls); first token unlike the one-process serve's "
+        f"at {parted}")
+    log("zoo paged", f"(b) a rank: pool {reps[0]['pool']['pages']} pages of "
+        f"{reps[0]['pool']['page_size']}, {reps[0]['pool']['bytes']} B "
+        f"({STABLELM_RANK_TOKEN_BYTES} B a position); weights "
+        f"{[rep['weight_bytes'] for rep in reps]} B; peak "
+        f"{[round(rep['peak_memory_bytes'] / 2**30, 2) for rep in reps]} GiB; staged on rank 0 "
+        f"(calls by collective) {staged} over {calls} prefill calls and "
+        f"{st['decode_steps']} decode steps")
+    log("zoo paged", f"(b) {line['new_tokens']} new tokens in {line['seconds']:.2f} s: "
+        f"{line['tokens_per_s']:.2f} tok/s, TTFT p50 {1e3 * line['ttft_p50_s']:.1f} ms; one "
+        f"process on the same traffic {one['tokens_per_s']:.2f} tok/s, TTFT p50 "
+        f"{1e3 * one['ttft_p50_s']:.1f} ms: ratios {line['tokens_per_s'] / one['tokens_per_s']:.3f}"
+        f" and {line['ttft_p50_s'] / one['ttft_p50_s']:.2f} in this run; 4 ranks time-slicing "
+        f"one card, not four devices ({card})")
+
+
+def phase_zoo_paged_ranks(torch, rec, card, dense):
+    """The zoo's paged protocol under the HMP rules on four ranks (phase
+    36): the flash kernel at a rank's StableLM chunk shape, (a) phase 10's
+    paged calls and (c) a spec serve on one launch of the ranks, (b) phase
+    11's serve, cut in count, on them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(36)
+    # a rank's share of phase 9's chunk: 8 of 32 heads on 2 of 8 KV heads
+    check_time_flash(rec, torch, g, "rank StableLM chunk", 1, 8, 2, 256, 1024 + 256, 160,
+                     97 * 16)
+    reps = zoo_paged_parity(torch, card, dense)
+    zoo_spec_ranks(reps, rec)
+    log("zoo paged", f"(a) and (c) {time.perf_counter() - t0:.1f} s with start-up")
+    t0 = time.perf_counter()
+    zoo_paged_serve(torch, rec, card)
+    log("zoo paged", f"(b) {time.perf_counter() - t0:.1f} s with start-up")
+
+
 def main() -> int:
     import torch
 
@@ -3976,7 +4400,7 @@ def main() -> int:
 
     phase_dense_kernels(rec, torch)
     torch.cuda.empty_cache()
-    phase_dense_parity(torch)
+    dense_calls = phase_dense_parity(torch)
     torch.cuda.empty_cache()
     out = phase_dense_serve(torch, rec)
     check_dense_served_token(out, torch)
@@ -4016,6 +4440,7 @@ def main() -> int:
     phase_hillclimb(torch, card)
     phase_ranks(torch, rec, card, local_tokens)
     phase_zoo_ranks(torch, rec, card, zoo_ref, zoo_one)
+    phase_zoo_paged_ranks(torch, rec, card, dense_calls)
 
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)

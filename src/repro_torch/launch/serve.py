@@ -20,6 +20,9 @@ model of the zoo through the continuous scheduler or waves.
       --capacities 3,2,2,1 --ranks 4 --requests 8 --prompt-len 37-300
   PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
       --model recurrentgemma-9b --ranks 4 --prompt-lens 300,300,300,300,2100,2100
+  PYTHONPATH=src python -m repro_torch.launch.serve --executor zoo \\
+      --model stablelm-12b --ranks 4 --requests 8 --prompt-len 64-512 \\
+      --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 ``--executor galaxy`` (the default): profiler -> planner (Alg. 1) ->
 ``ExecPlan.from_plan`` -> Galaxy HMP executor on a ring of one device per
@@ -85,20 +88,26 @@ to every rank, which all verify them.  ``--trace``, ``--metrics`` and
 ``--drift`` read rank 0's engine, the one every rank's engine moves in
 step with: rank 0 alone traces, prices and prints.
 
-``--executor zoo --ranks N`` serves the zoo in waves under the HMP sharding
-rules (``models/sharding.make_rules(mesh, "prefill")``) on a (data 1,
-model N) ``DeviceMesh`` over the N gloo ranks: each rank draws the
-weights from ``--seed`` but keeps only its shards, runs the flash and
-RG-LRU scan kernels on its own heads and recurrence columns, and takes
-rank 0's sampled ids; on CUDA the mesh's collectives go through pinned
-host memory (``core/ring.stage_mesh_collectives``).  The continuous
-scheduler (``--scheduler continuous``, or ``auto`` on a model it pages),
-``--prefix-cache``, ``--prefill-chunk`` and ``--draft-model`` still serve
-on one process and are refused with ``--ranks`` above 1.
+``--executor zoo --ranks N`` serves the zoo under the HMP sharding rules
+(``models/sharding.make_rules(mesh, "prefill")``) on a (data 1, model N)
+``DeviceMesh`` over the N gloo ranks, with the scheduler one process
+takes: the continuous scheduler over a paged pool for the full-causal
+attention stacks (with ``--prefix-cache``, ``--prefill-chunk`` and
+``--draft-model``), waves for the rest.  Each rank draws the weights from
+``--seed`` but keeps only its shards, holds every page of the pool for
+its own KV heads, runs the flash and RG-LRU scan kernels on its own heads
+and recurrence columns, and takes rank 0's sampled ids; the draft lives
+on rank 0 alone, a one-process zoo executor, and broadcasts each round's
+proposals.  On CUDA the mesh's collectives go through pinned host memory
+(``core/ring.stage_mesh_collectives``).  What one process refuses (the
+continuous scheduler for RecurrentGemma or xLSTM) is refused before any
+rank starts.
 ``--report DIR`` has each rank write ``DIR/rank<r>.json``: its served
 tokens, kernel launches and paths, engine stats and registry counters,
 the draft's device and (on its rank) the draft's calls, ring hops, the
-bytes of its weights, its peak device memory and its staged collectives.
+bytes of its weights, its peak device memory, its staged collectives
+and, on the continuous scheduler, its pool's pages and the bytes it
+holds of them.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
@@ -139,6 +148,7 @@ from repro_torch.obs import DriftMonitor, Tracer
 from repro_torch.serving.engine import (Request, ServingEngine, TransformerExecutor,
                                         paged_capable)
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
+from repro_torch.serving.kvcache import make_cache
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.spec import place_draft
 
@@ -302,21 +312,23 @@ def check_fits_one_card(cfg: ModelConfig, dtype: Optional[str]) -> None:
 def refuse_across_ranks(executor_kind: str, cfg: ModelConfig, *, scheduler: str = "auto",
                         spec: bool = False, prefix_cache: bool = False,
                         prefill_chunk: Optional[int] = None) -> None:
-    """What serves on one process only: the zoo executor's continuous
-    scheduler (``scheduler`` "continuous", or "auto" on an arch it pages),
-    and with it the prefix cache, chunked prefill and speculative
-    decoding.  Across ranks the zoo serves waves under the HMP rules."""
+    """Before any rank starts, what one process refuses too, later: the
+    zoo's continuous scheduler on an arch it serves in waves (recurrent or
+    windowed caches are not pages), and speculative decoding, the prefix
+    cache and chunked prefill, which need the continuous scheduler, where
+    the serve runs in waves (``--scheduler wave``, or such an arch)."""
     if executor_kind == "galaxy":
         return
-    if scheduler == "continuous" or (scheduler == "auto" and paged_capable(cfg)):
+    paged = paged_capable(cfg)
+    if scheduler == "continuous" and not paged:
         raise ValueError(
-            f"the zoo executor serves {cfg.name} by continuous batching on one process; "
-            f"across ranks it serves waves (--scheduler wave): the paged protocol under a "
-            f"mesh is not ported yet")
-    if spec or prefix_cache or prefill_chunk:
-        raise ValueError("speculative decoding, the prefix cache and chunked prefill need the "
-                         "zoo's continuous scheduler, which serves on one process; across "
-                         "ranks the zoo serves waves")
+            f"the zoo executor serves {cfg.name} in waves, across ranks as on one process: "
+            f"the continuous scheduler needs the paged protocol, which recurrent and "
+            f"windowed caches do not take")
+    if (spec or prefix_cache or prefill_chunk) and (scheduler == "wave" or not paged):
+        raise ValueError(f"speculative decoding, the prefix cache and chunked prefill need the "
+                         f"zoo's continuous scheduler; {cfg.name} is served in waves here, "
+                         f"across ranks as on one process")
 
 
 def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
@@ -459,8 +471,9 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
     where this process holds the draft, its prefill and decode calls, its
     ring's hops, the bytes of the weights it holds, its peak device memory
     and the mesh collectives it staged through host memory (calls and
-    bytes sent, by collective), and the zoo kernels' distinct calls
-    (``kernels/ops.call_log``)."""
+    bytes sent, by collective), the zoo kernels' distinct calls
+    (``kernels/ops.call_log``) and the continuous scheduler's pool
+    (``pool_report``)."""
     ex = out["executor"]
     ring = getattr(ex, "ring", None)
     spec = out["spec"]
@@ -481,9 +494,22 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if torch.cuda.is_initialized() else None),
            "staged_collectives": {k: list(v) for k, v in MESH_STAGED.items()},
-           "kernel_calls": ops.call_log()}
+           "kernel_calls": ops.call_log(), "pool": pool_report(ex, out["pool"])}
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
         json.dump(rep, f)
+
+
+def pool_report(ex, pool) -> Optional[Dict]:
+    """The continuous scheduler's pool as one rank holds it: its pages, the
+    positions a page, and the bytes of this rank's shard of the zoo's
+    pool storage (from its shapes; None for the Galaxy executor's)."""
+    if pool is None:
+        return None
+    rep = {"pages": pool.num_pages, "page_size": pool.page_size, "bytes": None}
+    if isinstance(ex, TransformerExecutor):
+        rep["bytes"] = local_bytes(make_cache(ex.cfg, pool.num_pages, pool.page_size,
+                                              abstract=True, rules=ex.rules))
+    return rep
 
 
 def launch_ranks(args, capacities: Sequence[float], argv) -> None:
@@ -634,7 +660,7 @@ def main(argv=None):
                          "(core/ring.ProcessRing over gloo), equal to the plan's "
                          "device count; 1 holds every device in this process "
                          "(LocalRing).  zoo: ranks of the model axis of the HMP "
-                         "rules' mesh (waves only)")
+                         "rules' mesh")
     ap.add_argument("--rank-timeout", type=float, default=1800.0, metavar="S",
                     help="with --ranks: seconds the ranks may take in all")
     ap.add_argument("--report", default=None, metavar="DIR",

@@ -51,7 +51,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_norm, connective_norm, connective_residual, rope
 from repro_torch.models.sharding import (constrain, from_local, local_shape_offset,
                                          logical_axis_size, matmul, mesh_active, project,
-                                         write_rows)
+                                         put_pairs, write_rows)
 from repro_torch.roofline import counter
 
 NEG_INF = -1e30
@@ -192,11 +192,17 @@ def _attention(q, k, v, *, causal: bool, window: int, backend: str, chunk: int =
 
 def _align_kv(q, t):
     """K or V laid out as the queries on the batch and head dims, whole
-    along the keys, so each chip attends its own queries locally."""
+    along the keys, so each chip attends its own queries locally.  KV heads
+    that stay whole where the query heads split (a chunk's cache view with
+    fewer KV heads than chips) are first repeated to the query heads, a
+    local copy of whole K/V, as the one-shot path's ``_expand_kv``."""
     from torch.distributed.tensor import Replicate, Shard
 
     want = tuple(p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
                  for p in q.placements)
+    if (Shard(1) in want and Shard(1) not in t.placements
+            and t.shape[1] != q.shape[1]):
+        t = torch.repeat_interleave(t, q.shape[1] // t.shape[1], dim=1)
     return t if tuple(t.placements) == want else t.redistribute(t.device_mesh, want)
 
 
@@ -354,13 +360,12 @@ def self_attention_block(
         k_cache, v_cache = cache["k"], cache["v"]
         cache_len = k_cache.shape[1]
         per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
-        if per_slot and mesh_active():
-            raise NotImplementedError("per-slot decode depths under a mesh")
         if per_slot:
+            # each row at its own depth (under a mesh on each rank's shard)
             slot = torch.remainder(cache_index, window) if window > 0 else cache_index
             rows = torch.arange(b, device=x.device)
-            k_cache[rows, slot] = k[:, 0]
-            v_cache[rows, slot] = v[:, 0]
+            put_pairs(k_cache, 0, rows, slot, k[:, 0])
+            put_pairs(v_cache, 0, rows, slot, v[:, 0])
             idx = cache_index[:, None]
         else:
             idx = int(cache_index)

@@ -337,17 +337,90 @@ def write_rows(dst, src, dim: int, start: int) -> None:
     if not isinstance(dst, DTensor):
         dst.narrow(dim, start, n).copy_(src)
         return
-    want = [Replicate() if p == Shard(dim) else p for p in dst.placements]
-    if not isinstance(src, DTensor):
-        src = DTensor.from_local(src, dst.device_mesh, [Replicate()] * dst.device_mesh.ndim,
-                                 run_check=False)
-    src = src.redistribute(dst.device_mesh, want)
+    src = _local_as(src, dst.device_mesh,
+                    tuple(Replicate() if p == Shard(dim) else p for p in dst.placements))
     local = dst.to_local()
     shape, offset = local_shape_offset(dst.shape, dst.device_mesh, dst.placements)
     lo, hi = max(start, offset[dim]), min(start + n, offset[dim] + shape[dim])
     if lo < hi:
         local.narrow(dim, lo - offset[dim], hi - lo).copy_(
-            src.to_local().narrow(dim, lo - start, hi - lo))
+            src.narrow(dim, lo - start, hi - lo))
+
+
+def _paired_placements(x, dim: int):
+    """Placements of ``x[..., i, j, ...]`` (1-D ``i``, ``j`` on ``dim`` and
+    ``dim + 1``) for ``x``'s; the two indexed dims must be whole."""
+    from torch.distributed.tensor import Shard
+
+    out = []
+    for p in x.placements:
+        if isinstance(p, Shard) and p.dim in (dim, dim + 1):
+            raise ValueError(f"dims {dim} and {dim + 1} of {tuple(x.shape)} are indexed, and "
+                             f"{x.placements} splits one")
+        out.append(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > dim else p)
+    return tuple(out)
+
+
+def _local_as(src, mesh, placements):
+    """This rank's shard of ``src`` laid out by ``placements`` (a plain
+    ``src`` is the same on every rank and is sliced locally)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(src.placements) != tuple(placements):
+        src = src.redistribute(mesh, placements)
+    return src.to_local()
+
+
+def take_pages(x, dim: int, table):
+    """Dense views of pages: ``x``'s dims ``dim`` (pages) and ``dim + 1``
+    (positions in a page) read through ``table`` (B, W) page ids as (B, W *
+    page), a copy of those pages only.  On a ``DTensor`` each rank gathers
+    from its own shard, which holds every page of its part of the other
+    dims (under the prefill rules: its KV heads), and the view keeps that
+    layout: no collective.  (torch 2.11 has no ``DTensor`` rule for indexing
+    by a tensor.)"""
+    from torch.distributed.tensor import DTensor
+
+    def gather(t):
+        g = t[(slice(None),) * dim + (table,)]
+        return g.reshape(*g.shape[:dim + 1], -1, *g.shape[dim + 3:])
+
+    if not isinstance(x, DTensor):
+        return gather(x)
+    _paired_placements(x, dim)
+    shape = (*x.shape[:dim], table.shape[0], table.shape[1] * x.shape[dim + 1],
+             *x.shape[dim + 2:])
+    return from_local(gather(x.to_local()), x.device_mesh, x.placements, shape)
+
+
+def take_pairs(x, dim: int, i, j):
+    """``x[..., i, j, ...]`` with 1-D ``i`` and ``j`` indexing dims ``dim`` and
+    ``dim + 1`` together: one row a pair.  On a ``DTensor`` whose two indexed
+    dims are whole each rank picks from its own shard: no collective."""
+    from torch.distributed.tensor import DTensor
+
+    index = (slice(None),) * dim + (i, j)
+    if not isinstance(x, DTensor):
+        return x[index]
+    shape = (*x.shape[:dim], i.shape[0], *x.shape[dim + 2:])
+    return from_local(x.to_local()[index], x.device_mesh, _paired_placements(x, dim), shape)
+
+
+def put_pairs(dst, dim: int, i, j, src) -> None:
+    """``dst[..., i, j, ...] = src`` in place, the pairs of :func:`take_pairs`
+    (a page scatter, a per-slot cache write).  On a ``DTensor`` each rank
+    writes its own shard from ``src`` laid out as ``take_pairs(dst, ...)``
+    would be, a local slice where ``src`` is whole: no collective."""
+    from torch.distributed.tensor import DTensor
+
+    index = (slice(None),) * dim + (i, j)
+    if not isinstance(dst, DTensor):
+        dst[index] = src
+        return
+    local = _local_as(src, dst.device_mesh, _paired_placements(dst, dim))
+    dst.to_local()[index] = local
 
 
 def rowwise(fn, x, w):

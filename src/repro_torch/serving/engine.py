@@ -79,7 +79,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.execplan import COMPUTE_BACKENDS
 from repro_torch.core.ring import ProcessRing, mesh_collectives_staged
-from repro_torch.models.sharding import Rules, axis_rules
+from repro_torch.models.sharding import Rules, axis_rules, put_pairs, take_pages, take_pairs
 from repro_torch.models.transformer import apply_model
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.metrics import MetricsRegistry
@@ -119,10 +119,9 @@ def paged_capable(cfg: ModelConfig) -> bool:
 
 
 class TransformerExecutor:
-    """The model zoo (``models/transformer.py``) on one device, behind the
-    wave protocol and, for full-causal attention stacks, the paged one; or
-    under the HMP sharding rules on a mesh of ranks, behind the wave
-    protocol.
+    """The model zoo (``models/transformer.py``) on one device, or under the
+    HMP sharding rules on a mesh of ranks, behind the wave protocol and,
+    for full-causal attention stacks, the paged one.
 
     params: the tree of ``models.params.init_params`` /
             ``params_from_numpy``; its device is the executor's.  Under
@@ -140,14 +139,20 @@ class TransformerExecutor:
             ``ring`` (a ``ProcessRing`` of the group) lets the engine agree
             on rank 0's sampled ids.  One table serves prefill and decode:
             the shape-aware spec leaves a one-token step's sequence whole.
-            The paged protocol under a mesh is not here yet.
 
     The paged pool is ``make_cache(cfg, num_pages, page_size)`` read as
     (page, in-page slot).  Each paged call gathers the slot's pages into a
     dense per-request view, runs ``apply_model`` on it, and scatters the
     new K/V back into the pages in place (the reference donates the pool
     to XLA for the same effect), so no call holds a second copy of the
-    pool.
+    pool.  Under the rules the pool is placed by ``CACHE_AXES``: pages on
+    the data axis (of size 1) and KV heads on the model axis, so each rank
+    holds every page of its own KV heads (every KV head where they do not
+    split).  The block tables are the same on every rank (the engine's
+    host state moves on rank 0's ids), and the gather, the scatter and
+    the per-slot cache write each touch the rank's own shard only
+    (``sharding.take_pages``, ``take_pairs``, ``put_pairs``): no
+    collective beyond the model's own.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, backend: str = "kernel",
@@ -183,9 +188,9 @@ class TransformerExecutor:
     @property
     def supports_paged(self) -> bool:
         """Paged serving covers full-causal attention stacks; recurrent and
-        sliding-window caches are not position-addressable pages.  Under a
-        mesh the executor serves waves only."""
-        return paged_capable(self.cfg) and getattr(self, "mesh", None) is None
+        sliding-window caches are not position-addressable pages; under a
+        mesh as on one device."""
+        return paged_capable(self.cfg)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device).long()
@@ -202,11 +207,6 @@ class TransformerExecutor:
             logits, cache = apply_model(self.params, self.cfg, backend=self.backend, **kw)
             return logits.full_tensor(), cache
 
-    def _wave_only(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what}: the paged protocol under a mesh: next slice "
-                                      f"(serve waves: scheduler='wave')")
-
     # --- wave protocol -------------------------------------------------------
     def make_cache(self, batch: int, max_len: int):
         return make_cache(self.cfg, batch, max_len, device=self.device, rules=self.rules)
@@ -222,7 +222,7 @@ class TransformerExecutor:
 
     def decode(self, tokens, cache, index):
         """One decode step of the batch: tokens (B, 1); index a host int
-        (lockstep) or (B,) per-row write positions (not under a mesh).
+        (lockstep) or (B,) per-row write positions.
         Returns (logits (B, V), cache)."""
         if not isinstance(index, int):
             index = self._tensor(index)
@@ -234,34 +234,23 @@ class TransformerExecutor:
     def make_pool(self, num_pages: int, page_size: int):
         """Pool storage: the cache tree with (batch, seq) read as (page,
         in-page slot); every leaf is (G?, P, page_size, kv, hd)."""
-        self._wave_only("make_pool")
-        return make_cache(self.cfg, num_pages, page_size, device=self.device)
+        return make_cache(self.cfg, num_pages, page_size, device=self.device, rules=self.rules)
 
     @staticmethod
     def gather_pages(pool, block_table):
         """Dense (B, W * page, kv, hd) views of the pages of each row of
-        ``block_table`` (B, W): a copy, one per call, of those pages only."""
-        bsz, w = block_table.shape
-
-        def gather(leaf, _, grouped):
-            if grouped:
-                g = leaf[:, block_table]  # (G, B, W, page, kv, hd)
-                return g.reshape(g.shape[0], bsz, w * g.shape[3], *g.shape[4:])
-            g = leaf[block_table]
-            return g.reshape(bsz, w * g.shape[2], *g.shape[3:])
-
-        return map_cache_leaves(pool, pool, gather)
+        ``block_table`` (B, W): a copy, one per call, of those pages only;
+        under a mesh each rank's copy of its own shard of the pages."""
+        return map_cache_leaves(
+            pool, pool, lambda leaf, _, grouped: take_pages(leaf, int(grouped), block_table))
 
     @staticmethod
     def _scatter(pool, dense, phys, within, rows, pos) -> None:
         """pool[page phys[i], slot within[i]] = dense[rows[i], pos[i]], in
-        place, for every leaf."""
+        place, for every leaf; under a mesh on each rank's shards."""
 
         def scatter(leaf, new, grouped):
-            if grouped:
-                leaf[:, phys, within] = new[:, rows, pos]
-            else:
-                leaf[phys, within] = new[rows, pos]
+            put_pairs(leaf, int(grouped), phys, within, take_pairs(new, int(grouped), rows, pos))
 
         map_cache_leaves(pool, dense, scatter)
 
@@ -272,15 +261,13 @@ class TransformerExecutor:
         ``length - 1``); block_row: (W,) physical pages of this request.
         Returns ``(logits (1, V), pool)``.
         """
-        self._wave_only("prefill_paged")
         tokens = self._tensor(tokens)
         b, s = tokens.shape
         if b != 1:
             raise ValueError("paged prefill is per-request: batch must be 1")
-        dense = make_cache(self.cfg, 1, s, device=self.device)
-        logits, dense = apply_model(self.params, self.cfg, tokens=tokens,
-                                    mode="prefill", cache=dense,
-                                    backend=self.backend, rows=int(length) - 1)
+        dense = make_cache(self.cfg, 1, s, device=self.device, rules=self.rules)
+        logits, dense = self._model(tokens=tokens, mode="prefill", cache=dense,
+                                    rows=int(length) - 1)
         ps = cache_page_size(pool)
         pos = torch.arange(s, device=self.device)
         phys = self._tensor(block_row)[pos // ps]
@@ -299,7 +286,6 @@ class TransformerExecutor:
         gathers the whole block-table row); the attention reads no key past
         ``offset + S``, so the numbers are the same.
         """
-        self._wave_only("prefill_chunk")
         tokens = self._tensor(tokens)
         b, s = tokens.shape
         if b != 1:
@@ -308,9 +294,8 @@ class TransformerExecutor:
         ps = cache_page_size(pool)
         row = self._tensor(block_row)
         dense = self.gather_pages(pool, row[: -(-(offset + s) // ps)][None])
-        logits, dense = apply_model(self.params, self.cfg, tokens=tokens,
-                                    mode="prefill", cache=dense, cache_index=offset,
-                                    backend=self.backend)
+        logits, dense = self._model(tokens=tokens, mode="prefill", cache=dense,
+                                    cache_index=offset)
         pos = offset + torch.arange(s, device=self.device)
         self._scatter(pool, dense, row[pos // ps], pos % ps, torch.zeros_like(pos), pos)
         return logits, pool
@@ -321,13 +306,11 @@ class TransformerExecutor:
         scatter each new K/V entry back into its page.  Rows of idle slots
         carry the null page and position 0.  Returns ``(logits (B, V),
         pool)``."""
-        self._wave_only("decode_paged")
         bt = self._tensor(block_table)
         positions = self._tensor(positions)
         dense = self.gather_pages(pool, bt)
-        logits, dense = apply_model(self.params, self.cfg, tokens=self._tensor(tokens),
-                                    mode="decode", cache=dense, cache_index=positions,
-                                    backend=self.backend)
+        logits, dense = self._model(tokens=self._tensor(tokens), mode="decode", cache=dense,
+                                    cache_index=positions)
         ps = cache_page_size(pool)
         rows = torch.arange(bt.shape[0], device=self.device)
         self._scatter(pool, dense, bt[rows, positions // ps], positions % ps,

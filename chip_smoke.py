@@ -328,9 +328,9 @@ Galaxy across processes, then the zoo across processes, run last:
              process's on those weights (the one-process kernel-vs-eager
              difference printed beside).  (b) ``launch.serve --executor
              zoo --model recurrentgemma-9b --ranks 4`` as a user starts
-             it, with phase 8's traffic in bf16: every rank's tokens
-             bitwise equal to the others'; then one process fed the
-             ranks' 96 tokens wave by wave: at every step the ranks'
+             it, with phase 8's traffic cut to 8 new tokens in bf16:
+             every rank's tokens bitwise equal to the others'; then one
+             process fed the ranks' 48 tokens wave by wave: at every step the ranks'
              token is its argmax, or below its top logit by at most twice
              phase 8's kernel-vs-eager bf16 logit error (every such gap
              printed, and where each request first parts from phase 8);
@@ -367,8 +367,9 @@ Galaxy across processes, then the zoo across processes, run last:
              units (each printed), the draft's flash launches on rank 0
              alone, at least one verify chunk.  (b) ``launch.serve
              --executor zoo --model stablelm-12b --ranks 4`` as a user
-             starts it, with phase 11's traffic cut to 5 requests (the
-             fewest with a prefix hit on 4 slots) in bf16 at full depth,
+             starts it, with phase 11's traffic cut to 3 requests on 2
+             slots (the fewest with a prefix hit) of 8 new tokens in bf16
+             at full depth,
              and one process serving the same: tokens and stats bitwise
              equal on every rank and the stats one process's, a prefix hit
              and chunks (each rank's pool refcounts checked at the end of
@@ -380,6 +381,26 @@ Galaxy across processes, then the zoo across processes, run last:
              difference over the same calls (printed); each rank's pool,
              weight and peak bytes, staged collectives, tok/s and TTFT p50
              beside the one-process serve's as ratios within this run.
+
+The paged decode step captured as one CUDA graph (``serving/graphs.py``)
+runs in two parts, on the executors and traffic of phases 5 and 11 (no
+model is drawn again), each part right after its phase:
+
+37. graphs — phase 5's GPT2-L fp16 serve and then phase 11's StableLM-12B
+             bf16 serve again with ``graphs=True``: tokens (and StableLM's
+             stats) bitwise equal to the eager serve's, one capture and a
+             replay for every later decode step, phase 5's exact launch
+             counts (``n_req x 2304 + steps x 576`` GEMMs, all ``mma``) and
+             phase 11's (40 flash a prefill call, no other kernel).  Then,
+             on random pages at each serve's pool geometry, one decode step
+             replayed and run eagerly on copies of one pool: logits and
+             pages bitwise equal; the step's wall time eager against
+             replay (blocks eager, replay, replay, eager, the median of 20
+             steps each, host inputs to synced logits), the replay's device
+             time, one eager and one replayed step's kernel time in the
+             profiler's trace (the card's idle share of each), the
+             capture's ms and the graph pool's bytes.  Not a claim of
+             speed: graphs stay off by default.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -3823,7 +3844,7 @@ def zoo_ranks_serve(torch, rec, card, one):
     from repro_torch.launch.serve import build_zoo_executor
 
     what = "4-rank zoo serve"
-    lens, max_new = [300] * 4 + [2100] * 2, 16
+    lens, max_new = [300] * 4 + [2100] * 2, 8
     with tempfile.TemporaryDirectory() as tmp:
         stdout = _ranks_run("repro_torch.launch.serve", [
             "--executor", "zoo", "--model", "recurrentgemma-9b", "--ranks", "4",
@@ -4189,10 +4210,11 @@ def paged_teacher_forced(ex, eager, prompts, served, torch, chunk=256, page=16):
     return gaps, err
 
 
-#: phase 36 (b)'s traffic: phase 11's cut to 5 requests, the fewest of
-#: which one is admitted after a prompt entered the prefix tree (4 slots)
-ZOO_PAGED_TRAFFIC = dict(requests=5, prompt_len=(64, 512), shared_prefix=1024, max_new=16,
-                         max_batch=4, page_size=16, prefix_cache=True, prefill_chunk=256)
+#: phase 36 (b)'s traffic: phase 11's cut to 3 requests on 2 slots, the
+#: fewest of which one is admitted after a prompt entered the prefix tree,
+#: and 8 new tokens
+ZOO_PAGED_TRAFFIC = dict(requests=3, prompt_len=(64, 512), shared_prefix=1024, max_new=8,
+                         max_batch=2, page_size=16, prefix_cache=True, prefill_chunk=256)
 
 
 def zoo_paged_serve(torch, rec, card):
@@ -4311,6 +4333,197 @@ def phase_zoo_paged_ranks(torch, rec, card, dense):
     log("zoo paged", f"(b) {time.perf_counter() - t0:.1f} s with start-up")
 
 
+# --- phase 37: the paged decode step captured as one CUDA graph ------------------
+
+GRAPH_STEPS = 20  # timed steps a block; blocks eager, replay, replay, eager
+
+
+def graph_step_check(ex, pool, vocab, torch, card, what):
+    """One decode step of ``ex`` replayed and run eagerly on copies of one
+    pool at the served geometry (``pool``: the serve's ``PagedKVPool``;
+    pages drawn at random, the slots at 95/70/45/20 % of their rows):
+    logits and pages bitwise equal.  Then the step's wall time, host
+    inputs to synced logits as the engine takes it, eager against replay
+    in one call (blocks eager, replay, replay, eager, the median of
+    ``GRAPH_STEPS`` steps each), and the replay's device time (events)."""
+    import numpy as np
+
+    from repro_torch.serving.graphs import leaves
+
+    n, w, page = pool.num_slots, pool.pages_per_slot, pool.page_size
+    g = torch.Generator(device="cuda").manual_seed(37)
+    storage = ex.make_pool(pool.num_pages, page)
+    for leaf in leaves(storage):
+        leaf.normal_(generator=g)
+    table = np.arange(1, 1 + n * w).reshape(n, w)
+    pos = (np.array([0.95, 0.7, 0.45, 0.2])[np.arange(n) % 4] * w * page).astype(np.int64)
+    tok = np.random.default_rng(37).integers(0, vocab, (n, 1))
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    ex.decode_paged(tok, storage, table, pos)  # the warm-up step, then the capture
+    twin = _clone_tree(storage)
+    got, _ = ex.decode_paged(tok, storage, table, pos)
+    want, _ = eager.decode_paged(tok, twin, table, pos)
+    if not torch.equal(got, want) or not all(
+            torch.equal(a, b) for a, b in zip(leaves(storage), leaves(twin))):
+        raise AssertionError(f"{what}: a replayed decode step differs from the eager step: "
+                             f"logits max diff {(got.float() - want.float()).abs().max().item()}")
+    stats = ex.graph_stats
+    if (stats["captures"], stats["replays"]) != (1, 1):
+        raise AssertionError(f"{what}: graph stats {stats}")
+
+    def block(run, pool):
+        ts = []
+        for _ in range(GRAPH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = run(tok, pool, table, pos)
+            logits.argmax(-1).cpu()  # the engine's sampling sync
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ts))
+
+    eager_ms = [block(eager.decode_paged, twin)]
+    replay_ms = [block(ex.decode_paged, storage), block(ex.decode_paged, storage)]
+    eager_ms.append(block(eager.decode_paged, twin))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(GRAPH_STEPS):
+        ex.decode_paged(tok, storage, table, pos)
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / GRAPH_STEPS
+
+    def busy(run, pool):
+        """Kernel time of one step in the profiler's trace (ms), or None
+        where the trace holds none."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(tok, pool, table, pos)
+            torch.cuda.synchronize()
+        t = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return t or None
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
+    busy_ms = {"eager": busy(eager.decode_paged, twin), "replay": busy(ex.decode_paged, storage)}
+    idle = {k: ("not measured" if v is None
+                else f"{100 * (1 - v / float(np.median(eager_ms if k == 'eager' else replay_ms))):.1f} %")
+            for k, v in busy_ms.items()}
+    log("graphs", f"{what}: a replayed step's logits and pages bitwise equal to the eager "
+        f"step's ({n} slots x {w} pages of {page}, positions {pos.tolist()}); step wall ms "
+        f"eager {eager_ms[0]:.3f} / replay {replay_ms[0]:.3f} / replay {replay_ms[1]:.3f} / "
+        f"eager {eager_ms[1]:.3f} (median of {GRAPH_STEPS} each, host inputs to synced "
+        f"logits), replay device {device_ms:.3f} ms a step back to back; kernel time of one "
+        f"step in the profiler's trace eager {ms(busy_ms['eager'])} / replay "
+        f"{ms(busy_ms['replay'])} ms, so the card idles {idle['eager']} / {idle['replay']} of the step's wall; capture "
+        f"{stats['capture_ms']:.1f} ms, graph pool {stats['pool_bytes']} B, allocated "
+        f"after it {stats['allocated_bytes']} B ({card})")
+    ex.graphs = False
+    return {"eager_ms": eager_ms, "replay_ms": replay_ms, "replay_device_ms": device_ms,
+            "busy_ms": busy_ms, "capture_ms": stats["capture_ms"],
+            "pool_bytes": stats["pool_bytes"]}
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def phase_graphs_galaxy(torch, card, out):
+    """Phase 37, Galaxy: phase 5's traffic served again on phase 5's
+    executor with ``graphs=True``: tokens bitwise equal to phase 5's,
+    phase 5's exact launch counts (576 ``tiled_gemm_valid`` a decode step,
+    all on ``mma``), one capture; then ``graph_step_check``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    what = "GPT2-L fp16 Galaxy, graphs on"
+    n_req, max_new = 8, 16
+    ops.reset_launch_counts()
+    got = launch_serve.serve("gpt2-l", (3, 2, 2, 1), requests=n_req, prompt_len=(37, 300),
+                             max_new=max_new, max_batch=4, device="cuda", dtype="float16",
+                             seed=0, executor=out["executor"], graphs=True)
+    torch.cuda.synchronize()
+    counts, steps = ops.launch_counts(), got["stats"]["decode_steps"]
+    eager = {r.uid: r.output for r in out["requests"]}
+    if {r.uid: r.output for r in got["requests"]} != eager:
+        raise AssertionError(f"{what}: served tokens differ from phase 5's eager serve")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"tiled_gemm_valid": n_req * 2304 + steps * 576,
+                   "ragged_flash_attention": n_req * 144, "fused_connective": n_req * 72})
+    if counts != expect or steps != out["stats"]["decode_steps"]:
+        raise AssertionError(f"{what}: launches {counts} in {steps} decode steps; want "
+                             f"{expect} in {out['stats']['decode_steps']}")
+    check_galaxy_paths(ops, what)
+    stats = got["graph_stats"]["target"]
+    if (stats["captures"], stats["replays"]) != (1, steps - 1):
+        raise AssertionError(f"{what}: graph stats {stats} over {steps} decode steps")
+    log("graphs", f"{what}: {n_req} requests' tokens bitwise equal to phase 5's; "
+        f"tiled_gemm_valid {counts['tiled_gemm_valid']} launches = {n_req} x 2304 + {steps} "
+        f"x 576, all mma; 1 capture ({stats['capture_ms']:.1f} ms, pool "
+        f"{stats['pool_bytes']} B), {stats['replays']} replays; {got['new_tokens']} new "
+        f"tokens in {got['seconds']:.2f} s: {got['tokens_per_s']:.1f} tok/s, TTFT p50 "
+        f"{1e3 * got['ttft_p50_s']:.1f} ms (phase 5's eager serve {out['tokens_per_s']:.1f} "
+        f"tok/s; not a claim: one serve each) ({card})")
+    ops.reset_launch_counts()
+    ex = out["executor"]
+    graph_step_check(ex, got["pool"], ex.embed.shape[0], torch, card, "GPT2-L fp16 decode step")
+    counts = ops.launch_counts()["tiled_gemm_valid"]
+    # the warm-up step, the checked replay and eager step, 2 x GRAPH_STEPS
+    # eager and 3 x GRAPH_STEPS replayed timed steps, one eager and one
+    # replayed profiled step: 576 each
+    want = 576 * (5 + 5 * GRAPH_STEPS)
+    if counts != want or ops.path_counts()["tiled_gemm_valid"]["fma"]:
+        raise AssertionError(f"{what}: the step check launched {counts} GEMMs, want {want} "
+                             "on mma")
+
+
+def phase_graphs_dense(torch, card, out):
+    """Phase 37, the zoo: phase 11's traffic served again on phase 11's
+    StableLM-12B executor with ``graphs=True``: tokens bitwise equal to
+    phase 11's, flash exactly 40 a prefill call and no other kernel, one
+    capture; then ``graph_step_check``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    what = "StableLM-12B bf16 zoo, graphs on"
+    ops.reset_launch_counts()
+    got = launch_serve.serve("stablelm-12b", executor_kind="zoo", requests=8,
+                             prompt_len=(64, 512), shared_prefix=1024, max_new=16,
+                             max_batch=4, page_size=16, prefix_cache=True,
+                             prefill_chunk=256, device="cuda", dtype="bfloat16", seed=0,
+                             executor=out["executor"], graphs=True)
+    torch.cuda.synchronize()
+    if {r.uid: r.output for r in got["requests"]} != {r.uid: r.output
+                                                      for r in out["requests"]}:
+        raise AssertionError(f"{what}: served tokens differ from phase 11's eager serve")
+    if got["stats"] != out["stats"]:
+        raise AssertionError(f"{what}: stats {got['stats']}, phase 11's {out['stats']}")
+    check_zoo_flash_counts(ops, None, got, what)
+    steps = got["stats"]["decode_steps"]
+    stats = got["graph_stats"]["target"]
+    if (stats["captures"], stats["replays"]) != (1, steps - 1):
+        raise AssertionError(f"{what}: graph stats {stats} over {steps} decode steps")
+    log("graphs", f"{what}: 8 requests' tokens and stats bitwise equal to phase 11's; flash "
+        f"{ops.launch_counts()['flash_attention']} launches, no other kernel; 1 capture "
+        f"({stats['capture_ms']:.1f} ms, pool {stats['pool_bytes']} B), {stats['replays']} "
+        f"replays; {got['new_tokens']} new tokens in {got['seconds']:.2f} s: "
+        f"{got['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * got['ttft_p50_s']:.1f} ms (phase "
+        f"11's eager serve {out['tokens_per_s']:.1f} tok/s; not a claim: one serve each) "
+        f"({card})")
+    ex = out["executor"]
+    graph_step_check(ex, got["pool"], ex.cfg.vocab_size, torch, card,
+                     "StableLM-12B bf16 decode step")
+
+
 def main() -> int:
     import torch
 
@@ -4359,6 +4572,7 @@ def main() -> int:
     out = phase_serve(torch, rec)
     check_served_token(out, torch)
     local_tokens = {"serve": {r.uid: r.output for r in out["requests"]}}
+    phase_graphs_galaxy(torch, card, out)
     del out
     torch.cuda.empty_cache()
     out = phase_serve(torch, None, dtype="bfloat16", n_req=4, max_new=4)
@@ -4405,6 +4619,7 @@ def main() -> int:
     out = phase_dense_serve(torch, rec)
     check_dense_served_token(out, torch)
     measure_decode_gather(out, torch)
+    phase_graphs_dense(torch, card, out)
     del out  # StableLM's 24 GiB go before the MoE models are drawn
     torch.cuda.empty_cache()
 

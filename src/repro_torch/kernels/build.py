@@ -139,6 +139,10 @@ def load(name: str, signatures: Dict[str, Tuple[Optional[type], list]]) -> ctype
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: the kernel would be built and loaded while a CUDA "
+                           "graph is captured; warm up first: run the step once eagerly "
+                           "before capturing it")
     build_all()
     with _lock:
         lib = _libs.get(name)

@@ -329,12 +329,25 @@ def _workspace(device: torch.device, floats: int, tiles: int):
     idx = device.index if device.index is not None else torch.cuda.current_device()
     ws, cnt = _workspaces.get(idx, (None, None))
     if ws is None or ws.numel() < floats or cnt.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            # it would come from the graph's pool and be freed with the graph
+            raise RuntimeError(
+                f"tiled_gemm_valid: the split-K workspace must grow to {floats} partials "
+                f"and {tiles} counters while a CUDA graph is captured; warm up first: "
+                "run the step once eagerly before capturing it")
         ws = torch.empty(max(floats, 1 if ws is None else ws.numel()),
                          dtype=torch.float32, device=device)
         cnt = torch.zeros(max(tiles, 1 if cnt is None else cnt.numel()),
                           dtype=torch.int32, device=device)
         _workspaces[idx] = (ws, cnt)
     return ws, cnt
+
+
+def workspaces() -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """The split-K workspaces of every device as they stand.  A captured
+    graph holds the ones it launched on: a later eager launch may grow
+    (replace) them, and the graph goes on using the old buffers."""
+    return tuple(_workspaces.values())
 
 
 def _prefix_mask(extent: int, seg: int, valid: int, device) -> torch.Tensor:

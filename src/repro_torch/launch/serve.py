@@ -109,6 +109,15 @@ bytes of its weights, its peak device memory, its staged collectives
 and, on the continuous scheduler, its pool's pages and the bytes it
 holds of them.
 
+``--cuda-graphs`` replays each paged decode step of the served model (and
+of the draft) as one captured CUDA graph (``serving/graphs.py``, the
+reference's jitted decode step; off by default): one capture a serve,
+then a replay a step, the same tokens as without it.  The serve line
+adds ``graph_stats`` (captures, replays, capture ms, the graph pool's
+bytes) for the served model and the draft.  Only one process on the card
+is captured: ``--cuda-graphs`` is refused with ``--ranks`` above 1 and
+with ``--device cpu``.
+
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
 """
@@ -344,7 +353,7 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           draft_executor=None, temperature: float = 0.0,
           tracer: Optional[Tracer] = None, drift: bool = False,
           record_times: bool = True, compute_backend: str = "kernel",
-          ring: Optional[ProcessRing] = None) -> Dict:
+          ring: Optional[ProcessRing] = None, graphs: bool = False) -> Dict:
     """Build (or take) the executor, serve random prompts and return the
     finished requests, throughput and latency figures, the engine's stats
     and prefix-cache stats, its pool, and the executor (whose weights a
@@ -366,8 +375,15 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     versions.  ``ring`` (a ``ProcessRing``: this process is one rank of the
     Galaxy ring) serves this rank's shards; every rank calls ``serve``
     with the same arguments, and only the rank of the draft's device
-    builds ``draft_model``."""
+    builds ``draft_model``.  ``graphs`` sets the executor's and the
+    draft's ``graphs`` (a taken executor's too): each paged decode step
+    replays one captured CUDA graph; ``"graph_stats"`` holds the run's
+    (``{"target": ..., "draft": ...}``, None where off)."""
     dev = resolve_device(device)
+    if graphs and (ring is not None or dev.type != "cuda"):
+        where = "across ranks" if ring is not None else f"on {dev.type}"
+        raise ValueError("graphs=True captures one process's decode step on the card, "
+                         f"not {where}")  # checked before any weight is drawn
     if compute_backend != "kernel" and executor_kind != "galaxy":
         raise ValueError("compute_backend selects the Galaxy executor's per-shard compute; "
                          f"the {executor_kind} executor has none")
@@ -416,6 +432,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         else:
             executor = build_zoo_executor(cfg, device=dev, dtype=dtype, seed=seed,
                                           ranks=1 if ring is None else ring.num_devices)
+    executor.graphs = graphs
+    if draft_executor is not None:
+        draft_executor.graphs = graphs
     max_prompt = prompt_len[1] if prompt_lens is None else max(prompt_lens)
     if shared_prefix is None:
         shared_prefix = max_prompt // 2 if prefix_cache else 0
@@ -461,6 +480,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "draft_executor": draft_executor,
         "draft_device": draft_device,
         "spec": engine.spec,
+        "graph_stats": {"target": executor.graph_stats,
+                        "draft": None if draft_executor is None
+                        else draft_executor.graph_stats},
     }
 
 
@@ -472,8 +494,8 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
     ring's hops, the bytes of the weights it holds, its peak device memory
     and the mesh collectives it staged through host memory (calls and
     bytes sent, by collective), the zoo kernels' distinct calls
-    (``kernels/ops.call_log``) and the continuous scheduler's pool
-    (``pool_report``)."""
+    (``kernels/ops.call_log``), the continuous scheduler's pool
+    (``pool_report``) and the captured decode steps' ``graph_stats``."""
     ex = out["executor"]
     ring = getattr(ex, "ring", None)
     spec = out["spec"]
@@ -494,7 +516,8 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if torch.cuda.is_initialized() else None),
            "staged_collectives": {k: list(v) for k, v in MESH_STAGED.items()},
-           "kernel_calls": ops.call_log(), "pool": pool_report(ex, out["pool"])}
+           "kernel_calls": ops.call_log(), "pool": pool_report(ex, out["pool"]),
+           "graph_stats": out["graph_stats"]}
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
         json.dump(rep, f)
 
@@ -667,8 +690,18 @@ def main(argv=None):
                     help="each rank writes DIR/rank<r>.json: served tokens, kernel "
                          "launches and paths, engine stats, ring hops; weights, peak "
                          "memory, staged collectives and (zoo) distinct kernel calls")
+    ap.add_argument("--cuda-graphs", action="store_true",
+                    help="replay each paged decode step (the served model's and the "
+                         "draft's) as one captured CUDA graph; one process on the card")
     rank_procs.add_rank_args(ap)
     args = ap.parse_args(argv)
+    if args.cuda_graphs and args.ranks > 1:
+        raise SystemExit(f"--cuda-graphs captures one process's decode step; --ranks "
+                         f"{args.ranks} hops through the host between ranks, which a "
+                         "CUDA graph cannot hold")
+    if args.cuda_graphs and args.device == "cpu":
+        raise SystemExit("--cuda-graphs needs the card: --device cpu runs each decode "
+                         "step eagerly")
     capacities = [float(c) for c in args.capacities.split(",")]
     sched = scheduling_kwargs(args)
     if args.ranks < 1:
@@ -693,7 +726,8 @@ def main(argv=None):
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=device, dtype=args.dtype, seed=args.seed,
                 reduce=args.reduce, tracer=tracer, drift=args.drift and first,
-                compute_backend=args.compute_backend, ring=ring, **sched)
+                compute_backend=args.compute_backend, ring=ring,
+                graphs=args.cuda_graphs, **sched)
     if args.report is not None:
         write_report(args.report, out, 0 if args.rank is None else args.rank)
     if args.rank is not None:

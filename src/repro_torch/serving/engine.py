@@ -84,6 +84,7 @@ from repro_torch.models.transformer import apply_model
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import RequestTracks, Tracer
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -153,10 +154,18 @@ class TransformerExecutor:
     the per-slot cache write each touch the rank's own shard only
     (``sharding.take_pages``, ``take_pairs``, ``put_pairs``): no
     collective beyond the model's own.
+
+    graphs: replay ``decode_paged`` (gather, the one-token model, scatter)
+            as a captured CUDA graph (``serving/graphs.py:StepGraph``, the
+            reference's jitted paged decode); the same step runs eagerly
+            without it.  Settable; setting it starts a new graph and its
+            ``graph_stats``.  Raises ``ValueError`` off the card and under
+            ``rules`` (``DTensor`` dispatches on the host and the mesh's
+            collectives stage through it: neither can be captured).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, backend: str = "kernel",
-                 rules: Optional[Rules] = None):
+                 rules: Optional[Rules] = None, graphs: bool = False):
         if backend not in COMPUTE_BACKENDS:
             raise ValueError(f"unknown compute backend {backend!r}; "
                              f"one of {COMPUTE_BACKENDS}")
@@ -179,6 +188,26 @@ class TransformerExecutor:
                                    "launch.ranks.init, which stages the mesh's collectives "
                                    "through host memory")
             self.ring = ProcessRing(dist.get_rank(), dist.get_world_size())
+        self.graphs = graphs
+
+    @property
+    def graphs(self) -> bool:
+        return self._graph is not None
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        self._graph = None
+        if on:
+            if self.rules is not None:
+                raise ValueError("graphs=True runs one process without sharding rules: "
+                                 "DTensor dispatch and the mesh's host-staged "
+                                 "collectives cannot be captured")
+            self._graph = StepGraph(self.device)
+
+    @property
+    def graph_stats(self) -> Optional[Dict]:
+        """The captured decode step's ``StepGraph.stats`` (None without graphs)."""
+        return None if self._graph is None else dict(self._graph.stats)
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -305,17 +334,24 @@ class TransformerExecutor:
         dense per-slot view, run the single-token model at per-slot depths,
         scatter each new K/V entry back into its page.  Rows of idle slots
         carry the null page and position 0.  Returns ``(logits (B, V),
-        pool)``."""
-        bt = self._tensor(block_table)
-        positions = self._tensor(positions)
+        pool)``; the pool is updated in place."""
+        if self._graph is not None:
+            return self._graph.run(self._decode_step, pool, tokens, positions,
+                                   block_table), pool
+        return self._decode_step(pool, self._tensor(tokens), self._tensor(positions),
+                                 self._tensor(block_table)), pool
+
+    def _decode_step(self, pool, tokens, positions, bt) -> torch.Tensor:
+        """The step that ``decode_paged`` runs or captures, on device
+        tensors; no value is read on the host."""
         dense = self.gather_pages(pool, bt)
-        logits, dense = self._model(tokens=self._tensor(tokens), mode="decode", cache=dense,
+        logits, dense = self._model(tokens=tokens, mode="decode", cache=dense,
                                     cache_index=positions)
         ps = cache_page_size(pool)
         rows = torch.arange(bt.shape[0], device=self.device)
         self._scatter(pool, dense, bt[rows, positions // ps], positions % ps,
                       rows, positions)
-        return logits[:, -1], pool
+        return logits[:, -1]
 
 
 @dataclasses.dataclass

@@ -25,6 +25,12 @@ The prompt is scattered into the plan's padded ragged layout
 tiles and non-dividing lengths run exactly.  K/V land at absolute
 positions, and each decode step overwrites its own cache entry before
 attending, so bucket-padding positions are never read.
+
+``graphs=True`` replays ``decode_paged`` as one captured CUDA graph
+(``serving/graphs.py:StepGraph``, the reference's jitted decode step):
+the same step function runs eagerly with ``graphs=False``, so the two
+modes compute the same thing.  Only a ``LocalRing`` on the card can be
+captured: a ``ProcessRing``'s hops synchronize on the host.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ import torch
 
 from repro_torch.core import hmp
 from repro_torch.core.execplan import ExecPlan
-from repro_torch.core.ring import Ring
+from repro_torch.core.ring import ProcessRing, Ring
+from repro_torch.serving.graphs import StepGraph
 
 
 class GalaxyHMPExecutor:
@@ -49,10 +56,13 @@ class GalaxyHMPExecutor:
     plan:   compute backend and ring transport come from the plan
             (``ExecPlan.with_backend`` / ``with_transport``); prefill always
             runs the overlapped ring.
+    graphs: replay ``decode_paged`` as a captured CUDA graph (settable;
+            setting it starts a new graph and its ``graph_stats``).
+            Raises ``ValueError`` off the card and on a ``ProcessRing``.
     """
 
     def __init__(self, layers: Sequence[Dict], embed: torch.Tensor,
-                 plan: ExecPlan, ring: Ring):
+                 plan: ExecPlan, ring: Ring, *, graphs: bool = False):
         if plan.num_devices != ring.num_devices:
             raise ValueError(f"plan covers {plan.num_devices} devices but the "
                              f"ring has {ring.num_devices}")
@@ -61,6 +71,25 @@ class GalaxyHMPExecutor:
         self.layers = [hmp.shard_layer_params(plan, p, ring.devices) for p in layers]
         self.embed = embed
         self.device = embed.device
+        self.graphs = graphs
+
+    @property
+    def graphs(self) -> bool:
+        return self._graph is not None
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        self._graph = None
+        if on:
+            if isinstance(self.ring, ProcessRing):
+                raise ValueError("graphs=True needs a LocalRing: a ProcessRing's hops "
+                                 "synchronize on the host and cannot be captured")
+            self._graph = StepGraph(self.device)
+
+    @property
+    def graph_stats(self) -> Optional[Dict]:
+        """The captured decode step's ``StepGraph.stats`` (None without graphs)."""
+        return None if self._graph is None else dict(self._graph.stats)
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -184,10 +213,18 @@ class GalaxyHMPExecutor:
 
     def decode_paged(self, tokens, pool, block_table, positions):
         """One decode step of the slot batch: tokens (S, 1), block_table
-        (S, W), positions (S,).  Returns (logits (S, V), pool)."""
-        x = self._lookup(self._tensor(tokens))  # (S, 1, d)
-        y, pool = hmp.hmp_decode(
-            self.layers, x, self.ring, pool, self._tensor(positions),
-            plan=self.plan, block_table=self._tensor(block_table),
-        )
-        return y[:, -1] @ self.embed.T, pool
+        (S, W), positions (S,).  Returns (logits (S, V), pool); the pool
+        is updated in place."""
+        if self._graph is not None:
+            return self._graph.run(self._decode_step, pool, tokens, positions,
+                                   block_table), pool
+        return self._decode_step(pool, self._tensor(tokens), self._tensor(positions),
+                                 self._tensor(block_table)), pool
+
+    def _decode_step(self, pool, tokens, positions, block_table) -> torch.Tensor:
+        """The step that ``decode_paged`` runs or captures, on device
+        tensors; no value is read on the host."""
+        x = self._lookup(tokens)  # (S, 1, d)
+        y, _ = hmp.hmp_decode(self.layers, x, self.ring, pool, positions, plan=self.plan,
+                              block_table=block_table)
+        return y[:, -1] @ self.embed.T

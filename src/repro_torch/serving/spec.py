@@ -47,6 +47,10 @@ rank (:func:`agree_proposals`).  Every rank then verifies them on its own
 shards, and the verify chunk's per-row ids are agreed as the sampled ids
 are, so acceptance, emission and the pool move in step on all ranks.
 
+A draft executor built with ``graphs=True`` replays its paged decode
+step, the proposals' one-token steps, as its own captured CUDA graph
+(``serving/graphs.py``); the verify chunk runs eagerly.
+
 With a tracer, a round is a ``spec_round`` span holding a
 ``draft_propose`` span and one ``spec_verify`` span per slot, and a
 rejection marks a ``spec_rollback`` event on the request's track; a drift

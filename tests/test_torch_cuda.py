@@ -47,6 +47,7 @@ from repro_torch.kernels.tiled_gemm import (  # noqa: E402
     tiled_gemm_valid,
     tiled_gemm_valid_plain,
 )
+from repro_torch.serving.graphs import leaves  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1005,3 +1006,133 @@ def test_chunked_eager_attention_matches_the_kernel(cuda):
             launched = ops.launch_counts()["flash_attention"]
             assert launched == (cfg.count_kind("attn") if backend == "kernel" else 0)
     torch.testing.assert_close(logits["eager"], logits["kernel"], atol=1e-4, rtol=1e-4)
+
+
+# --- the captured decode step (serving/graphs.py) ----------------------------------
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return [_clone_tree(v) for v in tree]
+
+
+def _serve_graphs(ex, graphs, vocab):
+    """Five requests through the continuous scheduler (3 slots, pages of
+    8), with ``ex.graphs`` set as asked: tokens, launches, paths, decode
+    steps and the graph's stats."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    ex.graphs = graphs
+    eng = ServingEngine(ex, max_batch=3, max_len=48, scheduler="continuous", page_size=8)
+    for i in range(5):
+        eng.submit(Request(uid=i, prompt=[1 + (7 * i + 3 * j) % (vocab - 1)
+                                          for j in range(5 + 6 * i)],
+                           max_new_tokens=4 + i % 3))
+    ops.reset_launch_counts()
+    tokens = {r.uid: r.output for r in eng.run()}
+    return (tokens, ops.launch_counts(), ops.path_counts(), eng.stats["decode_steps"],
+            ex.graph_stats)
+
+
+def _replay_equals_eager(ex, pool, tok, table, pos):
+    """One decode step replayed and run eagerly on copies of one pool:
+    logits and pages bitwise equal."""
+    import copy
+
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    ex.decode_paged(tok, pool, table, pos)  # warm-up and capture on `pool`
+    twin = _clone_tree(pool)
+    got, _ = ex.decode_paged(tok, pool, table, pos)
+    want, _ = eager.decode_paged(tok, twin, table, pos)
+    assert ex.graph_stats["captures"] == 1 and ex.graph_stats["replays"] == 1
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(pool), leaves(twin)))
+
+
+def test_galaxy_graphs_replay_the_eager_step(cuda):
+    """The uneven 3:2:2:1-shaped plan, 2 layers, fp16 on the kernel
+    backend: a serve with graphs gives the eager serve's tokens and
+    launches (32 ``tiled_gemm_valid`` a step, all ``mma``) from one
+    capture; a replayed step equals the eager step bitwise."""
+    from repro_torch.core import hmp
+    from repro_torch.core.execplan import ExecPlan
+    from repro_torch.core.ring import LocalRing
+    from repro_torch.serving.galaxy import GalaxyHMPExecutor
+
+    plan = ExecPlan(heads=(6, 4, 4, 2), columns=(24, 16, 16, 8), head_dim=2, d_model=32,
+                    seq_shares=(3.0, 2.0, 2.0, 1.0), compute_backend="kernel")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layers = hmp.init_stack_params(2, 32, 16, 64, generator=gen, device=cuda,
+                                   dtype=torch.float16)
+    embed = (torch.randn(300, 32, generator=gen, device=cuda) * 0.5).half()
+    ex = GalaxyHMPExecutor(layers, embed, plan, LocalRing(4))
+    eager = _serve_graphs(ex, False, 300)
+    graphed = _serve_graphs(ex, True, 300)
+    assert graphed[:4] == eager[:4] and eager[4] is None
+    assert graphed[4]["captures"] == 1 and graphed[4]["replays"] == graphed[3] - 1
+    assert graphed[2]["tiled_gemm_valid"]["fma"] == 0
+
+    pool = ex.make_pool(13, 8)
+    for leaf in leaves(pool):
+        leaf.normal_(generator=gen)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], device=cuda)
+    ops.reset_launch_counts()
+    _replay_equals_eager(ex, pool, torch.tensor([[5], [9], [0]], device=cuda), table,
+                         torch.tensor([30, 11, 0], device=cuda))
+    # warm-up, replay and the eager step: 32 launches each
+    assert ops.launch_counts()["tiled_gemm_valid"] == 3 * 32
+
+
+def test_zoo_graphs_replay_the_eager_step(cuda):
+    """Reduced StableLM (GQA 4:2) in bf16: a serve with graphs gives the
+    eager serve's tokens from one capture; a replayed step equals the
+    eager step bitwise."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    cfg = dataclasses.replace(reduced(get_config("stablelm-12b")), num_kv_heads=2,
+                              dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ex = TransformerExecutor(init_params(cfg, generator=gen, device=cuda), cfg)
+    eager = _serve_graphs(ex, False, cfg.vocab_size)
+    graphed = _serve_graphs(ex, True, cfg.vocab_size)
+    assert graphed[:4] == eager[:4]
+    assert graphed[4]["captures"] == 1 and graphed[4]["replays"] == graphed[3] - 1
+
+    pool = ex.make_pool(13, 8)
+    for leaf in leaves(pool):
+        leaf.normal_(generator=gen)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], device=cuda)
+    _replay_equals_eager(ex, pool, torch.tensor([[5], [9], [0]], device=cuda), table,
+                         torch.tensor([30, 11, 0], device=cuda))
+
+
+def test_spec_draft_graphs_equal_eager(cuda):
+    """A reduced qwen1.5-0.5b target verifying a reduced qwen1.5-0.5b draft
+    (other weights) in bf16, k 3: with the draft's decode step captured
+    (one capture, a replay for every later proposal step) the tokens equal
+    those with it eager."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor
+
+    cfg = dataclasses.replace(reduced(get_config("qwen1.5-0.5b")), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    target = TransformerExecutor(init_params(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda), cfg)
+    draft = TransformerExecutor(init_params(
+        cfg, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda), cfg)
+    out = []
+    for graphs in (False, True):
+        draft.graphs = graphs
+        eng = ServingEngine(target, max_batch=2, max_len=48, scheduler="continuous",
+                            page_size=8, draft_executor=draft, spec_k=3)
+        for i in range(3):
+            eng.submit(Request(uid=i, prompt=[1 + (5 * i + j) % 500 for j in range(6 + 5 * i)],
+                               max_new_tokens=7))
+        out.append(({r.uid: r.output for r in eng.run()}, eng.spec.steps, draft.graph_stats))
+    assert out[1][:2] == out[0][:2] and out[0][2] is None
+    assert out[1][2]["captures"] == 1 and out[1][2]["replays"] == out[1][1] - 1

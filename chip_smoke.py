@@ -83,7 +83,10 @@ failure:
              queries at offset 1024 (Sq < Sk), 32 heads on 8 KV heads of
              dim 160, strided views of the gathered page view, fp32, bf16
              and fp16, timed (bf16) beside its plain version, SDPA and its
-             bound.
+             bound.  Then with ``kv_len`` (the chunk at a device-held
+             offset over the whole 97-page view, and a 5-row verify
+             chunk): bitwise the call on the keys sliced to ``kv_len`` in
+             all three dtypes, each on its path, timed (bf16) beside it.
 10. dense parity — StableLM-12B at full width cut to 4 layers in float32,
              backend kernel and eager: the paged protocol's one-shot
              ``prefill_paged``, ``prefill_chunk`` in chunks of 64 at page-
@@ -328,9 +331,9 @@ Galaxy across processes, then the zoo across processes, run last:
              process's on those weights (the one-process kernel-vs-eager
              difference printed beside).  (b) ``launch.serve --executor
              zoo --model recurrentgemma-9b --ranks 4`` as a user starts
-             it, with phase 8's traffic cut to 8 new tokens in bf16:
+             it, with phase 8's traffic cut to 4 new tokens in bf16:
              every rank's tokens bitwise equal to the others'; then one
-             process fed the ranks' 48 tokens wave by wave: at every step the ranks'
+             process fed the ranks' 24 tokens wave by wave: at every step the ranks'
              token is its argmax, or below its top logit by at most twice
              phase 8's kernel-vs-eager bf16 logit error (every such gap
              printed, and where each request first parts from phase 8);
@@ -360,7 +363,7 @@ Galaxy across processes, then the zoo across processes, run last:
              decode; a ``decode_paged`` step stages the collectives of a
              lockstep ``decode`` step (printed, with a chunk's).  (c) on
              the same launch: qwen1.5-0.5b at full size in bf16, 2
-             requests of 8 new tokens served by ``launch.serve.serve`` on
+             requests of 4 new tokens served by ``launch.serve.serve`` on
              the ranks with and without a qwen1.5-0.5b draft (seed + 2) on
              rank 0, k 4: tokens and stats bitwise equal on every rank,
              spec on equal to spec off up to near-ties within 4 bf16
@@ -368,8 +371,8 @@ Galaxy across processes, then the zoo across processes, run last:
              alone, at least one verify chunk.  (b) ``launch.serve
              --executor zoo --model stablelm-12b --ranks 4`` as a user
              starts it, with phase 11's traffic cut to 3 requests on 2
-             slots (the fewest with a prefix hit) of 8 new tokens in bf16
-             at full depth,
+             slots (the fewest with a prefix hit) behind a 256-token
+             shared prompt, of 4 new tokens in bf16 at full depth,
              and one process serving the same: tokens and stats bitwise
              equal on every rank and the stats one process's, a prefix hit
              and chunks (each rank's pool refcounts checked at the end of
@@ -382,25 +385,36 @@ Galaxy across processes, then the zoo across processes, run last:
              weight and peak bytes, staged collectives, tok/s and TTFT p50
              beside the one-process serve's as ratios within this run.
 
-The paged decode step captured as one CUDA graph (``serving/graphs.py``)
-runs in two parts, on the executors and traffic of phases 5 and 11 (no
-model is drawn again), each part right after its phase:
+The captured steps (``serving/graphs.py``) run in three parts, on the
+executors and traffic of phases 5, 14 and 11 (no model is drawn again),
+each part after its phase (the spec part after the logged Galaxy phases):
 
 37. graphs — phase 5's GPT2-L fp16 serve and then phase 11's StableLM-12B
              bf16 serve again with ``graphs=True``: tokens (and StableLM's
-             stats) bitwise equal to the eager serve's, one capture and a
-             replay for every later decode step, phase 5's exact launch
-             counts (``n_req x 2304 + steps x 576`` GEMMs, all ``mma``) and
-             phase 11's (40 flash a prefill call, no other kernel).  Then,
-             on random pages at each serve's pool geometry, one decode step
-             replayed and run eagerly on copies of one pool: logits and
-             pages bitwise equal; the step's wall time eager against
-             replay (blocks eager, replay, replay, eager, the median of 20
-             steps each, host inputs to synced logits), the replay's device
-             time, one eager and one replayed step's kernel time in the
-             profiler's trace (the card's idle share of each), the
-             capture's ms and the graph pool's bytes.  Not a claim of
-             speed: graphs stay off by default.
+             stats) bitwise equal to the eager serve's, one decode
+             capture and a replay for every later decode step, phase 5's
+             exact launch counts (``n_req x 2304 + steps x 576`` GEMMs,
+             all ``mma``) and phase 11's (40 flash a prefill call, no
+             other kernel); StableLM's chunk shapes captured on their
+             second call and replayed after, at least once.  (a) Phase 14's fp16
+             spec serve again on its executor and draft with graphs:
+             tokens and stats bitwise equal to phase 14's, launches exact
+             by ``galaxy_expect``, every verify chunk after its row
+             count's second call replayed, the draft's decode captured
+             once.  Then, on random pages at each serve's pool geometry,
+             one decode step replayed and run eagerly on copies of one
+             pool: logits and pages bitwise equal; and (c) chunks (GPT2-L
+             5 and 128 rows, StableLM 256 and 5 rows), each at two
+             offsets, the first call eager, the second captured, a replay
+             at the first offset again: logits and pages bitwise the
+             eager step's, one capture.  Each step's or chunk's wall time
+             eager against replay (blocks eager, replay, replay, eager;
+             the median of 20 steps or 3 chunks each, host inputs to
+             synced logits), the replay's device time, one eager and one
+             replayed call's kernel time in the profiler's trace (the
+             card's idle share of each), the capture's ms and the graph
+             pool's bytes.  Not a claim of speed: graphs stay off by
+             default.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -1068,7 +1082,7 @@ def check_zoo_served_tokens(out, torch):
     return err
 
 
-def phase_dense_kernels(rec, torch):
+def phase_dense_kernels(rec, torch, card):
     from repro_torch.kernels import ops
     from repro_torch.kernels.tiled_gemm import tiled_gemm, tiled_gemm_plain
     from repro_torch.launch.kernel_timing import time_ms
@@ -1139,6 +1153,49 @@ def phase_dense_kernels(rec, torch):
     # the flash kernel at a StableLM-12B prefill chunk: 256 queries at
     # offset 1024 over a gathered view of 97 pages of 16
     check_time_flash(rec, torch, g, "dense chunk", 1, 32, 8, 256, 1024 + 256, 160, 97 * 16)
+    # the same chunk, and a 5-row verify chunk, at a device-held offset
+    for sq, sk in ((256, 1024 + 256), (5, 1029)):
+        check_flash_kv_len(torch, g, card, 1, 32, 8, sq, sk, 160, 97 * 16)
+
+
+def check_flash_kv_len(torch, g, card, b, h, hkv, sq, sk, hd, view):
+    """The flash kernel with ``kv_len`` = ``sk`` over the whole gathered
+    view of ``view`` positions (a chunk at a device-held offset, as the
+    captured zoo chunk runs it) against the call on the keys sliced to
+    ``sk``: bitwise in fp32, bf16 and fp16, on the same path, one launch
+    each; then both timed in bf16 (sliced, kv_len, kv_len, sliced)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.kernel_timing import time_ms
+
+    dev = torch.device("cuda")
+    kv_len = torch.full((b,), sk, dtype=torch.int32, device=dev)
+    for dtype in ("float32", "bfloat16", "float16"):
+        tdt = getattr(torch, dtype)
+        q = torch.randn(b, sq, h, hd, generator=g, device=dev).to(tdt).transpose(1, 2)
+        kc, vc = (torch.randn(b, view, hkv, hd, generator=g, device=dev).to(tdt)
+                  .transpose(1, 2) for _ in range(2))
+        before = dict(flash_attention.paths)
+        out = flash_attention(q, kc, vc, causal=True, kv_len=kv_len)
+        want = flash_attention(q, kc[:, :, :sk], vc[:, :, :sk], causal=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"flash_attention kv_len {sk} of {view} {dtype}: not bitwise "
+                                 f"the sliced call, max diff "
+                                 f"{(out.float() - want.float()).abs().max().item()}")
+        check_path(flash_attention, before, expected_attention_path(dtype), 2,
+                   f"flash_attention kv_len {dtype}")
+        if dtype != "bfloat16":
+            continue
+        sliced = lambda: flash_attention(q, kc[:, :, :sk], vc[:, :, :sk], causal=True)
+        lened = lambda: flash_attention(q, kc, vc, causal=True, kv_len=kv_len)
+        ms = {"sliced": [time_ms(sliced, iters=20)], "kv_len": [time_ms(lened, iters=20)]}
+        ms["kv_len"].append(time_ms(lened, iters=20))
+        ms["sliced"].append(time_ms(sliced, iters=20))
+    log("kernels", f"flash_attention q ({b},{h},{sq},{hd}) with kv_len {sk} over kv "
+        f"({b},{hkv},{view},{hd}): bitwise the call on keys sliced to {sk} in fp32, bf16 "
+        f"and fp16, each on its path; bf16 ms sliced {ms['sliced'][0]:.4f} / kv_len "
+        f"{ms['kv_len'][0]:.4f} / kv_len {ms['kv_len'][1]:.4f} / sliced "
+        f"{ms['sliced'][1]:.4f} ({card})")
 
 
 def check_time_flash(rec, torch, g, what, b, h, hkv, sq, sk, hd, view):
@@ -1622,27 +1679,34 @@ def check_logged_flash(calls, rec, torch, card, g):
     if not calls.flash:
         raise AssertionError("no flash_attention call was logged")
     errs, served = {}, set()
-    for (qs, qst, ks, kst, vst, sdt, causal, window) in sorted(calls.flash):
+    for (qs, qst, ks, kst, vst, sdt, causal, window, has_len) in sorted(calls.flash):
         served.add(sdt)
+        # a chunk at a device offset: each batch entry's key count drawn in
+        # [Sq, Sk], as a served chunk's offset + S falls
+        kv_len = (torch.randint(qs[2], ks[2] + 1, (qs[0],), generator=g, device="cuda",
+                                dtype=torch.int32) if has_len else None)
         for dtype in ("float32", "float16", "bfloat16"):
             q = strided_randn(qs, qst, dtype, g, torch)
             k = strided_randn(ks, kst, dtype, g, torch)
             v = strided_randn(ks, vst, dtype, g, torch)
             before = dict(flash_attention.paths)
-            out = flash_attention(q, k, v, causal=causal, window=window)
-            plain = flash_attention_plain(q, k, v, causal=causal, window=window)
+            out = flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+            plain = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                          kv_len=kv_len)
             torch.cuda.synchronize()
-            what = f"q {qs} kv {ks} causal {causal} window {window}"
+            what = (f"q {qs} kv {ks} causal {causal} window {window}"
+                    + ("" if kv_len is None else f" kv_len {kv_len.tolist()}"))
             e = check_close("flash_attention", out, plain, dtype, what)
             check_path(flash_attention, before, expected_attention_path(dtype), 1,
                        f"flash_attention {what} {dtype}")
             errs[dtype] = max(errs.get(dtype, 0.0), e)
     for dtype in served:
         rec["flash_attention"].err(errs[dtype])
-    shapes = sorted({(qs, ks) for (qs, _, ks, *_rest) in calls.flash})
+    shapes = sorted({(qs, ks, rest[-1]) for (qs, _, ks, *rest) in calls.flash})
     log("kernels", f"logged flash_attention calls replayed against flash_attention_plain in "
         f"fp32, fp16 and bf16: {len(calls.flash)} distinct calls (served in "
-        f"{sorted(served)}), q/kv shapes {shapes}; max abs err {errs}; every launch on its "
+        f"{sorted(served)}), q/kv shapes and kv_len given {shapes}; max abs err {errs}; "
+        f"every launch on its "
         f"path ({card})")
 
 
@@ -1894,7 +1958,8 @@ def phase_spec_serve(torch, rec, card):
             f"spec off {plain['tokens_per_s']:.1f} tok/s, spec on "
             f"{spec['tokens_per_s']:.1f} tok/s ({card}; random weights: no claim)")
         if dtype == "float16":
-            fp16 = {"executor": ex, "plain": plain, "spec": spec["requests"]}
+            fp16 = {"executor": ex, "plain": plain, "spec": spec["requests"], "draft": draft,
+                    "spec_stats": st, "kw": kw}
         del draft, spec
     return fp16
 
@@ -3844,7 +3909,7 @@ def zoo_ranks_serve(torch, rec, card, one):
     from repro_torch.launch.serve import build_zoo_executor
 
     what = "4-rank zoo serve"
-    lens, max_new = [300] * 4 + [2100] * 2, 8
+    lens, max_new = [300] * 4 + [2100] * 2, 4
     with tempfile.TemporaryDirectory() as tmp:
         stdout = _ranks_run("repro_torch.launch.serve", [
             "--executor", "zoo", "--model", "recurrentgemma-9b", "--ranks", "4",
@@ -3902,7 +3967,10 @@ def zoo_ranks_serve(torch, rec, card, one):
     g = torch.Generator(device="cuda").manual_seed(35)
     calls = reps[0]["kernel_calls"]
     ferr = serr = 0.0
-    for (qs, qst, ks, kst, vst, dtype, causal, window), _ in calls["flash_attention"]:
+    # (under the rules a chunk's offset is a host int: no call takes kv_len)
+    for (qs, qst, ks, kst, vst, dtype, causal, window, has_len), _ in calls["flash_attention"]:
+        if has_len:
+            raise AssertionError(f"{what}: a flash call under the rules took kv_len")
         q = strided_randn(qs, qst, dtype, g, torch)
         k = strided_randn(ks, kst, dtype, g, torch)
         v = strided_randn(ks, vst, dtype, g, torch)
@@ -4080,7 +4148,7 @@ def zoo_paged_parity(torch, card, dense):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({**{k: v for k, v in dense.items() if k != "logits"},
-                    "spec_requests": 2, "spec_len": (64, 256), "spec_new": 8},
+                    "spec_requests": 2, "spec_len": (64, 256), "spec_new": 4},
                    Path(tmp, "inputs.pt"))
         try:  # the launcher puts the checkout's src/ on the ranks' path
             rank_procs.launch([sys.executable, "-c", _ZOO_PAGED_WORKER, tmp], 4,
@@ -4212,8 +4280,8 @@ def paged_teacher_forced(ex, eager, prompts, served, torch, chunk=256, page=16):
 
 #: phase 36 (b)'s traffic: phase 11's cut to 3 requests on 2 slots, the
 #: fewest of which one is admitted after a prompt entered the prefix tree,
-#: and 8 new tokens
-ZOO_PAGED_TRAFFIC = dict(requests=3, prompt_len=(64, 512), shared_prefix=1024, max_new=8,
+#: behind a 256-token shared prompt, and 4 new tokens
+ZOO_PAGED_TRAFFIC = dict(requests=3, prompt_len=(64, 512), shared_prefix=256, max_new=4,
                          max_batch=2, page_size=16, prefix_cache=True, prefill_chunk=256)
 
 
@@ -4369,7 +4437,7 @@ def graph_step_check(ex, pool, vocab, torch, card, what):
             torch.equal(a, b) for a, b in zip(leaves(storage), leaves(twin))):
         raise AssertionError(f"{what}: a replayed decode step differs from the eager step: "
                              f"logits max diff {(got.float() - want.float()).abs().max().item()}")
-    stats = ex.graph_stats
+    stats = ex.graph_stats["decode"]
     if (stats["captures"], stats["replays"]) != (1, 1):
         raise AssertionError(f"{what}: graph stats {stats}")
 
@@ -4463,7 +4531,7 @@ def phase_graphs_galaxy(torch, card, out):
         raise AssertionError(f"{what}: launches {counts} in {steps} decode steps; want "
                              f"{expect} in {out['stats']['decode_steps']}")
     check_galaxy_paths(ops, what)
-    stats = got["graph_stats"]["target"]
+    stats = got["graph_stats"]["target"]["decode"]
     if (stats["captures"], stats["replays"]) != (1, steps - 1):
         raise AssertionError(f"{what}: graph stats {stats} over {steps} decode steps")
     log("graphs", f"{what}: {n_req} requests' tokens bitwise equal to phase 5's; "
@@ -4509,19 +4577,201 @@ def phase_graphs_dense(torch, card, out):
         raise AssertionError(f"{what}: stats {got['stats']}, phase 11's {out['stats']}")
     check_zoo_flash_counts(ops, None, got, what)
     steps = got["stats"]["decode_steps"]
-    stats = got["graph_stats"]["target"]
+    stats = got["graph_stats"]["target"]["decode"]
     if (stats["captures"], stats["replays"]) != (1, steps - 1):
         raise AssertionError(f"{what}: graph stats {stats} over {steps} decode steps")
+    chunk = got["graph_stats"]["target"]["chunk"]
+    check_chunk_graph_stats(chunk, got["stats"]["prefill_chunks"], what)
+    if chunk["replays"] < 1:
+        raise AssertionError(f"{what}: no chunk was replayed: {chunk}")
     log("graphs", f"{what}: 8 requests' tokens and stats bitwise equal to phase 11's; flash "
-        f"{ops.launch_counts()['flash_attention']} launches, no other kernel; 1 capture "
-        f"({stats['capture_ms']:.1f} ms, pool {stats['pool_bytes']} B), {stats['replays']} "
-        f"replays; {got['new_tokens']} new tokens in {got['seconds']:.2f} s: "
+        f"{ops.launch_counts()['flash_attention']} launches, no other kernel; decode 1 "
+        f"capture ({stats['capture_ms']:.1f} ms, pool {stats['pool_bytes']} B), "
+        f"{stats['replays']} replays; chunks: {got['stats']['prefill_chunks']} in "
+        f"{chunk['shapes']} shapes, {chunk['captures']} captures ({chunk['capture_ms']:.1f} "
+        f"ms, pool {chunk['pool_bytes']} B), {chunk['replays']} replays; "
+        f"{got['new_tokens']} new tokens in {got['seconds']:.2f} s: "
         f"{got['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * got['ttft_p50_s']:.1f} ms (phase "
-        f"11's eager serve {out['tokens_per_s']:.1f} tok/s; not a claim: one serve each) "
-        f"({card})")
+        f"11's eager serve {out['tokens_per_s']:.1f} tok/s, TTFT p50 "
+        f"{1e3 * out['ttft_p50_s']:.1f} ms; not a claim: one serve each) ({card})")
     ex = out["executor"]
     graph_step_check(ex, got["pool"], ex.cfg.vocab_size, torch, card,
                      "StableLM-12B bf16 decode step")
+    for rows, offsets in ((256, (1024, 1157)), (5, (1029, 1500))):
+        graph_chunk_check(ex, got["pool"], rows, offsets, ex.cfg.vocab_size, torch, card,
+                          f"StableLM-12B bf16 {rows}-row chunk")
+
+
+def check_chunk_graph_stats(chunk, calls, what):
+    """A serve's chunk graphs: each shape's first call eager, its second
+    captured, every later one replayed."""
+    if (chunk["replays"] != calls - chunk["shapes"] or chunk["captures"] > chunk["shapes"]
+            or chunk["captures"] < min(1, chunk["replays"])):
+        raise AssertionError(f"{what}: chunk graph stats {chunk} over {calls} chunks")
+
+
+GRAPH_CHUNKS = 3  # timed chunks a block; blocks eager, replay, replay, eager
+
+
+def graph_chunk_check(ex, pool, rows, offsets, vocab, torch, card, what):
+    """One ``rows``-row chunk of ``ex`` at the served geometry (``pool``:
+    the serve's ``PagedKVPool``; pages drawn at random, the block row pages
+    1..W) at the two ``offsets``, beside the eager step on a twin pool: the
+    first call eager (the shape's warm-up), the second captured at the
+    second offset and replayed, the third replayed at the first; logits and
+    pages bitwise equal each time, one capture.  Then the chunk's wall
+    time, host inputs to synced logits, eager against replay in one call
+    (blocks eager, replay, replay, eager, the median of ``GRAPH_CHUNKS``
+    chunks each, the offsets alternating), the replay's device time
+    (events) and the kernel time of one eager and one replayed chunk in
+    the profiler's trace, hence the card's idle share."""
+    import numpy as np
+
+    from repro_torch.serving.graphs import leaves
+
+    w, page = pool.pages_per_slot, pool.page_size
+    if max(offsets) + rows > w * page:
+        raise AssertionError(f"{what}: offsets {offsets} past the block row ({w} x {page})")
+    g = torch.Generator(device="cuda").manual_seed(38)
+    storage = ex.make_pool(1 + w, page)
+    for leaf in leaves(storage):
+        leaf.normal_(generator=g)
+    twin = _clone_tree(storage)
+    row = np.arange(1, 1 + w)
+    tok = np.random.default_rng(38).integers(0, vocab, (1, rows))
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    for off in (offsets[0], offsets[1], offsets[0]):
+        got, _ = ex.prefill_chunk(tok, storage, row, offset=off, length=off + rows)
+        want, _ = eager.prefill_chunk(tok, twin, row, offset=off, length=off + rows)
+        if not torch.equal(got, want) or not all(
+                torch.equal(a, b) for a, b in zip(leaves(storage), leaves(twin))):
+            raise AssertionError(f"{what}: the chunk at offset {off} differs from the eager "
+                                 f"step: logits max diff "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+    stats = ex.graph_stats["chunk"]
+    if (stats["captures"], stats["replays"]) != (1, 2):
+        raise AssertionError(f"{what}: chunk graph stats {stats}")
+
+    def block(run, pool):
+        ts = []
+        for i in range(GRAPH_CHUNKS):
+            off = offsets[i % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = run(tok, pool, row, offset=off, length=off + rows)
+            logits.argmax(-1).cpu()  # the engine's sampling sync
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ts))
+
+    eager_ms = [block(eager.prefill_chunk, twin)]
+    replay_ms = [block(ex.prefill_chunk, storage), block(ex.prefill_chunk, storage)]
+    eager_ms.append(block(eager.prefill_chunk, twin))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(GRAPH_CHUNKS):
+        ex.prefill_chunk(tok, storage, row, offset=offsets[i % 2], length=rows)
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / GRAPH_CHUNKS
+
+    def busy(run, pool):
+        """Kernel time of one chunk in the profiler's trace (ms), or None
+        where the trace holds none."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(tok, pool, row, offset=offsets[0], length=rows)
+            torch.cuda.synchronize()
+        t = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return t or None
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.3f}"
+
+    busy_ms = {"eager": busy(eager.prefill_chunk, twin),
+               "replay": busy(ex.prefill_chunk, storage)}
+    walls = {"eager": float(np.median(eager_ms)), "replay": float(np.median(replay_ms))}
+    idle = {k: "not measured" if v is None else f"{100 * (1 - v / walls[k]):.1f} %"
+            for k, v in busy_ms.items()}
+    stats = ex.graph_stats["chunk"]
+    log("graphs", f"{what}: one capture serves offsets {list(offsets)}, each replay's logits "
+        f"and pages bitwise equal to the eager step's (block row {w} pages of {page}); chunk "
+        f"wall ms eager {eager_ms[0]:.3f} / replay {replay_ms[0]:.3f} / replay "
+        f"{replay_ms[1]:.3f} / eager {eager_ms[1]:.3f} (median of {GRAPH_CHUNKS} each, host "
+        f"inputs to synced logits), replay device {device_ms:.3f} ms a chunk back to back; "
+        f"kernel time of one chunk in the profiler's trace eager {ms(busy_ms['eager'])} / "
+        f"replay {ms(busy_ms['replay'])} ms, so the card idles {idle['eager']} / "
+        f"{idle['replay']} of the chunk's wall; capture {stats['capture_ms']:.1f} ms, graph "
+        f"pool {stats['pool_bytes']} B, allocated after it {stats['allocated_bytes']} B "
+        f"({card})")
+    ex.graphs = False
+    return {"eager_ms": eager_ms, "replay_ms": replay_ms, "replay_device_ms": device_ms,
+            "busy_ms": busy_ms, "capture_ms": stats["capture_ms"],
+            "pool_bytes": stats["pool_bytes"]}
+
+
+def phase_graphs_spec(torch, card, fp16):
+    """Phase 37 (a), Galaxy: phase 14's fp16 spec serve again on its
+    executor and draft with ``graphs=True``: tokens bitwise equal to phase
+    14's, launches exact by ``galaxy_expect``, all on the fast paths; every
+    verify chunk after its row count's second call replayed, the draft's
+    decode step captured once.  Then ``graph_chunk_check`` for a 5-row
+    verify chunk and a 128-row chunk at the serve's geometry."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+
+    what = "GPT2-L fp16 spec serve, graphs on"
+    ex, draft = fp16["executor"], fp16["draft"]
+    ops.reset_launch_counts()
+    got = launch_serve.serve("gpt2-l", (3, 2, 2, 1), executor=ex, dtype="float16",
+                             draft_executor=draft, spec_k=4, graphs=True, **fp16["kw"])
+    torch.cuda.synchronize()
+    if {r.uid: r.output for r in got["requests"]} != {r.uid: r.output for r in fp16["spec"]}:
+        raise AssertionError(f"{what}: served tokens differ from phase 14's eager spec serve")
+    st = got["stats"]
+    if st != fp16["spec_stats"]:
+        raise AssertionError(f"{what}: stats {st}, phase 14's {fp16['spec_stats']}")
+    counts = ops.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(galaxy_expect(st, draft=got["spec"]))
+    if counts != expect:
+        raise AssertionError(f"{what}: launches {counts} != {expect}")
+    check_galaxy_paths(ops, what)
+    graphs = got["graph_stats"]
+    chunk, dstep = graphs["target"]["chunk"], graphs["draft"]["decode"]
+    check_chunk_graph_stats(chunk, st["spec_steps"], what)
+    if graphs["target"]["decode"]["captures"] or chunk["shapes"] > 5:
+        raise AssertionError(f"{what}: target graphs {graphs['target']}")
+    if (dstep["captures"], dstep["replays"]) != (1, got["spec"].steps - 1):
+        raise AssertionError(f"{what}: draft decode graphs {dstep} over "
+                             f"{got['spec'].steps} steps")
+    log("graphs", f"{what}: 4 requests' tokens and stats bitwise equal to phase 14's eager "
+        f"spec serve; launches {', '.join(f'{n} {counts[n]}' for n in GALAXY_KERNELS)} as "
+        f"galaxy_expect says ({st['spec_steps']} verify chunks, draft {got['spec'].prefills} "
+        f"prefills and {got['spec'].steps} steps), on the fast paths; verify chunks in "
+        f"{chunk['shapes']} row counts: {chunk['captures']} captures "
+        f"({chunk['capture_ms']:.1f} ms, pool {chunk['pool_bytes']} B), {chunk['replays']} "
+        f"replays; the draft's decode 1 capture, {dstep['replays']} replays; "
+        f"{got['new_tokens']} new tokens in {got['seconds']:.2f} s: "
+        f"{got['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * got['ttft_p50_s']:.1f} ms (not a "
+        f"claim: one serve) ({card})")
+    ops.reset_launch_counts()
+    for rows, offsets in ((5, (200, 301)), (128, (128, 181))):
+        graph_chunk_check(ex, got["pool"], rows, offsets, ex.embed.shape[0], torch, card,
+                          f"GPT2-L fp16 {rows}-row chunk")
+    # each check: 3 eager and 3 graph-side calls (a warm-up, a capture's
+    # replay, a replay), 2 x GRAPH_CHUNKS eager and 3 x GRAPH_CHUNKS
+    # replayed timed chunks, one eager and one replayed profiled chunk
+    want = 2 * 2304 * (8 + 5 * GRAPH_CHUNKS)
+    n = ops.launch_counts()["tiled_gemm_valid"]
+    if n != want or ops.path_counts()["tiled_gemm_valid"]["fma"]:
+        raise AssertionError(f"{what}: the chunk checks launched {n} GEMMs, want {want} "
+                             "on mma")
+
 
 
 def main() -> int:
@@ -4591,13 +4841,14 @@ def main() -> int:
         fp16 = phase_spec_serve(torch, rec, card)
         local_tokens["spec"] = {r.uid: r.output for r in fp16["spec"]}
         phase_wave_serve(torch, rec, card, fp16)
-        del fp16
         torch.cuda.empty_cache()
         phase_schedules(torch, rec, card)
         torch.cuda.empty_cache()
         qwen_launches = phase_telemetry(torch, rec, card)
     check_logged_calls(calls, rec, torch, card)
     rec["flash_attention"].d["launches"] += qwen_launches
+    phase_graphs_spec(torch, card, fp16)
+    del fp16
     torch.cuda.empty_cache()
 
     phase_zoo_kernels(rec, torch)
@@ -4612,7 +4863,7 @@ def main() -> int:
     del out  # RecurrentGemma's 16 GiB go before StableLM is drawn
     torch.cuda.empty_cache()
 
-    phase_dense_kernels(rec, torch)
+    phase_dense_kernels(rec, torch, card)
     torch.cuda.empty_cache()
     dense_calls = phase_dense_parity(torch)
     torch.cuda.empty_cache()

@@ -117,24 +117,44 @@ class SeqLayout:
         causal = self.valid[None, :] & (pos[None, :] <= pos[:, None])
         return np.where(self.valid[:, None], causal, True)
 
+    def on(self, what: str, device) -> torch.Tensor:
+        """``rows`` or ``attention_mask()`` (``what``: "rows", "mask") on
+        ``device``: copied from the host on the first call for a (layout,
+        device) and kept, so a later call (a captured CUDA graph's step)
+        builds nothing from host data."""
+        return _layout_tensor(self.tiles, what, str(torch.device(device)))
+
     def scatter(self, x: torch.Tensor) -> torch.Tensor:
         """(B, seq, ...) real layout -> (B, padded_len, ...) padded layout
         (pad rows zero).  Identity for dense layouts."""
         if self.is_dense:
             return x
         out = x.new_zeros((x.shape[0], self.padded_len, *x.shape[2:]))
-        out[:, torch.as_tensor(self.rows, device=x.device)] = x
+        out[:, self.on("rows", x.device)] = x
         return out
 
     def gather(self, y: torch.Tensor) -> torch.Tensor:
         """(B, padded_len, ...) padded layout -> (B, seq, ...) real layout."""
         if self.is_dense:
             return y
-        return y[:, torch.as_tensor(self.rows, device=y.device)]
+        return y[:, self.on("rows", y.device)]
 
     def padding_waste(self) -> float:
         """Fraction of executed sequence rows that are pad."""
         return 1.0 - self.seq / self.padded_len
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_tensor(tiles: Tuple[int, ...], what: str, device: str) -> torch.Tensor:
+    """:meth:`SeqLayout.on`'s cache: one tensor a (layout, what, device),
+    never dropped (a captured graph may read it for as long as it lives; a
+    run has a few chunk shapes)."""
+    layout = SeqLayout(tiles)
+    if what == "rows":
+        return torch.as_tensor(layout.rows, device=device)
+    if what == "mask":
+        return torch.as_tensor(layout.attention_mask(), device=device)
+    raise ValueError(f"a layout tensor is 'rows' or 'mask', not {what!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -269,21 +269,22 @@ def _local_mask(layout: Optional[SeqLayout], s: int, device) -> torch.Tensor:
     """(s, s) causal mask of a chunk's own rows: the ragged layout's
     padded-domain causality, or the plain triangle for a dense one."""
     if layout is not None:
-        return torch.as_tensor(layout.attention_mask(), device=device)
+        return layout.on("mask", device)
     return torch.ones((s, s), dtype=torch.bool, device=device).tril()
 
 
-def _ctx_attention(q, k, v, ctx_k, ctx_v, offset: int, local_mask):
+def _ctx_attention(q, k, v, ctx_k, ctx_v, offset, local_mask):
     """Chunked-prefill attention: the chunk's queries attend to context
     keys at absolute positions below ``offset`` (shared prefix pages and
     earlier chunks) plus the chunk's own K/V under ``local_mask``.
 
     q, k, v: (1, S, H, hd); ctx_k, ctx_v: (T, H, hd) gathered over absolute
-    positions [0, T).  Positions ``>= offset`` of the context are masked,
-    so stale rows contribute exact zeros after the softmax and the chunk's
-    own keys enter once, from the fresh K/V.  Every context key precedes
-    every real chunk query (ctx_pos < offset <= q_pos), so the local part
-    keeps the chunk's relative causality."""
+    positions [0, T); ``offset`` a host int or a 0-dim tensor on the
+    device (compared there).  Positions ``>= offset`` of the context are
+    masked, so stale rows contribute exact zeros after the softmax and the
+    chunk's own keys enter once, from the fresh K/V.  Every context key
+    precedes every real chunk query (ctx_pos < offset <= q_pos), so the
+    local part keeps the chunk's relative causality."""
     s, t = q.shape[1], ctx_k.shape[0]
     ctx_mask = (torch.arange(t, device=q.device) < offset)[None, :].expand(s, t)
     mask = torch.cat([ctx_mask, local_mask], dim=1)
@@ -326,7 +327,7 @@ def _hmp_layer_body(ps: List[Dict], xs: List[torch.Tensor], ring: Ring, *,
     if ctx is not None:
         attn_mask = _local_mask(layout, d * s_loc, xs[0].device)
     elif layout is not None and computes is None:
-        attn_mask = torch.as_tensor(layout.attention_mask(), device=xs[0].device)
+        attn_mask = layout.on("mask", xs[0].device)
 
     def sched(name):
         return base.with_gemm(_hook(computes, name))
@@ -434,7 +435,7 @@ def make_kv_cache(batch: int, cache_len: int, num_layers: int, plan: ExecPlan, *
 
 def hmp_prefill(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
                 plan: ExecPlan, overlap: bool = False, seq: Optional[int] = None,
-                block_row=None, offset: Optional[int] = None):
+                block_row=None, offset=None):
     """Run a stack of HMP layers over a prompt, writing its K/V into the
     cache at absolute positions.
 
@@ -447,7 +448,9 @@ def hmp_prefill(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
       straight into pages (batch 1).
     * ``offset=`` — chunked / suffix-only prefill (paged only): ``x`` is one
       chunk at absolute positions [offset, offset + seq), attending back to
-      every written position below ``offset``.
+      every written position below ``offset``; a host int, or a 0-dim
+      tensor on the device, the reference's traced scalar (one captured
+      program for every offset; the caller checks the bounds).
 
     Pad rows of a ragged layout never touch the cache; bucket-padding
     positions past the real prompt write zero-token K/V that decode
@@ -467,7 +470,7 @@ def _prefill_dense(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
                    plan: ExecPlan, overlap: bool, seq: Optional[int]):
     layout = _resolve_layout(plan, ring, x, seq)
     s = x.shape[1] if layout is None else layout.seq
-    rows = None if layout is None else torch.as_tensor(layout.rows, device=x.device)
+    rows = None if layout is None else layout.on("rows", x.device)
     xs = _split_seq(x, ring)
     for p, c in zip(layers, cache):
         xs, ks, vs = _hmp_layer_body(_as_shards(plan, p, ring), xs, ring, plan=plan,
@@ -482,42 +485,50 @@ def _prefill_dense(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
 
 def _prefill_paged(layers: Sequence, x, ring: Ring, pages: List[Dict],
                    block_row, *, plan: ExecPlan, overlap: bool,
-                   seq: Optional[int], offset: Optional[int]):
+                   seq: Optional[int], offset):
     """Paged-pool prefill (see ``hmp_prefill``).  With ``offset`` each
-    layer first gathers every held device's context K/V from its own pool shard
-    (the pages below the offset, only the device's valid head slots), then
-    runs the chunk, then scatters the chunk's K/V: the gather comes before
-    the scatter, so the chunk's own keys enter the attention once."""
+    layer first gathers every held device's context K/V from its own pool
+    shard (the whole block row, only the device's valid head slots, as the
+    reference gathers it; positions from the offset on are masked in
+    ``_ctx_attention``), then runs the chunk, then scatters the chunk's
+    K/V: the gather comes before the scatter, so the chunk's own keys
+    enter the attention once.
+
+    ``offset`` is a host int, checked here, or a 0-dim integer tensor on
+    the device, which nothing here reads on the host: one program then
+    serves every offset, and the caller checks ``offset + S <= W x page``
+    (``serving/galaxy.py:prefill_chunk``)."""
     if x.shape[0] != 1:
         raise ValueError("paged prefill is per-request: batch must be 1")
     layout = _resolve_layout(plan, ring, x, seq)
     s = x.shape[1] if layout is None else layout.seq
     page_size = pages[0]["k"][0].shape[1]
     block_row = torch.as_tensor(block_row, device=x.device).long()
-    base = 0 if offset is None else int(offset)
-    if base < 0:
-        raise ValueError(f"offset must be >= 0, got {base}")
-    if base + s > block_row.shape[0] * page_size:
-        raise ValueError(
-            f"positions [{base}, {base + s}) exceed the block row "
-            f"({block_row.shape[0]} pages x {page_size})"
-        )
+    base = 0 if offset is None else offset
+    if not isinstance(base, torch.Tensor):
+        base = int(base)
+        if base < 0:
+            raise ValueError(f"offset must be >= 0, got {base}")
+        if base + s > block_row.shape[0] * page_size:
+            raise ValueError(
+                f"positions [{base}, {base + s}) exceed the block row "
+                f"({block_row.shape[0]} pages x {page_size})"
+            )
     pos = base + torch.arange(s, device=x.device)
     phys = block_row[pos // page_size]
     within = pos % page_size
-    rows = None if layout is None else torch.as_tensor(layout.rows, device=x.device)
+    rows = None if layout is None else layout.on("rows", x.device)
     if offset is not None:
-        # context: the pages holding positions [0, offset); later positions
-        # of the last one are masked in _ctx_attention
-        ctx_row = block_row[None, :-(-base // page_size)]
         head_ok = [torch.arange(plan.pad_heads, device=x.device) < plan.heads[i]
                    for i in ring.devices]
     xs = _split_seq(x, ring)
     for p, c in zip(layers, pages):
         ctx = None
         if offset is not None:
-            ctx = ([_paged_kv_gather(k, ctx_row, ok)[0] for k, ok in zip(c["k"], head_ok)],
-                   [_paged_kv_gather(v, ctx_row, ok)[0] for v, ok in zip(c["v"], head_ok)],
+            ctx = ([_paged_kv_gather(k, block_row[None], ok)[0]
+                    for k, ok in zip(c["k"], head_ok)],
+                   [_paged_kv_gather(v, block_row[None], ok)[0]
+                    for v, ok in zip(c["v"], head_ok)],
                    base)
         xs, ks, vs = _hmp_layer_body(_as_shards(plan, p, ring), xs, ring, plan=plan,
                                      overlap=overlap, layout=layout, ctx=ctx)

@@ -8,7 +8,12 @@
 // r + Sk - Sq.  A key at position t is visible to a query at position p
 // iff t <= p (causal) and t > p - window (window > 0).  Softmax is online
 // in fp32; the output is written in q's dtype.  Any Sq <= Sk (tails are
-// masked) and any hd <= 256.
+// masked) and any hd <= 256.  An optional kv_len (B,), read on the device,
+// gives batch entry b only the keys [0, kv_len[b]), its queries right-
+// aligned to those: a chunk at a device-held offset over the whole gathered
+// row of pages, so one captured launch serves every offset (the reference
+// traces the offset as a scalar).  The call is then, bit for bit, the call
+// on the keys sliced to kv_len[b].
 //
 // What bounds it on the H100: operations.  RecurrentGemma-9B's prefill (B
 // 2, H 16, Hkv 1, S 2100, hd 256, window 2048) holds 2.2e6 visible (query,
@@ -82,6 +87,14 @@ struct Strides {  // element strides over (batch, row, head); the head dim is un
   long long b, s, h;
 };
 
+// The keys batch entry b attends to: kv_len[b] (read on the device, so a
+// captured launch serves every chunk offset), or all sk_max without it.
+// Everything after reads only this count, so a call with kv_len[b] = n
+// computes what a call on the keys sliced to n computes, bit for bit.
+__device__ __forceinline__ int keys_of(const int* kv_len, int b, int sk_max) {
+  return kv_len == nullptr ? sk_max : min(max(kv_len[b], 0), sk_max);
+}
+
 template <int HD>
 constexpr size_t smem_bytes() {
   // Qs[BQ][HD+1], Ks[BK][HD+1], Vs[BK][HD], Ps[BQ][BK+1], then the
@@ -93,11 +106,13 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int sk, int hd, int group, int causal,
-    int window, Strides qs, Strides ks, Strides vs, Strides os, float scale) {
+    T* __restrict__ out, const int* __restrict__ kv_len, int sk_max, int sq, int hd,
+    int group, int causal, int window, Strides qs, Strides ks, Strides vs, Strides os,
+    float scale) {
   constexpr int CPT = HD / 16;  // output columns per thread
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int sk = keys_of(kv_len, b, sk_max);
   const int q0 = qb * BQ;
   const int off = sk - sq;  // position of query row r is r + off
   const int kvh = h / group;
@@ -260,8 +275,9 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
 }
 
 template <typename T, int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
-                int h, int sq, int sk, int hd, int group, int causal, int window,
+int launch_simt(const void* q, const void* k, const void* v, void* out,
+                const int* kv_len, int b, int h, int sq, int sk, int hd, int group,
+                int causal, int window,
                 Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;
@@ -275,7 +291,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
   flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, hd, group,
+      static_cast<const T*>(v), static_cast<T*>(out), kv_len, sk, sq, hd, group,
       causal, window, qs, ks, vs, os, 1.f / sqrtf(static_cast<float>(hd)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -301,14 +317,16 @@ constexpr size_t mma_smem_bytes() {
 template <typename T, int HDP>
 __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int sk, int hd, int group, int causal,
-    int window, Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
+    T* __restrict__ out, const int* __restrict__ kv_len, int sk_max, int sq, int hd,
+    int group, int causal, int window, Strides qs, Strides ks, Strides vs, Strides os,
+    float scale_log2) {
   using namespace flash_mma;
   constexpr int BK = MmaCfg<HDP>::BK;
   constexpr int STAGES = MmaCfg<HDP>::STAGES;
   constexpr int P = pitch<HDP>();
   const int qb = gridDim.x - 1 - blockIdx.x;  // the longest key ranges first
   const int h = blockIdx.y, b = blockIdx.z;
+  const int sk = keys_of(kv_len, b, sk_max);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = qb * MMA_BQ;
   const int off = sk - sq;  // position of query row r is r + off
@@ -403,8 +421,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) flash_mma_kernel(
 }
 
 template <typename T, int HDP>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
-               int h, int sq, int sk, int hd, int group, int causal, int window,
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               const int* kv_len, int b, int h, int sq, int sk, int hd, int group,
+               int causal, int window,
                Strides qs, Strides ks, Strides vs, Strides os, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HDP>();
   static bool configured = false;
@@ -418,7 +437,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + MMA_BQ - 1) / MMA_BQ, h, b);
   flash_mma_kernel<T, HDP><<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, hd, group,
+      static_cast<const T*>(v), static_cast<T*>(out), kv_len, sk, sq, hd, group,
       causal, window, qs, ks, vs, os,
       flash_mma::LOG2E / sqrtf(static_cast<float>(hd)));
   return static_cast<int>(cudaGetLastError());
@@ -426,21 +445,21 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
 
 template <typename T>
 int dispatch_mma(int hdp, const void* q, const void* k, const void* v, void* out,
-                 int b, int h, int sq, int sk, int hd, int group, int causal,
-                 int window, Strides qs, Strides ks, Strides vs, Strides os,
+                 const int* kv_len, int b, int h, int sq, int sk, int hd, int group,
+                 int causal, int window, Strides qs, Strides ks, Strides vs, Strides os,
                  cudaStream_t stream) {
   switch (hdp) {
     case 64:
-      return launch_mma<T, 64>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_mma<T, 64>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                window, qs, ks, vs, os, stream);
     case 128:
-      return launch_mma<T, 128>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_mma<T, 128>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                 window, qs, ks, vs, os, stream);
     case 160:
-      return launch_mma<T, 160>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_mma<T, 160>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                 window, qs, ks, vs, os, stream);
     case 256:
-      return launch_mma<T, 256>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_mma<T, 256>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                 window, qs, ks, vs, os, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -458,18 +477,18 @@ int mma_block_k(int hdp) {
 }
 
 int dispatch_simt(int hdp, const void* q, const void* k, const void* v, void* out,
-                  int b, int h, int sq, int sk, int hd, int group, int causal,
-                  int window, Strides qs, Strides ks, Strides vs, Strides os,
+                  const int* kv_len, int b, int h, int sq, int sk, int hd, int group,
+                  int causal, int window, Strides qs, Strides ks, Strides vs, Strides os,
                   cudaStream_t stream) {
   switch (hdp) {
     case 64:
-      return launch_simt<float, 64>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_simt<float, 64>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                     window, qs, ks, vs, os, stream);
     case 128:
-      return launch_simt<float, 128>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_simt<float, 128>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                      window, qs, ks, vs, os, stream);
     case 256:
-      return launch_simt<float, 256>(q, k, v, out, b, h, sq, sk, hd, group, causal,
+      return launch_simt<float, 256>(q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                      window, qs, ks, vs, os, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -483,12 +502,15 @@ int dispatch_simt(int hdp, const void* q, const void* k, const void* v, void* ou
 // key block holds at that path and instantiation (simt 64; mma 64, 32 at
 // 256).  q, out: (B, H, Sq,
 // hd) and k, v: (B, Hkv, Sk, hd), each addressed through its (batch, row,
-// head) element strides with a unit-stride head dim.  causal: 0/1;
-// window: 0 = none.  Returns cudaGetLastError() after launch.
+// head) element strides with a unit-stride head dim.  kv_len: null, or
+// (B,) int32 on the device: batch entry b sees keys [0, kv_len[b]) only,
+// its query row r at position r + kv_len[b] - Sq (the wrapper reads none
+// of it; values are clamped to [0, Sk]).  causal: 0/1; window: 0 = none.
+// Returns cudaGetLastError() after launch.
 extern "C" int flash_attention(
     int dtype, int hdp, int q_tiles, int block_k, const void* q, const void* k,
-    const void* v, void* out, int b, int h, int hkv, int sq, int sk, int hd,
-    int causal, int window, long long q_sb, long long q_ss, long long q_sh,
+    const void* v, void* out, const void* kv_len_ptr, int b, int h, int hkv, int sq,
+    int sk, int hd, int causal, int window, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, void* stream) {
@@ -501,14 +523,15 @@ extern "C" int flash_attention(
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int group = h / hkv;
+  const int* kv_len = static_cast<const int*>(kv_len_ptr);
   if (dtype == 0)
-    return dispatch_simt(hdp, q, k, v, out, b, h, sq, sk, hd, group, causal,
+    return dispatch_simt(hdp, q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                          window, qs, ks, vs, os, st);
   if (dtype == 1)
-    return dispatch_mma<__nv_bfloat16>(hdp, q, k, v, out, b, h, sq, sk, hd, group,
+    return dispatch_mma<__nv_bfloat16>(hdp, q, k, v, out, kv_len, b, h, sq, sk, hd, group,
                                        causal, window, qs, ks, vs, os, st);
   if (dtype == 2)
-    return dispatch_mma<__half>(hdp, q, k, v, out, b, h, sq, sk, hd, group, causal,
+    return dispatch_mma<__half>(hdp, q, k, v, out, kv_len, b, h, sq, sk, hd, group, causal,
                                 window, qs, ks, vs, os, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

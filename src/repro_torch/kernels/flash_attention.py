@@ -64,7 +64,7 @@ RAGGED_TILES = {"mma": (32, 64), "simt": (64, 64)}
 
 _DENSE_SIGNATURES = {
     "flash_attention": (ctypes.c_int, [
-        *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 8,
+        *[ctypes.c_int] * 4, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 8,
         *[ctypes.c_longlong] * 12, ctypes.c_void_p,
     ]),
 }
@@ -135,40 +135,52 @@ def dense_key_blocks(q_tile: int, sq: int, sk: int, *, causal: bool, window: int
     return range(k_lo // block_k, k_hi // block_k + 1)
 
 
-def _probs(qg, k, *, causal: bool, window: int):
+def _probs(qg, k, *, causal: bool, window: int, kv_len=None):
     """fp32 softmax(q k^T / sqrt(hd)) under the dense kernel's mask: q
     grouped (B, Hkv, g, Sq, hd), k (B, Hkv, Sk, hd) -> (B, Hkv, g, Sq,
-    Sk), queries right-aligned to the keys."""
+    Sk), queries right-aligned to the keys, or with ``kv_len`` (B,) to
+    batch entry b's first ``kv_len[b]`` keys (the rest masked)."""
     sq, hd = qg.shape[-2:]
     sk = k.shape[2]
     scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / hd ** 0.5
     q_pos = torch.arange(sq, device=qg.device)[:, None] + (sk - sq)
     k_pos = torch.arange(sk, device=qg.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=qg.device)
+    if kv_len is not None:
+        # per batch entry: (B, Sq, Sk)
+        n = kv_len.to(qg.device, torch.int64)[:, None, None]
+        q_pos = q_pos + (n - sk)
+        mask = mask & (k_pos < n)
     if causal:
-        mask &= k_pos <= q_pos
+        mask = mask & (k_pos <= q_pos)
     if window > 0:
-        mask &= k_pos > q_pos - window
+        mask = mask & (k_pos > q_pos - window)
+    if kv_len is not None:
+        mask = mask[:, None, None]  # against the grouped (B, Hkv, g, Sq, Sk) scores
     scores = torch.where(mask, scores, torch.full((), NEG_INF, device=qg.device))
     return torch.softmax(scores, dim=-1)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          chunk: int = 0):
+                          chunk: int = 0, kv_len=None):
     """Plain PyTorch version of :func:`flash_attention`: fp32 scores,
     softmax and PV over the whole masked score matrix, output in
     ``q.dtype``.  ``chunk > 0`` runs the queries ``chunk`` rows at a
     time against the keys up to the chunk's last position (queries stay
     right-aligned), so the live score buffer is (B, H, chunk, Sk) at most:
     the same numbers, the reference's query-chunked attention (causal
-    only; ``chunk`` is ignored otherwise)."""
+    only; ``chunk`` is ignored otherwise).  ``kv_len`` as the kernel's
+    (not with ``chunk``)."""
     b, h, sq, hd = q.shape
+    if kv_len is not None and 0 < chunk < sq and causal:
+        raise ValueError("kv_len is a serving chunk's key count; it takes no query chunk")
     if 0 < chunk < sq and causal:
         return torch.cat([flash_attention_plain(q[:, :, lo:hi], *_chunk_keys(k, v, hi, sq),
                                                 causal=causal, window=window)
                           for lo, hi in _chunks(sq, chunk)], dim=2)
     hkv = k.shape[1]
-    p = _probs(q.float().reshape(b, hkv, h // hkv, sq, hd), k, causal=causal, window=window)
+    p = _probs(q.float().reshape(b, hkv, h // hkv, sq, hd), k, causal=causal, window=window,
+               kv_len=kv_len)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return out.reshape(b, h, sq, hd).to(q.dtype)
 
@@ -257,7 +269,7 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, kv_len=None):
     """Dense flash attention with causal and sliding-window masks.
 
     q: (B, H, Sq, hd); k, v: (B, Hkv, Sk, hd) with H % Hkv == 0 and
@@ -265,8 +277,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     transposed views of its (B, S, H, hd) projections, so nothing is
     copied).  Query row r sits at position r + Sk - Sq; a key at t is
     visible to a query at p iff t <= p (causal) and t > p - window
-    (window > 0).  Returns (B, H, Sq, hd) in ``q.dtype`` whose memory is
-    laid out (B, Sq, H, hd).
+    (window > 0).  ``kv_len``: None, or an int32 tensor (B,) on q's
+    device with Sq <= kv_len[b] <= Sk: batch entry b then sees only keys
+    ``[0, kv_len[b])`` and its query row r sits at ``r + kv_len[b] - Sq``,
+    bit for bit the call on keys sliced to ``kv_len[b]``.  The kernel
+    reads it on the device and nothing here reads its values, so a
+    captured launch serves every chunk offset.  Returns (B, H, Sq, hd) in
+    ``q.dtype`` whose memory is laid out (B, Sq, H, hd).
     """
     b, h, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -277,8 +294,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"{sq} queries right-aligned to {sk} keys: need Sq <= Sk")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if kv_len is not None and (kv_len.shape != (b,) or kv_len.device != q.device):
+        raise ValueError(f"kv_len must be ({b},) on {q.device}, got "
+                         f"{tuple(kv_len.shape)} on {kv_len.device}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -288,13 +308,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     hdp = head_dim_instance(hd, path)
     grid = attention_grid(b, h, sq, path)
     bk = attention_tiles(path, hdp)[1]
+    if kv_len is not None and (kv_len.dtype != torch.int32 or not kv_len.is_contiguous()):
+        raise ValueError("the flash_attention kernel takes kv_len as contiguous int32")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load("flash_attention", _DENSE_SIGNATURES)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
     err = lib.flash_attention(
         _DTYPES[q.dtype], hdp, grid[0], bk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, h, hkv, sq, sk, hd, int(bool(causal)), int(window),
+        out.data_ptr(), None if kv_len is None else kv_len.data_ptr(), b, h, hkv, sq, sk,
+        hd, int(bool(causal)), int(window),
         *strides, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1

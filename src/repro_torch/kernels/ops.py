@@ -69,9 +69,10 @@ def reset_launch_counts() -> None:
 
 #: the kernel-backend calls of :func:`flash_attention` and :func:`rglru_scan`
 #: since the last :func:`reset_call_log`, counted by signature: for
-#: attention the shapes and strides of q, k and v, the dtype and the masks;
-#: for the scan the shape of ``a`` and the dtypes of ``a`` and ``h0``.
-#: Enough to replay each distinct call against its plain version.
+#: attention the shapes and strides of q, k and v, the dtype, the masks
+#: and whether a ``kv_len`` was given; for the scan the shape of ``a`` and
+#: the dtypes of ``a`` and ``h0``.  Enough to replay each distinct call
+#: against its plain version.
 CALLS = {"flash_attention": Counter(), "rglru_scan": Counter()}
 
 
@@ -170,18 +171,21 @@ def connective(x, res, scale, bias):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    backend: str = "kernel"):
+                    backend: str = "kernel", kv_len=None):
     """Dense attention, q (B, H, Sq, hd) against k/v (B, Hkv, Sk, hd), with
     causal and sliding-window masks: the flash kernel, or its plain
-    version on ``backend="eager"``."""
+    version on ``backend="eager"``.  ``kv_len`` (B,) int32 on the device:
+    each batch entry's key count, a serving chunk's end (no gradient)."""
     _check_backend(backend)
     if backend == "eager":
-        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                            kv_len=kv_len)
     CALLS["flash_attention"][(tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
-                              v.stride(), _dtype(q), bool(causal), int(window))] += 1
-    if _needs_grad(q, k, v):
+                              v.stride(), _dtype(q), bool(causal), int(window),
+                              kv_len is not None)] += 1
+    if kv_len is None and _needs_grad(q, k, v):
         return _flash.FlashAttentionFn.apply(q, k, v, causal, window)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
 
 
 def rglru_scan(a, b, h0, *, backend: str = "kernel"):

@@ -105,8 +105,8 @@ def main(argv=None) -> int:
 
             def run():
                 build.check(fn(fa._DTYPES[q.dtype], hdp, grid[0], bk, q.data_ptr(),
-                               k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, sq,
-                               sk, hd, int(causal), window, *strides, stream), name)
+                               k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, h, hkv,
+                               sq, sk, hd, int(causal), window, *strides, stream), name)
             res[f"{key}/{name}"] = round(time_ms(run, args.iters), 4)
     print(card)
     print(json.dumps({"ms": res}))

@@ -110,11 +110,15 @@ and, on the continuous scheduler, its pool's pages and the bytes it
 holds of them.
 
 ``--cuda-graphs`` replays each paged decode step of the served model (and
-of the draft) as one captured CUDA graph (``serving/graphs.py``, the
-reference's jitted decode step; off by default): one capture a serve,
-then a replay a step, the same tokens as without it.  The serve line
-adds ``graph_stats`` (captures, replays, capture ms, the graph pool's
-bytes) for the served model and the draft.  Only one process on the card
+of the draft) and each of its prefill chunks (prefix-hit suffixes, chunks
+of ``--prefill-chunk``, speculative verify chunks) as captured CUDA
+graphs, one a step shape (``serving/graphs.py``, the reference's jitted
+decode step and per-chunk-shape prefill; off by default): the decode
+step is captured on its first call, a chunk shape on its second (its
+first runs eagerly) and replayed at any offset after; the same tokens as
+without it.  The serve line adds ``graph_stats`` (captures, replays,
+capture ms, the graph pools' bytes, for ``decode`` and ``chunk``) for
+the served model and the draft.  Only one process on the card
 is captured: ``--cuda-graphs`` is refused with ``--ranks`` above 1 and
 with ``--device cpu``.
 
@@ -377,12 +381,13 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     with the same arguments, and only the rank of the draft's device
     builds ``draft_model``.  ``graphs`` sets the executor's and the
     draft's ``graphs`` (a taken executor's too): each paged decode step
-    replays one captured CUDA graph; ``"graph_stats"`` holds the run's
+    and each prefill chunk replays a captured CUDA graph of its shape;
+    ``"graph_stats"`` holds the run's
     (``{"target": ..., "draft": ...}``, None where off)."""
     dev = resolve_device(device)
     if graphs and (ring is not None or dev.type != "cuda"):
         where = "across ranks" if ring is not None else f"on {dev.type}"
-        raise ValueError("graphs=True captures one process's decode step on the card, "
+        raise ValueError("graphs=True captures one process's steps on the card, "
                          f"not {where}")  # checked before any weight is drawn
     if compute_backend != "kernel" and executor_kind != "galaxy":
         raise ValueError("compute_backend selects the Galaxy executor's per-shard compute; "
@@ -495,7 +500,7 @@ def write_report(directory: str, out: Dict, rank: int) -> None:
     and the mesh collectives it staged through host memory (calls and
     bytes sent, by collective), the zoo kernels' distinct calls
     (``kernels/ops.call_log``), the continuous scheduler's pool
-    (``pool_report``) and the captured decode steps' ``graph_stats``."""
+    (``pool_report``) and the captured steps' ``graph_stats``."""
     ex = out["executor"]
     ring = getattr(ex, "ring", None)
     spec = out["spec"]
@@ -691,16 +696,17 @@ def main(argv=None):
                          "launches and paths, engine stats, ring hops; weights, peak "
                          "memory, staged collectives and (zoo) distinct kernel calls")
     ap.add_argument("--cuda-graphs", action="store_true",
-                    help="replay each paged decode step (the served model's and the "
-                         "draft's) as one captured CUDA graph; one process on the card")
+                    help="replay each paged decode step and prefill chunk (the served "
+                         "model's and the draft's) as a captured CUDA graph of its "
+                         "shape; one process on the card")
     rank_procs.add_rank_args(ap)
     args = ap.parse_args(argv)
     if args.cuda_graphs and args.ranks > 1:
-        raise SystemExit(f"--cuda-graphs captures one process's decode step; --ranks "
+        raise SystemExit(f"--cuda-graphs captures one process's steps; --ranks "
                          f"{args.ranks} hops through the host between ranks, which a "
                          "CUDA graph cannot hold")
     if args.cuda_graphs and args.device == "cpu":
-        raise SystemExit("--cuda-graphs needs the card: --device cpu runs each decode "
+        raise SystemExit("--cuda-graphs needs the card: --device cpu runs each "
                          "step eagerly")
     capacities = [float(c) for c in args.capacities.split(",")]
     sched = scheduling_kwargs(args)

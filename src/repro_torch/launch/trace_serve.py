@@ -13,7 +13,9 @@
       --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 Builds the same executor as ``launch.serve`` (random weights from
-``--seed``) and serves the same requests three times: once to build and
+``--seed``; ``--cuda-graphs`` as there: the decode steps and prefill
+chunks replayed as captured CUDA graphs, which every serve captures anew
+on its new pool) and serves the same requests three times: once to build and
 warm the kernels, once unprofiled for the wall time, and once under the
 profiler for the device time by kernel.  Prints the wall times, the
 device-busy time and its share of each wall time, the kernels that took
@@ -48,17 +50,18 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           prompt_lens: Optional[Sequence[int]] = None,
           max_new: int = 8, max_batch: int = 4, device=None,
           dtype: Optional[str] = None, seed: int = 1, reduce: bool = False,
-          **scheduling) -> Dict:
+          graphs: bool = False, **scheduling) -> Dict:
     """Serve warm, then unprofiled, then profiled; return the wall times,
     device-busy ms, the profiler's device-side events and the unprofiled
-    run's engine stats.  ``scheduling`` takes ``serve``'s scheduler,
-    page-size, prefix-cache, prefill-chunk, shared-prefix, temperature and
-    draft arguments."""
+    run's engine stats and graph stats.  ``scheduling`` takes ``serve``'s
+    scheduler, page-size, prefix-cache, prefill-chunk, shared-prefix,
+    temperature and draft arguments; ``graphs`` is ``serve``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(executor_kind=executor_kind, requests=requests, prompt_len=prompt_len,
               prompt_lens=prompt_lens, max_new=max_new, max_batch=max_batch,
-              device=device, dtype=dtype, seed=seed, reduce=reduce, **scheduling)
+              device=device, dtype=dtype, seed=seed, reduce=reduce, graphs=graphs,
+              **scheduling)
     warm = serve(model, capacities, **kw)
     kw.update(executor=warm["executor"], draft_executor=warm["draft_executor"])
     plain = serve(model, capacities, **kw)
@@ -79,6 +82,7 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "kernels": sorted(kernels, key=lambda e: -e.device_time_total),
         "ops": sorted(ops, key=lambda e: -e.self_device_time_total),
         "stats": plain["stats"],
+        "graph_stats": plain["graph_stats"],
         "ttft_p50_ms": 1e3 * plain["ttft_p50_s"],
     }
 
@@ -104,16 +108,24 @@ def main(argv=None):
                     help="the model's small variant (configs.reduced), e.g. on the CPU")
     ap.add_argument("--top", type=int, default=10,
                     help="kernels and operators to list, by device time")
+    ap.add_argument("--cuda-graphs", action="store_true",
+                    help="as launch.serve's: decode steps and prefill chunks replayed as "
+                         "captured CUDA graphs; on the card")
     add_scheduling_args(ap)
     args = ap.parse_args(argv)
+    if args.cuda_graphs and args.device == "cpu":
+        raise SystemExit("--cuda-graphs needs the card: --device cpu runs each step "
+                         "eagerly")
     out = trace(args.model, [float(c) for c in args.capacities.split(",")],
                 executor_kind=args.executor, requests=args.requests,
                 prompt_len=args.prompt_len, prompt_lens=args.prompt_lens,
                 max_new=args.max_new, max_batch=args.max_batch,
                 device=args.device, dtype=args.dtype, seed=args.seed,
-                reduce=args.reduce, **scheduling_kwargs(args))
+                reduce=args.reduce, graphs=args.cuda_graphs, **scheduling_kwargs(args))
     print(out["plan"])
     print(f"unprofiled run: TTFT p50 {out['ttft_p50_ms']:.1f} ms; stats {out['stats']}")
+    if args.cuda_graphs:
+        print(f"unprofiled run's graphs: {out['graph_stats']}")
     kernels, busy = out["kernels"], out["busy_ms"]
     n_req = len(args.prompt_lens) if args.prompt_lens else args.requests
     head = (f"{n_req} requests x {args.max_new} tokens: wall "

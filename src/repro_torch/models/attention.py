@@ -14,7 +14,11 @@ prefix-hit suffixes) writes the chunk's K/V at ``[offset, offset + S)`` of
 the gathered cache view and runs the same flash kernel over keys ``[0,
 offset + S)``: the kernel right-aligns the queries to the keys, so chunk
 row ``j`` sits at position ``offset + j``, which is the reference's mask.
-Rows of the view past the chunk (stale pages) are never read.
+Rows of the view past the chunk (stale pages) are never read.  With the
+offset a host int the keys are sliced there; with a 0-dim tensor on the
+device (one process) the kernel takes the whole view and its ``kv_len``,
+offset + S, and reads the cut on the device, so one captured program
+serves every offset, as the reference's traced scalar does.
 
 Caches are updated in place (the engine owns one cache per wave, and the
 paged executor one gathered view per call) and returned.
@@ -174,12 +178,20 @@ def _decode_attention(q, k_cache, v_cache, mask):
     return from_local(out, q.device_mesh, q.placements, q.shape)
 
 
-def _attention(q, k, v, *, causal: bool, window: int, backend: str, chunk: int = 0):
+def _attention(q, k, v, *, causal: bool, window: int, backend: str, chunk: int = 0,
+               kv_len=None):
     """Attention on (B, H, S, hd) views: ``ops.flash_attention``, or under a
     mesh (either backend), a dry-run counter or a query ``chunk`` on the
     eager backend, attention on local shards (:class:`_LocalAttentionFn`:
     the flash kernel on each rank's shards on the kernel backend, the plain
-    attention on the eager one)."""
+    attention on the eager one).  ``kv_len`` (a chunk at a device offset,
+    one process) goes to ``ops.flash_attention``."""
+    if kv_len is not None:
+        if mesh_active():
+            raise ValueError("a chunk at a device offset runs on one process; under "
+                             "the sharding rules the offset is a host int")
+        return ops.flash_attention(q, k, v, causal=causal, window=window, backend=backend,
+                                   kv_len=kv_len)
     if mesh_active() or (backend == "eager" and (chunk or counter.active() is not None)):
         from torch.distributed.tensor import DTensor
 
@@ -310,7 +322,9 @@ def self_attention_block(
     write position, a host int (lockstep batch) or a (B,) tensor of
     per-slot depths.  In prefill, None is the one-shot path and a host
     int ``offset`` selects chunked prefill: the chunk is written at
-    ``[offset, offset + S)`` and attends to every position before it.
+    ``[offset, offset + S)`` and attends to every position before it; a
+    0-dim tensor ``offset`` on the device does the same over the whole
+    cache view, reading nothing on the host (one process, no mesh).
 
     ``cfg.attn_chunk`` (train and one-shot prefill of more than
     ``attn_chunk`` rows, a multiple of it) is the reference's query-chunked
@@ -336,7 +350,22 @@ def self_attention_block(
         k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if chunked:
+    if chunked and isinstance(cache_index, torch.Tensor):
+        # the offset on the device (one captured program for every offset):
+        # the chunk's K/V land at positions offset + arange(S) of the whole
+        # view, and the kernel reads each row's key count, offset + S, on
+        # the device: query j at position offset + j, keys past the chunk
+        # unseen, the numbers of the sliced call below
+        k_cache, v_cache = cache["k"], cache["v"]
+        pos = cache_index + torch.arange(s, device=x.device)
+        k_cache.index_copy_(1, pos, k)
+        v_cache.index_copy_(1, pos, v)
+        new_cache = {"k": k_cache, "v": v_cache}
+        kv_len = (cache_index + s).to(torch.int32).reshape(1).expand(b).contiguous()
+        out = _attention(q.transpose(1, 2), k_cache.transpose(1, 2),
+                         v_cache.transpose(1, 2), causal=True, window=0,
+                         backend=backend, kv_len=kv_len).transpose(1, 2)
+    elif chunked:
         off = int(cache_index)
         k_cache, v_cache = cache["k"], cache["v"]
         write_rows(k_cache, k, 1, off)

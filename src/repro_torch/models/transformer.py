@@ -278,8 +278,9 @@ def apply_model(
 
     cache_index: decode write position, a
     host int or a (B,) tensor of per-slot depths; in prefill, a host int
-    offset selects chunked prefill at positions ``offset + arange(S)``
-    into the cache view (full-causal attention stacks only).  backend: "kernel" runs
+    offset, or a 0-dim tensor on the device (one process), selects chunked
+    prefill at positions ``offset + arange(S)`` into the cache view
+    (full-causal attention stacks only).  backend: "kernel" runs
     the flash and scan kernels (their plain versions on CPU tensors),
     "eager" the plain versions on any device.  rows: None for logits of
     every position, (B, S, V); else an int or a (B,) tensor naming one
@@ -329,7 +330,9 @@ def apply_model(
         else:
             positions = torch.full((bsz, seq), int(cache_index), device=dev)
     elif chunked:
-        positions = (int(cache_index) + torch.arange(seq, device=dev)).expand(bsz, seq)
+        # a host int, or a 0-dim tensor on the device (read nothing on the host)
+        off = cache_index.to(dev) if isinstance(cache_index, torch.Tensor) else int(cache_index)
+        positions = (off + torch.arange(seq, device=dev)).expand(bsz, seq)
     else:
         positions = torch.arange(seq, device=dev).expand(bsz, seq)
     if isinstance(cache_index, torch.Tensor):

@@ -84,7 +84,7 @@ from repro_torch.models.transformer import apply_model
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import RequestTracks, Tracer
-from repro_torch.serving.graphs import StepGraph
+from repro_torch.serving.graphs import StepGraph, shape_of
 from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.prefix_cache import PrefixCache
@@ -156,9 +156,11 @@ class TransformerExecutor:
     collective beyond the model's own.
 
     graphs: replay ``decode_paged`` (gather, the one-token model, scatter)
-            as a captured CUDA graph (``serving/graphs.py:StepGraph``, the
-            reference's jitted paged decode); the same step runs eagerly
-            without it.  Settable; setting it starts a new graph and its
+            and ``prefill_chunk`` (the whole row's gather, the chunk at its
+            device-held offset, scatter) as captured CUDA graphs, one a
+            shape (``serving/graphs.py:StepGraph``, the reference's jitted
+            paged decode and per-chunk-shape prefill); the same steps run
+            eagerly without it.  Settable; setting it starts new graphs and
             ``graph_stats``.  Raises ``ValueError`` off the card and under
             ``rules`` (``DTensor`` dispatches on the host and the mesh's
             collectives stage through it: neither can be captured).
@@ -206,8 +208,10 @@ class TransformerExecutor:
 
     @property
     def graph_stats(self) -> Optional[Dict]:
-        """The captured decode step's ``StepGraph.stats`` (None without graphs)."""
-        return None if self._graph is None else dict(self._graph.stats)
+        """The captured steps' ``StepGraph.stats``, ``{"decode": ...,
+        "chunk": ...}`` (None without graphs)."""
+        return None if self._graph is None else {k: dict(v)
+                                                 for k, v in self._graph.stats.items()}
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -311,23 +315,47 @@ class TransformerExecutor:
         Returns ``(logits, pool)``, logits of *every* chunk row, (1, S, V):
         row ``j`` predicts position ``offset + j + 1``.
 
-        Only the pages up to the chunk's end are gathered (the reference
-        gathers the whole block-table row); the attention reads no key past
-        ``offset + S``, so the numbers are the same.
+        The bounds are checked here, on the host.  On one process the step
+        (:meth:`_chunk_step`) gathers the whole block row, as the reference
+        does, and takes the offset on the device, eagerly or through its
+        graph.  Under the rules the offset stays a host int and only the
+        pages up to the chunk's end are gathered (the attention reads no
+        key past ``offset + S``, so the numbers are the same).
         """
-        tokens = self._tensor(tokens)
-        b, s = tokens.shape
+        b, s = shape_of(tokens)
         if b != 1:
             raise ValueError("paged prefill is per-request: batch must be 1")
-        offset = int(offset)
-        ps = cache_page_size(pool)
+        offset, w, ps = int(offset), shape_of(block_row)[0], cache_page_size(pool)
+        if offset < 0 or offset + s > w * ps:
+            raise ValueError(f"positions [{offset}, {offset + s}) exceed the block row "
+                             f"({w} pages x {ps})")
+        if self._graph is not None:
+            return self._graph.run(self._chunk_step, pool, tokens, block_row, offset,
+                                   kind="chunk"), pool
+        if self.mesh is None:
+            return self._chunk_step(pool, self._tensor(tokens), self._tensor(block_row),
+                                    self._tensor(offset)), pool
         row = self._tensor(block_row)
         dense = self.gather_pages(pool, row[: -(-(offset + s) // ps)][None])
-        logits, dense = self._model(tokens=tokens, mode="prefill", cache=dense,
+        logits, dense = self._model(tokens=self._tensor(tokens), mode="prefill", cache=dense,
                                     cache_index=offset)
         pos = offset + torch.arange(s, device=self.device)
         self._scatter(pool, dense, row[pos // ps], pos % ps, torch.zeros_like(pos), pos)
         return logits, pool
+
+    def _chunk_step(self, pool, tokens, block_row, offset) -> torch.Tensor:
+        """The step that ``prefill_chunk`` runs or captures on one process:
+        tokens (1, S), block_row (W,) and the 0-dim offset, all on the
+        device; no value is read on the host, so one program serves every
+        offset (the reference's traced scalar)."""
+        s = tokens.shape[1]
+        dense = self.gather_pages(pool, block_row[None])
+        logits, dense = self._model(tokens=tokens, mode="prefill", cache=dense,
+                                    cache_index=offset)
+        ps = cache_page_size(pool)
+        pos = offset + torch.arange(s, device=self.device)
+        self._scatter(pool, dense, block_row[pos // ps], pos % ps, torch.zeros_like(pos), pos)
+        return logits
 
     def decode_paged(self, tokens, pool, block_table, positions):
         """One continuous-batching step: gather each slot's pages into a
@@ -336,8 +364,8 @@ class TransformerExecutor:
         carry the null page and position 0.  Returns ``(logits (B, V),
         pool)``; the pool is updated in place."""
         if self._graph is not None:
-            return self._graph.run(self._decode_step, pool, tokens, positions,
-                                   block_table), pool
+            return self._graph.run(self._decode_step, pool, tokens, positions, block_table,
+                                   kind="decode"), pool
         return self._decode_step(pool, self._tensor(tokens), self._tensor(positions),
                                  self._tensor(block_table)), pool
 

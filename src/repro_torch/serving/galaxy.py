@@ -26,11 +26,15 @@ tiles and non-dividing lengths run exactly.  K/V land at absolute
 positions, and each decode step overwrites its own cache entry before
 attending, so bucket-padding positions are never read.
 
-``graphs=True`` replays ``decode_paged`` as one captured CUDA graph
-(``serving/graphs.py:StepGraph``, the reference's jitted decode step):
-the same step function runs eagerly with ``graphs=False``, so the two
-modes compute the same thing.  Only a ``LocalRing`` on the card can be
-captured: a ``ProcessRing``'s hops synchronize on the host.
+``graphs=True`` replays ``decode_paged`` and ``prefill_chunk`` as
+captured CUDA graphs, one per step shape (``serving/graphs.py:StepGraph``,
+the reference's jitted decode step and per-chunk-shape prefill, whose
+offset stays a traced scalar): the chunk step reads its offset from
+device memory, so one graph serves every offset.  The same step functions
+run eagerly with ``graphs=False``, so the two modes compute the same
+thing.  Only a ``LocalRing`` on the card can be captured: a
+``ProcessRing``'s hops synchronize on the host, and it runs the same
+steps eagerly.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 from repro_torch.core import hmp
 from repro_torch.core.execplan import ExecPlan
 from repro_torch.core.ring import ProcessRing, Ring
-from repro_torch.serving.graphs import StepGraph
+from repro_torch.serving.graphs import StepGraph, shape_of
 
 
 class GalaxyHMPExecutor:
@@ -56,9 +60,10 @@ class GalaxyHMPExecutor:
     plan:   compute backend and ring transport come from the plan
             (``ExecPlan.with_backend`` / ``with_transport``); prefill always
             runs the overlapped ring.
-    graphs: replay ``decode_paged`` as a captured CUDA graph (settable;
-            setting it starts a new graph and its ``graph_stats``).
-            Raises ``ValueError`` off the card and on a ``ProcessRing``.
+    graphs: replay ``decode_paged`` and ``prefill_chunk`` as captured
+            CUDA graphs (settable; setting it starts new graphs and
+            ``graph_stats``).  Raises ``ValueError`` off the card and on a
+            ``ProcessRing``.
     """
 
     def __init__(self, layers: Sequence[Dict], embed: torch.Tensor,
@@ -88,8 +93,10 @@ class GalaxyHMPExecutor:
 
     @property
     def graph_stats(self) -> Optional[Dict]:
-        """The captured decode step's ``StepGraph.stats`` (None without graphs)."""
-        return None if self._graph is None else dict(self._graph.stats)
+        """The captured steps' ``StepGraph.stats``, ``{"decode": ...,
+        "chunk": ...}`` (None without graphs)."""
+        return None if self._graph is None else {k: dict(v)
+                                                 for k, v in self._graph.stats.items()}
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -201,23 +208,38 @@ class GalaxyHMPExecutor:
         ``(logits, pool)`` with *every* chunk row's logits, (1, S, V): row
         ``j`` predicts position ``offset + j + 1``.  ``length`` (the
         prompt's real length) is the reference's argument; every row is
-        returned, so nothing here reads it."""
-        tokens = self._tensor(tokens)
-        s = tokens.shape[1]
+        returned, so nothing here reads it.  The bounds are checked here,
+        on the host; the step (:meth:`_chunk_step`) runs eagerly or
+        through its graph."""
+        s, w = shape_of(tokens)[1], shape_of(block_row)[0]
+        page = pool[0]["k"][0].shape[1]
+        offset = int(offset)
+        if offset < 0 or offset + s > w * page:
+            raise ValueError(f"positions [{offset}, {offset + s}) exceed the block row "
+                             f"({w} pages x {page})")
+        if self._graph is not None:
+            return self._graph.run(self._chunk_step, pool, tokens, block_row, offset,
+                                   kind="chunk"), pool
+        return self._chunk_step(pool, self._tensor(tokens), self._tensor(block_row),
+                                self._tensor(offset)), pool
+
+    def _chunk_step(self, pool, tokens, block_row, offset) -> torch.Tensor:
+        """The step that ``prefill_chunk`` runs or captures: tokens (1, S),
+        block_row (W,) and the 0-dim offset, all on the device; no value
+        is read on the host, so one program serves every offset.  The
+        context is the whole block row, as the reference's."""
         layout, x = self._embed(tokens)
-        y, pool = hmp.hmp_prefill(
-            self.layers, x, self.ring, pool, plan=self.plan, overlap=True, seq=s,
-            block_row=self._tensor(block_row), offset=int(offset),
-        )
-        return layout.gather(y) @ self.embed.T, pool
+        y, _ = hmp.hmp_prefill(self.layers, x, self.ring, pool, plan=self.plan, overlap=True,
+                               seq=tokens.shape[1], block_row=block_row, offset=offset)
+        return layout.gather(y) @ self.embed.T
 
     def decode_paged(self, tokens, pool, block_table, positions):
         """One decode step of the slot batch: tokens (S, 1), block_table
         (S, W), positions (S,).  Returns (logits (S, V), pool); the pool
         is updated in place."""
         if self._graph is not None:
-            return self._graph.run(self._decode_step, pool, tokens, positions,
-                                   block_table), pool
+            return self._graph.run(self._decode_step, pool, tokens, positions, block_table,
+                                   kind="decode"), pool
         return self._decode_step(pool, self._tensor(tokens), self._tensor(positions),
                                  self._tensor(block_table)), pool
 

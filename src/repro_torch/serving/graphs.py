@@ -1,39 +1,61 @@
-"""One captured program per decode step: the port of the reference's
-``jax.jit(decode, donate_argnums=(3,))`` for ``decode_paged``.
+"""One captured program per step shape: the port of the reference's
+per-shape ``jax.jit`` of ``decode_paged`` and ``prefill_chunk``.
 
-The reference compiles the paged decode step once per shape and runs that
-one program every step; the port issues each of the step's ops from
+The reference compiles the paged decode step once per shape, and the
+chunked prefill once per chunk shape with the chunk's offset a traced
+scalar, and runs those programs; the port issues each of a step's ops from
 Python (576 ``tiled_gemm_valid`` launches and the torch ops around them in
-a GPT2-L Galaxy step), and the card waits on the host between them.
-:class:`StepGraph` captures the step as one ``torch.cuda.CUDAGraph`` and
-replays it.  The block table's width is fixed for a run
-(``serving/kvpool.py``: ``(num_slots, pages_per_slot)``), so a serve
-captures one graph per executor and pool.
+a GPT2-L Galaxy decode step, 2304 in a chunk of any size), and the card
+waits on the host between them.  :class:`StepGraph` captures a step as one
+``torch.cuda.CUDAGraph`` per input shape and replays it.  The block
+table's width is fixed for a run (``serving/kvpool.py``: ``(num_slots,
+pages_per_slot)``), so a serve captures one decode graph and one graph per
+chunk row count.
+
+Two kinds of step, each a function of the pool and int64 inputs of fixed
+shapes:
+
+* ``"decode"``: ``step(pool, tokens (S, 1), positions (S,), block_table
+  (S, W))``.  Captured on the first call of a shape: every step of a serve
+  has the slots' shape.
+* ``"chunk"``: ``step(pool, tokens (1, S), block_row (W,), offset ())``.
+  The first call of a shape runs eagerly and is the warm-up; the second
+  captures and replays; later calls replay.  A chunk's last, partial
+  piece or a one-off verify length costs nothing extra; the full chunks
+  and the verify chunk's k + 1 rows repeat.  The offset is an input like
+  the tokens, read on the device, so one graph serves every offset.
 
 What a captured step may not do, and what keeps it so:
 
 * read a tensor's value on the host, or copy pageable host memory to the
-  card: the step takes its inputs from persistent device buffers, filled
-  before each replay from pinned host memory;
+  card: the step takes its inputs from a persistent device buffer, filled
+  before each replay from pinned host memory in one copy, and whatever it
+  builds from host data (a layout's row map, its mask) it builds on the
+  warm-up call and keeps (``core/execplan.py:SeqLayout.on``);
 * allocate a buffer that outlives it from the graph's pool, or build a
-  kernel: the first call runs the step eagerly on a side stream (PyTorch's
+  kernel: the warm-up runs the step eagerly on a side stream (PyTorch's
   warm-up), which builds the kernels (``kernels/build.py:load``) and grows
   the split-K workspace (``kernels/tiled_gemm.py:_workspace``) before the
   capture; both raise if asked to during one;
-* outlive what it reads: the graph is bound to the pool's storage and the
-  buffers above.  A new pool (the engine makes one a run) or another
-  (slots, width) drops the graph and captures again, and the graph holds
-  the split-K workspaces it captured, so a later eager launch that grows
-  them cannot free them under it.
+* outlive what it reads: every graph is bound to the pool's storage and
+  its input buffer.  A new pool (the engine makes one a run) drops all the
+  graphs, and each graph holds the split-K workspaces it captured, so a
+  later eager launch that grows them cannot free them under it.
+
+The graphs of one kind share one memory pool: they run one at a time on
+one stream, and a replay's output is copied out before the next replay
+may reuse the memory.
 
 The kernels' launch counters (``kernels/ops.py:launch_counts``,
 ``path_counts``) stay true under replay: the capture's own increments are
-taken back out and added again on every replay.
+taken back out and each graph's are added again on every replay.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,9 +63,12 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import tiled_gemm as _gemm
 
-#: a decode step: ``step(pool, tokens (S, 1), positions (S,), block_table
-#: (S, W)) -> logits (S, V)``, updating ``pool`` in place
+#: a step: ``step(pool, *inputs) -> logits``, updating ``pool`` in place
 Step = Callable[..., torch.Tensor]
+
+#: eager calls of a shape before its capture: a decode step captures on its
+#: first call (after the warm-up run in the same call), a chunk on its second
+KINDS = {"decode": 0, "chunk": 1}
 
 
 class CudaRuntime:
@@ -54,7 +79,7 @@ class CudaRuntime:
         """``device`` with its index, or ``ValueError`` off the card."""
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {device}: "
-                             "off the card the decode step runs eagerly (graphs=False)")
+                             "off the card the steps run eagerly (graphs=False)")
         return torch.device("cuda", torch.cuda.current_device() if device.index is None
                             else device.index)
 
@@ -67,6 +92,10 @@ class CudaRuntime:
     def stream(self, device: torch.device):
         return torch.cuda.Stream(device)
 
+    def pool(self):
+        """A new memory pool for graphs to share."""
+        return torch.cuda.graph_pool_handle()
+
     def warm(self, stream, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         """``fn()`` on ``stream`` after the current stream's work, which
         then waits for it; the result is handed to the current stream."""
@@ -78,12 +107,11 @@ class CudaRuntime:
         out.record_stream(cur)
         return out
 
-    def capture(self, stream, fn: Callable[[], torch.Tensor]):
-        """A new graph of ``fn`` captured on ``stream`` into a memory pool
-        of its own, with ``fn``'s output (the graph's output buffer) and
-        the bytes of device memory the pool holds."""
+    def capture(self, stream, fn: Callable[[], torch.Tensor], pool):
+        """A new graph of ``fn`` captured on ``stream`` into memory pool
+        ``pool``, with ``fn``'s output (the graph's output buffer) and the
+        bytes of device memory the pool holds after it."""
         graph = torch.cuda.CUDAGraph()
-        pool = torch.cuda.graph_pool_handle()
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = fn()
         held = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
@@ -118,95 +146,144 @@ def _add_counts(delta: Dict[str, Tuple[int, Dict[str, int]]], sign: int) -> None
             fn.paths[path] += sign * k
 
 
+def shape_of(t) -> Tuple[int, ...]:
+    """The shape of a tensor, an array, a list or a scalar (no copy)."""
+    return tuple(t.shape) if isinstance(t, torch.Tensor) else np.shape(t)
+
+
+@dataclasses.dataclass
+class _Entry:
+    """One input shape of one kind: its buffers and, once captured, its
+    graph."""
+    host: torch.Tensor  # pinned, flat: every input's values in turn
+    buf: torch.Tensor  # the device copy the step reads
+    views: Tuple[torch.Tensor, ...]  # the inputs, shaped, in ``buf``
+    calls: int = 0
+    copied: object = None  # the event after the last host-to-device copy
+    graph: object = None
+    out: Optional[torch.Tensor] = None
+    delta: Optional[Dict] = None  # the launches one replay makes
+    keep: tuple = ()  # the split-K workspaces the graph launches on
+
+
+def _fresh_stats() -> Dict[str, Dict]:
+    return {kind: {"shapes": 0, "captures": 0, "replays": 0, "capture_ms": 0.0,
+                   "pool_bytes": 0, "allocated_bytes": 0} for kind in KINDS}
+
+
 class StepGraph:
-    """The paged decode step of one executor, captured once and replayed.
+    """The captured steps of one executor, one graph per (kind, input
+    shapes), all bound to one pool's storage.
 
-    ``run(step, pool, tokens, positions, block_table)`` copies the inputs
-    into the graph's device buffers (int64: tokens (S, 1), positions (S,),
-    block table (S, W), one row of each per slot); host inputs go through
-    pinned host memory and one asynchronous copy, device inputs are copied
-    on the card.  The first call for a (S, W, pool storage) runs ``step``
-    eagerly on a side stream, which is the real step and whose logits are
-    returned, then captures it; every later call replays the graph and
-    returns a copy of its logits buffer (the next replay overwrites the
-    buffer, and the caller may still hold these logits).
+    ``run(step, pool, *inputs, kind=)`` copies the int64 inputs into the
+    shape's device buffer (host inputs through pinned host memory and one
+    asynchronous copy, device inputs on the card), then runs ``step(pool,
+    *views)`` eagerly on a side stream (the warm-up), captures it, or
+    replays its graph, as ``KINDS`` says for the kind.  A replay returns a
+    copy of the graph's logits buffer (the next replay may overwrite it,
+    and the caller may still hold these logits).
 
-    ``stats``: ``captures``, ``replays``, ``capture_ms`` (host wall time of
-    the captures), ``pool_bytes`` (device memory the graph's pool holds)
-    and ``allocated_bytes`` (``memory_allocated`` after the capture less
-    before: what stays allocated for the graph, its output buffer).
+    ``stats[kind]``: ``shapes`` (input shapes met, counted again after a
+    new pool), ``captures``, ``replays``, ``capture_ms`` (host wall time
+    of the captures), ``pool_bytes`` (device memory the kind's shared
+    graph pool holds) and ``allocated_bytes`` (``memory_allocated`` after
+    each capture less before, summed: what stays allocated for the graphs,
+    their output buffers).
     """
 
     def __init__(self, device, *, runtime: Optional[CudaRuntime] = None):
         self._rt = CudaRuntime() if runtime is None else runtime
         self.device = self._rt.check(torch.device(device))
         self._stream = self._rt.stream(self.device)
-        self._copied = None  # the event after the last host-to-device copy
-        self._key = None
+        self._storage = None
         self._drop()
-        self.stats = {"captures": 0, "replays": 0, "capture_ms": 0.0, "pool_bytes": 0,
-                      "allocated_bytes": 0}
+        self.stats = _fresh_stats()
 
     def _drop(self) -> None:
-        self._graph = self._out = None
-        self._delta = None
-        self._keep = ()
+        self._entries: Dict[Tuple, _Entry] = {}
+        self._pools: Dict[str, object] = {}
 
-    def _buffers(self, s: int, w: int) -> None:
-        # one row a slot: [token, position, block-table row]
-        self._host = self._rt.host((s, w + 2))
-        self._buf = torch.zeros((s, w + 2), dtype=torch.int64, device=self.device)
-        self._views = (self._buf[:, :1], self._buf[:, 1], self._buf[:, 2:])
+    def _entry(self, shapes: Sequence[Tuple[int, ...]]) -> _Entry:
+        sizes = [math.prod(s) for s in shapes]
+        host = self._rt.host((sum(sizes),))
+        buf = torch.zeros((sum(sizes),), dtype=torch.int64, device=self.device)
+        views, lo = [], 0
+        for shape, n in zip(shapes, sizes):
+            views.append(buf[lo:lo + n].view(shape))
+            lo += n
+        return _Entry(host, buf, tuple(views))
 
-    def _load(self, inputs) -> None:
+    def _load(self, e: _Entry, inputs) -> None:
         on_card = []
         for t in inputs:
             card = isinstance(t, torch.Tensor) and t.device.type != "cpu"
             if card and t.device != self.device:
-                raise ValueError(f"a decode input lies on {t.device}; the graph's "
+                raise ValueError(f"a step input lies on {t.device}; the graph's "
                                  f"buffers are on {self.device}")
             on_card.append(card)
         if not all(on_card):
-            if self._copied is not None:
-                self._copied.synchronize()  # the last copy has left the host buffer
-            host = self._host.numpy()
-            for (lo, hi), t, card in zip(((0, 1), (1, 2), (2, None)), inputs, on_card):
+            if e.copied is not None:
+                e.copied.synchronize()  # the last copy has left the host buffer
+            host, lo = e.host.numpy(), 0
+            for view, t, card in zip(e.views, inputs, on_card):
+                n = view.numel()
                 if not card:
-                    host[:, lo:hi] = np.asarray(t).reshape(host.shape[0], -1)
-            self._buf.copy_(self._host, non_blocking=True)
-            if self._copied is None:
-                self._copied = self._rt.event()
-            self._copied.record()
-        for view, t, card in zip(self._views, inputs, on_card):
+                    host[lo:lo + n] = np.asarray(t).reshape(-1)
+                lo += n
+            e.buf.copy_(e.host, non_blocking=True)
+            if e.copied is None:
+                e.copied = self._rt.event()
+            e.copied.record()
+        for view, t, card in zip(e.views, inputs, on_card):
             if card:
                 view.copy_(t.reshape(view.shape))
 
-    def run(self, step: Step, pool, tokens, positions, block_table) -> torch.Tensor:
-        s, w = np.shape(block_table)
-        key = (s, w, tuple(t.data_ptr() for t in leaves(pool)))
-        if key != self._key:
-            self._drop()
-            self._buffers(s, w)
-            self._key = key
-        self._load((tokens, positions, block_table))
-        if self._graph is not None:
-            self._graph.replay()
-            _add_counts(self._delta, +1)
-            self.stats["replays"] += 1
-            return self._out.clone()
-        logits = self._rt.warm(self._stream, lambda: step(pool, *self._views))
+    def run(self, step: Step, pool, *inputs, kind: str = "decode") -> torch.Tensor:
+        if kind not in KINDS:
+            raise ValueError(f"unknown step kind {kind!r}; one of {sorted(KINDS)}")
+        storage = tuple(t.data_ptr() for t in leaves(pool))
+        if storage != self._storage:
+            self._drop()  # a new pool: every graph read the old one
+            self._storage = storage
+        shapes = tuple(shape_of(t) for t in inputs)
+        key = (kind, shapes)
+        e = self._entries.get(key)
+        stats = self.stats[kind]
+        if e is None:
+            e = self._entries[key] = self._entry(shapes)
+            stats["shapes"] += 1
+        self._load(e, inputs)
+        if e.graph is None:
+            e.calls += 1
+            if e.calls <= KINDS[kind]:
+                return self._rt.warm(self._stream, lambda: step(pool, *e.views))
+            logits = None
+            if KINDS[kind] == 0:
+                logits = self._rt.warm(self._stream, lambda: step(pool, *e.views))
+            self._capture(e, kind, step, pool)
+            if logits is not None:
+                return logits
+        e.graph.replay()
+        _add_counts(e.delta, +1)
+        stats["replays"] += 1
+        return e.out.clone()
+
+    def _capture(self, e: _Entry, kind: str, step: Step, pool) -> None:
+        stats = self.stats[kind]
+        if kind not in self._pools:
+            self._pools[kind] = self._rt.pool()
         before, allocated = _counts(), self._rt.allocated(self.device)
         t0 = time.perf_counter()
-        graph, out, held = self._rt.capture(self._stream, lambda: step(pool, *self._views))
-        self.stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
+        graph, out, held = self._rt.capture(self._stream, lambda: step(pool, *e.views),
+                                            self._pools[kind])
+        stats["capture_ms"] += 1e3 * (time.perf_counter() - t0)
         after = _counts()
         # the capture launched nothing: take its increments back out
-        self._delta = {name: (after[name][0] - n, {p: after[name][1][p] - k
-                                                   for p, k in paths.items()})
-                       for name, (n, paths) in before.items()}
-        _add_counts(self._delta, -1)
-        self._graph, self._out, self._keep = graph, out, _gemm.workspaces()
-        self.stats["captures"] += 1
-        self.stats["pool_bytes"] = held
-        self.stats["allocated_bytes"] = self._rt.allocated(self.device) - allocated
-        return logits
+        e.delta = {name: (after[name][0] - n, {p: after[name][1][p] - k
+                                               for p, k in paths.items()})
+                   for name, (n, paths) in before.items()}
+        _add_counts(e.delta, -1)
+        e.graph, e.out, e.keep = graph, out, _gemm.workspaces()
+        stats["captures"] += 1
+        stats["pool_bytes"] = held
+        stats["allocated_bytes"] += self._rt.allocated(self.device) - allocated

@@ -313,8 +313,8 @@ def test_flash_kernel_refuses_a_plan_it_does_not_build(cuda, dtype, hd):
 
     def call(tiles, block_k):
         return lib.flash_attention(fa._DTYPES[dtype], hdp, tiles, block_k, q.data_ptr(),
-                                   q.data_ptr(), q.data_ptr(), out.data_ptr(), b, h, h, sq,
-                                   sq, hd, 1, 0, *strides, stream)
+                                   q.data_ptr(), q.data_ptr(), out.data_ptr(), None, b, h, h,
+                                   sq, sq, hd, 1, 0, *strides, stream)
 
     assert call(q_tiles, bk) == 0
     torch.cuda.synchronize()
@@ -1048,7 +1048,8 @@ def _replay_equals_eager(ex, pool, tok, table, pos):
     twin = _clone_tree(pool)
     got, _ = ex.decode_paged(tok, pool, table, pos)
     want, _ = eager.decode_paged(tok, twin, table, pos)
-    assert ex.graph_stats["captures"] == 1 and ex.graph_stats["replays"] == 1
+    stats = ex.graph_stats["decode"]
+    assert stats["captures"] == 1 and stats["replays"] == 1
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(leaves(pool), leaves(twin)))
 
@@ -1073,7 +1074,8 @@ def test_galaxy_graphs_replay_the_eager_step(cuda):
     eager = _serve_graphs(ex, False, 300)
     graphed = _serve_graphs(ex, True, 300)
     assert graphed[:4] == eager[:4] and eager[4] is None
-    assert graphed[4]["captures"] == 1 and graphed[4]["replays"] == graphed[3] - 1
+    stats = graphed[4]["decode"]
+    assert stats["captures"] == 1 and stats["replays"] == graphed[3] - 1
     assert graphed[2]["tiled_gemm_valid"]["fma"] == 0
 
     pool = ex.make_pool(13, 8)
@@ -1101,7 +1103,8 @@ def test_zoo_graphs_replay_the_eager_step(cuda):
     eager = _serve_graphs(ex, False, cfg.vocab_size)
     graphed = _serve_graphs(ex, True, cfg.vocab_size)
     assert graphed[:4] == eager[:4]
-    assert graphed[4]["captures"] == 1 and graphed[4]["replays"] == graphed[3] - 1
+    stats = graphed[4]["decode"]
+    assert stats["captures"] == 1 and stats["replays"] == graphed[3] - 1
 
     pool = ex.make_pool(13, 8)
     for leaf in leaves(pool):
@@ -1135,4 +1138,124 @@ def test_spec_draft_graphs_equal_eager(cuda):
                                max_new_tokens=7))
         out.append(({r.uid: r.output for r in eng.run()}, eng.spec.steps, draft.graph_stats))
     assert out[1][:2] == out[0][:2] and out[0][2] is None
-    assert out[1][2]["captures"] == 1 and out[1][2]["replays"] == out[1][1] - 1
+    stats = out[1][2]["decode"]
+    assert stats["captures"] == 1 and stats["replays"] == out[1][1] - 1
+
+
+# --- the captured chunk (serving/graphs.py, kind "chunk") ----------------------------------
+
+KV_LEN_CASES = [  # (b, h, hkv, sq, keys in the view, kv_len per batch entry, hd)
+    (1, 32, 8, 256, 97 * 16, (1280,), 160),  # StableLM-12B's chunk behind its prefix
+    (1, 32, 8, 5, 97 * 16, (1029,), 160),  # its 5-row verify chunk
+    (2, 14, 2, 5, 96, (37, 96), 64),  # hd 64, two batch entries
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", KV_LEN_CASES)
+def test_flash_kv_len_is_bitwise_the_sliced_call(cuda, case, dtype):
+    """With ``kv_len`` the kernel computes, bit for bit, the call on the
+    keys sliced to ``kv_len[b]``, on the same path and with one launch."""
+    b, h, hkv, sq, sk, lens, hd = case
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn(b, sq, h, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
+    k, v = (torch.randn(b, sk, hkv, hd, generator=g, device=cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    out = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    assert flash_attention.launches == 1
+    for i, n in enumerate(lens):
+        want = flash_attention(q[i:i + 1], k[i:i + 1, :, :n], v[i:i + 1, :, :n], causal=True)
+        assert torch.equal(out[i:i + 1], want)
+    plain = flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+    torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention(q, k, v, kv_len=kv_len.long())
+
+
+def _chunks_replay_equal_eager(ex, vocab, width, dtype):
+    """Chunks of 5 and 8 rows on random pages, each call beside the eager
+    step on a twin pool: logits and pages bitwise equal.  Each shape's first
+    call is eager, its second captures; the 5-row graph (captured first)
+    then replays after the 8-row one, out of capture order, and both serve
+    offsets other than the one they were captured at."""
+    import copy
+
+    gen = torch.Generator(device=ex.device).manual_seed(1)
+    pool = ex.make_pool(1 + width, 8)
+    for leaf in leaves(pool):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=ex.device).to(dtype))
+    twin = _clone_tree(pool)
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    row = torch.arange(1, 1 + width, device=ex.device)
+    for s, off in ((5, 3), (8, 0), (5, 17), (8, 8), (5, 9), (8, 21), (5, 30), (8, 1)):
+        tok = torch.randint(0, vocab, (1, s), generator=gen, device=ex.device)
+        got, _ = ex.prefill_chunk(tok, pool, row, offset=off, length=off + s)
+        want, _ = eager.prefill_chunk(tok, twin, row, offset=off, length=off + s)
+        assert torch.equal(got, want), (s, off)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(pool), leaves(twin))), (s, off)
+    stats = ex.graph_stats["chunk"]
+    assert stats["captures"] == 2 and stats["replays"] == 6
+    ex.graphs = False
+
+
+def _serve_chunks(ex, graphs, vocab):
+    """Four requests behind a shared 20-token prompt through the prefix
+    cache and 8-token chunks (2 slots, pages of 8): tokens, launches,
+    stats and the graphs' stats."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    ex.graphs = graphs
+    eng = ServingEngine(ex, max_batch=2, max_len=64, scheduler="continuous", page_size=8,
+                        prefix_cache=True, prefill_chunk=8)
+    shared = [1 + (3 * j) % (vocab - 1) for j in range(20)]
+    for i in range(4):
+        eng.submit(Request(uid=i, prompt=shared + [1 + (7 * i + j) % (vocab - 1)
+                                                   for j in range(3 + 5 * i)],
+                           max_new_tokens=4))
+    ops.reset_launch_counts()
+    tokens = {r.uid: r.output for r in eng.run()}
+    return tokens, ops.launch_counts(), dict(eng.stats), ex.graph_stats
+
+
+def test_galaxy_chunk_graphs_replay_the_eager_step(cuda):
+    """The uneven plan's 2-layer fp16 executor: a chunked prefix-cache serve
+    with graphs gives the eager serve's tokens, launches and stats, with
+    chunk replays; replayed chunks equal eager chunks bitwise at offsets
+    they were not captured at, two shapes out of capture order."""
+    from repro_torch.core import hmp
+    from repro_torch.core.execplan import ExecPlan
+    from repro_torch.core.ring import LocalRing
+    from repro_torch.serving.galaxy import GalaxyHMPExecutor
+
+    plan = ExecPlan(heads=(6, 4, 4, 2), columns=(24, 16, 16, 8), head_dim=2, d_model=32,
+                    seq_shares=(3.0, 2.0, 2.0, 1.0), compute_backend="kernel")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layers = hmp.init_stack_params(2, 32, 16, 64, generator=gen, device=cuda,
+                                   dtype=torch.float16)
+    embed = (torch.randn(300, 32, generator=gen, device=cuda) * 0.5).half()
+    ex = GalaxyHMPExecutor(layers, embed, plan, LocalRing(4))
+    eager = _serve_chunks(ex, False, 300)
+    graphed = _serve_chunks(ex, True, 300)
+    assert graphed[:3] == eager[:3] and graphed[3]["chunk"]["replays"] > 0
+    _chunks_replay_equal_eager(ex, 300, 5, torch.float16)
+
+
+def test_zoo_chunk_graphs_replay_the_eager_step(cuda):
+    """Reduced StableLM (GQA 4:2) in bf16, as the Galaxy test: the whole
+    row's gather, the chunk at its device-held offset (flash with
+    ``kv_len``) and the scatter replayed bitwise."""
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    cfg = dataclasses.replace(reduced(get_config("stablelm-12b")), num_kv_heads=2,
+                              dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ex = TransformerExecutor(init_params(cfg, generator=gen, device=cuda), cfg)
+    eager = _serve_chunks(ex, False, cfg.vocab_size)
+    graphed = _serve_chunks(ex, True, cfg.vocab_size)
+    assert graphed[:3] == eager[:3] and graphed[3]["chunk"]["replays"] > 0
+    _chunks_replay_equal_eager(ex, cfg.vocab_size, 5, torch.bfloat16)

@@ -37,7 +37,6 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.configs import reduced as j_reduced  # noqa: E402
@@ -56,27 +55,9 @@ from repro_torch.models.sharding import Rules  # noqa: E402
 from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import TransformerExecutor  # noqa: E402
 from repro_torch.serving.galaxy import GalaxyHMPExecutor  # noqa: E402
-from torch_helpers import numpy_params  # noqa: E402
+from torch_helpers import NoHostReads, numpy_params  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=0)
-aten = torch.ops.aten
-# a host read, or an output whose size depends on the data (a sync on the card)
-HOST_READS = {aten._local_scalar_dense, aten.item, aten.nonzero, aten.masked_select,
-              aten.is_nonzero, aten.equal, aten._unique2, aten.unique_consecutive}
-
-
-class NoHostReads(TorchDispatchMode):
-    """Raises on an op that reads a tensor's value on the host, or sizes its
-    output by the data (boolean-mask indexing among them)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket in HOST_READS:
-            raise AssertionError(f"host read in the decode step: {func}")
-        if func.overloadpacket in (aten.index, aten.index_put, aten.index_put_):
-            if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                   for i in args[1] if i is not None):
-                raise AssertionError(f"boolean-mask indexing in the decode step: {func}")
-        return func(*args, **(kwargs or {}))
 
 
 def test_dispatch_mode_catches_host_reads():
@@ -260,10 +241,13 @@ class _Runtime:
     def stream(self, device):
         return None
 
+    def pool(self):
+        return object()
+
     def warm(self, stream, fn):
         return fn()
 
-    def capture(self, stream, fn):
+    def capture(self, stream, fn, pool):
         self.graphs.append(_Graph())
         return self.graphs[-1], fn(), 4096
 
@@ -289,14 +273,15 @@ def test_step_graph_captures_once_a_pool_and_counts_replays():
     tok, pos, bt = np.array([[5], [7]]), np.array([3, 0]), np.array([[1, 2], [0, 0]])
     out = sg.run(step, pool, tok, pos, bt)  # warm-up (the real step), then capture
     assert out.tolist() == [[11.0], [7.0]]
-    assert sg.stats["captures"] == 1 and sg.stats["replays"] == 0
-    assert sg.stats["pool_bytes"] == 4096
+    stats = sg.stats["decode"]
+    assert stats["captures"] == 1 and stats["replays"] == 0
+    assert stats["pool_bytes"] == 4096
     assert ops.launch_counts()["tiled_gemm_valid"] == 3  # the warm-up's, not the capture's
     assert pool["k"].tolist() == [2.0, 2.0]  # warm-up and capture ran the step here
     bufs = seen[-1]  # what the captured step reads
     for k in range(1, 4):
         got = sg.run(step, pool, torch.tensor([[k], [k]]), pos, bt)  # host tensors too
-        assert rt.graphs[0].replays == k and sg.stats["replays"] == k
+        assert rt.graphs[0].replays == k and stats["replays"] == k
         assert bufs[0].tolist() == [[k], [k]] and bufs[1].tolist() == [3, 0]
         assert ops.launch_counts()["tiled_gemm_valid"] == 3 + 3 * k
         assert ops.path_counts()["tiled_gemm_valid"] == {"mma": 3 + 3 * k, "fma": 0}
@@ -305,11 +290,11 @@ def test_step_graph_captures_once_a_pool_and_counts_replays():
 
     other = {"k": torch.zeros(2)}  # a new pool captures again
     sg.run(step, other, tok, pos, bt)
-    assert sg.stats["captures"] == 2 and len(rt.graphs) == 2
+    assert stats["captures"] == 2 and len(rt.graphs) == 2
     sg.run(step, other, tok, pos, bt)
     assert rt.graphs[1].replays == 1 and rt.graphs[0].replays == 4
     sg.run(step, other, tok[:1], pos[:1], bt[:1])  # another slot count
-    assert sg.stats["captures"] == 3 and sg.stats["replays"] == 5
+    assert stats["captures"] == 3 and stats["replays"] == 5
     assert ops.launch_counts()["tiled_gemm_valid"] == 3 * (1 + 4 + 1 + 1 + 1)
     with pytest.raises(ValueError, match="lies on meta"):
         sg.run(step, other, torch.zeros((1, 1), dtype=torch.long, device="meta"),

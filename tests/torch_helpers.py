@@ -1,8 +1,11 @@
 """Shared inputs of the port's training and multimodal parity tests: the
 reference's parameter tree drawn with numpy, and one numpy batch, handed
-to both packages."""
+to both packages; and the dispatch mode that holds a captured step's
+code to reading nothing on the host."""
 import jax
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.models.params import PSpec as JPSpec
 from repro.models.params import model_spec as j_model_spec
@@ -39,3 +42,34 @@ def flat_tree(tree):
     names)."""
     return {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
             np.asarray(leaf) for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+aten = torch.ops.aten
+#: a host read, or an output whose size depends on the data (a sync on the card)
+HOST_READS = {aten._local_scalar_dense, aten.item, aten.nonzero, aten.masked_select,
+              aten.is_nonzero, aten.equal, aten._unique2, aten.unique_consecutive}
+
+
+class NoHostReads(TorchDispatchMode):
+    """Raises on an op that reads a tensor's value on the host, or sizes its
+    output by the data (boolean-mask indexing among them).  With
+    ``host_data=True`` it also raises where a tensor is built from host
+    data: ``torch.tensor``, ``torch.as_tensor`` or ``torch.from_numpy`` of
+    a numpy array, a list or a Python scalar, and indexing by an array or
+    a list (each lifts a fresh host tensor, ``aten.lift_fresh``), which on
+    the card is a copy from pageable host memory that a capture refuses."""
+
+    def __init__(self, host_data: bool = False):
+        super().__init__()
+        self.host_data = host_data
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in HOST_READS:
+            raise AssertionError(f"host read in the step: {func}")
+        if self.host_data and func.overloadpacket in (aten.lift_fresh, aten.lift_fresh_copy):
+            raise AssertionError(f"a tensor built from host data in the step: {func}")
+        if func.overloadpacket in (aten.index, aten.index_put, aten.index_put_):
+            if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                   for i in args[1] if i is not None):
+                raise AssertionError(f"boolean-mask indexing in the step: {func}")
+        return func(*args, **(kwargs or {}))

@@ -385,9 +385,10 @@ Galaxy across processes, then the zoo across processes, run last:
              weight and peak bytes, staged collectives, tok/s and TTFT p50
              beside the one-process serve's as ratios within this run.
 
-The captured steps (``serving/graphs.py``) run in three parts, on the
-executors and traffic of phases 5, 14 and 11 (no model is drawn again),
-each part after its phase (the spec part after the logged Galaxy phases):
+The captured steps (``serving/graphs.py``) run in parts, on the
+executors and traffic of phases 5, 14, 15, 8, 11 and 24 (no model is
+drawn again), each part after its phase (the spec and Galaxy wave parts
+after the logged Galaxy phases):
 
 37. graphs — phase 5's GPT2-L fp16 serve and then phase 11's StableLM-12B
              bf16 serve again with ``graphs=True``: tokens (and StableLM's
@@ -413,8 +414,25 @@ each part after its phase (the spec part after the logged Galaxy phases):
              synced logits), the replay's device time, one eager and one
              replayed call's kernel time in the profiler's trace (the
              card's idle share of each), the capture's ms and the graph
-             pool's bytes.  Not a claim of speed: graphs stay off by
-             default.
+             pool's bytes.  The wave protocol: (d) phase 8's
+             RecurrentGemma-9B traffic again on its executor with graphs
+             (held wave caches): tokens and stats bitwise phase 8's, its
+             launch counts (24 flash, 52 scan; the wave prefills eager,
+             each shape once), one wave decode capture a wave batch size
+             (4 and 2 rows) and a replay for every later step; then a
+             2-row wave of 300 and 250 tokens on the held cache: the
+             prefill eager, captured (the windowed hd-256 flash kernel and
+             the TMA scan inside a graph) and replayed, decode steps at
+             per-row positions replayed at two others than the captured
+             one, each beside the eager step on a fresh cache, logits and
+             every cache leaf bitwise; the decode step's wall eager
+             against replay and the idle share.  (e) phase 15's GPT2-L
+             fp16 wave serve again with graphs: tokens and stats bitwise,
+             launches exact by ``galaxy_expect`` (576 GEMMs a replayed
+             decode step, 36 x 4 ragged attention a wave), all on the fast
+             paths.  (f) phase 24's xlstm-350m waves again with graphs:
+             tokens and stats bitwise, no kernel launched.  Not a claim of
+             speed: graphs stay off by default.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -1987,6 +2005,7 @@ def phase_wave_serve(torch, rec, card, fp16):
                    exact=False)
     log("serve", f"Galaxy waves fp16: {st['prefill_waves']} waves, ragged_flash_attention "
         f"36 x 4 x {st['prefill_waves']}; " + serve_line(out, torch, card))
+    return out
 
 
 def phase_schedules(torch, rec, card):
@@ -2590,6 +2609,7 @@ def phase_xlstm_serve(torch, card):
         f"served first tokens "
         f"{served.tolist()}, step-path pass argmax {le.argmax(-1).tolist()} (largest logit "
         f"gap {gap:.3g})")
+    return out
 
 
 # --- the training path and the rest of the zoo --------------------------------
@@ -4406,6 +4426,56 @@ def phase_zoo_paged_ranks(torch, rec, card, dense):
 GRAPH_STEPS = 20  # timed steps a block; blocks eager, replay, replay, eager
 
 
+def eager_vs_replay(eager, replay, n, torch):
+    """An eager step against its replay, each ``call(i)`` giving the i-th
+    call's logits: the wall ms of ``n`` calls (host inputs to synced
+    logits) in blocks eager, replay, replay, eager (the median of each),
+    the replay's device ms a call back to back (events), the kernel ms of
+    one eager and one replayed call in the profiler's trace (None where
+    the trace holds none) and so the card's idle share of each wall."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    def block(call):
+        ts = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(i).argmax(-1).cpu()  # the engine's sampling sync
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ts))
+
+    eager_ms = [block(eager)]
+    replay_ms = [block(replay), block(replay)]
+    eager_ms.append(block(eager))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(n):
+        replay(i)
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / n
+
+    def busy(call):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call(0)
+            torch.cuda.synchronize()
+        t = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return t or None
+
+    busy_ms = {"eager": busy(eager), "replay": busy(replay)}
+    walls = {"eager": float(np.median(eager_ms)), "replay": float(np.median(replay_ms))}
+    idle = {k: "not measured" if v is None else f"{100 * (1 - v / walls[k]):.1f} %"
+            for k, v in busy_ms.items()}
+    return eager_ms, replay_ms, device_ms, busy_ms, idle
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.3f}"
+
+
 def graph_step_check(ex, pool, vocab, torch, card, what):
     """One decode step of ``ex`` replayed and run eagerly on copies of one
     pool at the served geometry (``pool``: the serve's ``PagedKVPool``;
@@ -4441,54 +4511,16 @@ def graph_step_check(ex, pool, vocab, torch, card, what):
     if (stats["captures"], stats["replays"]) != (1, 1):
         raise AssertionError(f"{what}: graph stats {stats}")
 
-    def block(run, pool):
-        ts = []
-        for _ in range(GRAPH_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, _ = run(tok, pool, table, pos)
-            logits.argmax(-1).cpu()  # the engine's sampling sync
-            ts.append(1e3 * (time.perf_counter() - t0))
-        return float(np.median(ts))
-
-    eager_ms = [block(eager.decode_paged, twin)]
-    replay_ms = [block(ex.decode_paged, storage), block(ex.decode_paged, storage)]
-    eager_ms.append(block(eager.decode_paged, twin))
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(GRAPH_STEPS):
-        ex.decode_paged(tok, storage, table, pos)
-    end.record()
-    torch.cuda.synchronize()
-    device_ms = start.elapsed_time(end) / GRAPH_STEPS
-
-    def busy(run, pool):
-        """Kernel time of one step in the profiler's trace (ms), or None
-        where the trace holds none."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(tok, pool, table, pos)
-            torch.cuda.synchronize()
-        t = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        return t or None
-
-    def ms(v):
-        return "not measured" if v is None else f"{v:.3f}"
-
-    busy_ms = {"eager": busy(eager.decode_paged, twin), "replay": busy(ex.decode_paged, storage)}
-    idle = {k: ("not measured" if v is None
-                else f"{100 * (1 - v / float(np.median(eager_ms if k == 'eager' else replay_ms))):.1f} %")
-            for k, v in busy_ms.items()}
+    eager_ms, replay_ms, device_ms, busy_ms, idle = eager_vs_replay(
+        lambda i: eager.decode_paged(tok, twin, table, pos)[0],
+        lambda i: ex.decode_paged(tok, storage, table, pos)[0], GRAPH_STEPS, torch)
     log("graphs", f"{what}: a replayed step's logits and pages bitwise equal to the eager "
         f"step's ({n} slots x {w} pages of {page}, positions {pos.tolist()}); step wall ms "
         f"eager {eager_ms[0]:.3f} / replay {replay_ms[0]:.3f} / replay {replay_ms[1]:.3f} / "
         f"eager {eager_ms[1]:.3f} (median of {GRAPH_STEPS} each, host inputs to synced "
         f"logits), replay device {device_ms:.3f} ms a step back to back; kernel time of one "
-        f"step in the profiler's trace eager {ms(busy_ms['eager'])} / replay "
-        f"{ms(busy_ms['replay'])} ms, so the card idles {idle['eager']} / {idle['replay']} of the step's wall; capture "
+        f"step in the profiler's trace eager {_ms(busy_ms['eager'])} / replay "
+        f"{_ms(busy_ms['replay'])} ms, so the card idles {idle['eager']} / {idle['replay']} of the step's wall; capture "
         f"{stats['capture_ms']:.1f} ms, graph pool {stats['pool_bytes']} B, allocated "
         f"after it {stats['allocated_bytes']} B ({card})")
     ex.graphs = False
@@ -4654,57 +4686,19 @@ def graph_chunk_check(ex, pool, rows, offsets, vocab, torch, card, what):
     if (stats["captures"], stats["replays"]) != (1, 2):
         raise AssertionError(f"{what}: chunk graph stats {stats}")
 
-    def block(run, pool):
-        ts = []
-        for i in range(GRAPH_CHUNKS):
-            off = offsets[i % 2]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, _ = run(tok, pool, row, offset=off, length=off + rows)
-            logits.argmax(-1).cpu()  # the engine's sampling sync
-            ts.append(1e3 * (time.perf_counter() - t0))
-        return float(np.median(ts))
-
-    eager_ms = [block(eager.prefill_chunk, twin)]
-    replay_ms = [block(ex.prefill_chunk, storage), block(ex.prefill_chunk, storage)]
-    eager_ms.append(block(eager.prefill_chunk, twin))
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(GRAPH_CHUNKS):
-        ex.prefill_chunk(tok, storage, row, offset=offsets[i % 2], length=rows)
-    end.record()
-    torch.cuda.synchronize()
-    device_ms = start.elapsed_time(end) / GRAPH_CHUNKS
-
-    def busy(run, pool):
-        """Kernel time of one chunk in the profiler's trace (ms), or None
-        where the trace holds none."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(tok, pool, row, offset=offsets[0], length=rows)
-            torch.cuda.synchronize()
-        t = sum(e.device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        return t or None
-
-    def ms(v):
-        return "not measured" if v is None else f"{v:.3f}"
-
-    busy_ms = {"eager": busy(eager.prefill_chunk, twin),
-               "replay": busy(ex.prefill_chunk, storage)}
-    walls = {"eager": float(np.median(eager_ms)), "replay": float(np.median(replay_ms))}
-    idle = {k: "not measured" if v is None else f"{100 * (1 - v / walls[k]):.1f} %"
-            for k, v in busy_ms.items()}
+    eager_ms, replay_ms, device_ms, busy_ms, idle = eager_vs_replay(
+        lambda i: eager.prefill_chunk(tok, twin, row, offset=offsets[i % 2],
+                                      length=offsets[i % 2] + rows)[0],
+        lambda i: ex.prefill_chunk(tok, storage, row, offset=offsets[i % 2],
+                                   length=offsets[i % 2] + rows)[0], GRAPH_CHUNKS, torch)
     stats = ex.graph_stats["chunk"]
     log("graphs", f"{what}: one capture serves offsets {list(offsets)}, each replay's logits "
         f"and pages bitwise equal to the eager step's (block row {w} pages of {page}); chunk "
         f"wall ms eager {eager_ms[0]:.3f} / replay {replay_ms[0]:.3f} / replay "
         f"{replay_ms[1]:.3f} / eager {eager_ms[1]:.3f} (median of {GRAPH_CHUNKS} each, host "
         f"inputs to synced logits), replay device {device_ms:.3f} ms a chunk back to back; "
-        f"kernel time of one chunk in the profiler's trace eager {ms(busy_ms['eager'])} / "
-        f"replay {ms(busy_ms['replay'])} ms, so the card idles {idle['eager']} / "
+        f"kernel time of one chunk in the profiler's trace eager {_ms(busy_ms['eager'])} / "
+        f"replay {_ms(busy_ms['replay'])} ms, so the card idles {idle['eager']} / "
         f"{idle['replay']} of the chunk's wall; capture {stats['capture_ms']:.1f} ms, graph "
         f"pool {stats['pool_bytes']} B, allocated after it {stats['allocated_bytes']} B "
         f"({card})")
@@ -4774,6 +4768,208 @@ def phase_graphs_spec(torch, card, fp16):
 
 
 
+WAVE_STEPS = 5  # timed wave decode steps a block; blocks eager, replay, replay, eager
+
+
+def check_wave_graph_stats(stats, steps, what, prefill_captures=0):
+    """A wave serve's graphs: one ``wave_decode`` capture a wave batch size
+    (each shape's first call), every later step replayed, and
+    ``prefill_captures`` wave prefill captures (a shape's second call)."""
+    dec, pre = stats["wave_decode"], stats["wave_prefill"]
+    if (dec["captures"] != dec["shapes"] or dec["replays"] != steps - dec["captures"]
+            or pre["captures"] != prefill_captures or stats["decode"]["shapes"]
+            or stats["chunk"]["shapes"]):
+        raise AssertionError(f"{what}: graph stats {stats} over {steps} decode steps")
+
+
+def wave_serve_graphs(torch, out, what, **kw):
+    """``out``'s wave serve again on its executor with ``graphs=True``
+    (``kw``: ``launch.serve``'s arguments): tokens and stats bitwise equal
+    to the eager serve's; one wave decode capture a wave batch size and no
+    wave prefill capture (each wave shape comes once).  Returns the
+    serve."""
+    from repro_torch.launch import serve as launch_serve
+
+    got = launch_serve.serve(executor=out["executor"], graphs=True, **kw)
+    torch.cuda.synchronize()
+    if {r.uid: r.output for r in got["requests"]} != {r.uid: r.output
+                                                      for r in out["requests"]}:
+        raise AssertionError(f"{what}: served tokens differ from the eager serve's")
+    if got["stats"] != out["stats"]:
+        raise AssertionError(f"{what}: stats {got['stats']}, the eager serve's {out['stats']}")
+    check_wave_graph_stats(got["graph_stats"]["target"], got["stats"]["decode_steps"], what)
+    return got
+
+
+def wave_line(got, out, card):
+    """The graphs of a wave serve and its speed beside the eager serve's."""
+    gs = got["graph_stats"]["target"]
+    dec, held = gs["wave_decode"], gs["wave_caches"]
+    return (f"wave decode {dec['captures']} captures ({dec['capture_ms']:.1f} ms, pool "
+            f"{dec['pool_bytes']} B), {dec['replays']} replays; wave prefills "
+            f"{gs['wave_prefill']['shapes']} shapes, eager; {held['caches']} held wave caches "
+            f"of {held['bytes']} B; {got['new_tokens']} new tokens in {got['seconds']:.2f} s: "
+            f"{got['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * got['ttft_p50_s']:.1f} ms (the "
+            f"eager serve {out['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{1e3 * out['ttft_p50_s']:.1f} ms; not a claim: one serve each) ({card})")
+
+
+def wave_step_check(ex, lengths, max_len, vocab, torch, card, what):
+    """A wave of prompts right-padded to ``max(lengths)`` on ``ex`` with
+    graphs on (its held cache), each call beside the eager executor on a
+    fresh cache: the prefill three times (eager, captured, replayed), then
+    decode steps at per-row positions ``lengths`` (captured), ``lengths +
+    1`` and ``lengths + 4`` (replayed); logits and every cache leaf
+    bitwise the eager step's.  Then the decode step's wall ms eager
+    against replay (``eager_vs_replay``, ``WAVE_STEPS`` a block), the
+    idle share, capture ms, the graph pools' and the held cache's bytes."""
+    import numpy as np
+
+    from repro_torch.serving.graphs import leaves
+
+    lengths = np.asarray(lengths)
+    b, s = len(lengths), int(lengths.max())
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    rng = np.random.default_rng(39)
+    prefill_ms = []
+    for _ in range(3):
+        tokens = rng.integers(1, vocab, (b, s))
+        cache, twin = ex.make_cache(b, max_len), eager.make_cache(b, max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = ex.prefill(tokens, cache, lengths=lengths)
+        got.argmax(-1).cpu()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        want, _ = eager.prefill(tokens, twin, lengths=lengths)
+        if not torch.equal(got, want) or not all(
+                torch.equal(x, y) for x, y in zip(leaves(cache), leaves(twin))):
+            raise AssertionError(f"{what}: a wave prefill through its graph differs from the "
+                                 f"eager step: logits max diff "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+    tok = rng.integers(1, vocab, (b, 1))
+    for step in (0, 1, 4):
+        got, _ = ex.decode(tok, cache, lengths + step)
+        want, _ = eager.decode(tok, twin, lengths + step)
+        if not torch.equal(got, want) or not all(
+                torch.equal(x, y) for x, y in zip(leaves(cache), leaves(twin))):
+            raise AssertionError(f"{what}: the wave decode step at {lengths + step} differs "
+                                 f"from the eager step: logits max diff "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+    stats = ex.graph_stats
+    pre, dec = stats["wave_prefill"], stats["wave_decode"]
+    if ((pre["captures"], pre["replays"]) != (1, 2)
+            or (dec["captures"], dec["replays"]) != (1, 2)):
+        raise AssertionError(f"{what}: graph stats {stats}")
+    index = lengths + 4
+    eager_ms, replay_ms, device_ms, busy_ms, idle = eager_vs_replay(
+        lambda i: eager.decode(tok, twin, index)[0],
+        lambda i: ex.decode(tok, cache, index)[0], WAVE_STEPS, torch)
+    log("graphs", f"{what}: a wave of {b} rows right-padded to {s}: the prefill eager, "
+        f"captured and replayed ({prefill_ms[0]:.1f} / {prefill_ms[1]:.1f} / "
+        f"{prefill_ms[2]:.1f} ms, host inputs to synced logits; capture "
+        f"{pre['capture_ms']:.1f} ms, pool {pre['pool_bytes']} B) and the decode step at "
+        f"positions {lengths.tolist()} (captured), +1 and +4 (replayed), logits and every "
+        f"cache leaf bitwise the eager step's; decode step wall ms eager {eager_ms[0]:.3f} / "
+        f"replay {replay_ms[0]:.3f} / replay {replay_ms[1]:.3f} / eager {eager_ms[1]:.3f} "
+        f"(median of {WAVE_STEPS} each), replay device {device_ms:.3f} ms a step back to "
+        f"back; kernel time of one step in the profiler's trace eager "
+        f"{_ms(busy_ms['eager'])} / replay {_ms(busy_ms['replay'])} ms, so the card idles "
+        f"{idle['eager']} / {idle['replay']} of the step's wall; capture "
+        f"{dec['capture_ms']:.1f} ms, pool {dec['pool_bytes']} B; held cache "
+        f"{stats['wave_caches']['bytes']} B ({card})")
+    ex.graphs = False
+
+
+def phase_graphs_waves_zoo(torch, card, out):
+    """Phase 37 (d): phase 8's RecurrentGemma-9B traffic served again on
+    phase 8's executor with ``graphs=True``: tokens and stats bitwise
+    phase 8's, phase 8's launch counts (24 flash on ``mma``, 52 scan on
+    ``tma``: the wave prefills run eagerly, each shape once), one wave
+    decode capture for each wave (4 rows, 2 rows); then
+    ``wave_step_check`` of a 2-row wave of 300 and 250 tokens, the first
+    time the hd-256 windowed flash kernel and the TMA scan run inside a
+    graph."""
+    from repro_torch.kernels import ops
+
+    what = "RecurrentGemma-9B bf16 waves, graphs on"
+    lens = [300] * 4 + [2100] * 2
+    ops.reset_launch_counts()
+    got = wave_serve_graphs(torch, out, what, model="recurrentgemma-9b", executor_kind="zoo",
+                            prompt_lens=lens, max_new=16, max_batch=4, device="cuda",
+                            dtype="bfloat16", seed=0)
+    counts, cfg = ops.launch_counts(), out["executor"].cfg
+    expect = dict.fromkeys(counts, 0)
+    expect.update({"flash_attention": cfg.layer_kinds().count("attn") * 2,
+                   "rglru_scan": cfg.layer_kinds().count("rec") * 2})
+    if counts != expect:
+        raise AssertionError(f"{what}: launches {counts} != {expect}")
+    check_flash_paths(ops, counts, what)
+    if ops.path_counts()["rglru_scan"] != {"tma": counts["rglru_scan"], "simt": 0}:
+        raise AssertionError(f"{what}: rglru_scan off the TMA path: {ops.path_counts()}")
+    if got["graph_stats"]["target"]["wave_decode"]["captures"] != 2:
+        raise AssertionError(f"{what}: {got['graph_stats']['target']['wave_decode']}")
+    log("graphs", f"{what}: 6 requests' tokens and stats bitwise equal to phase 8's; flash "
+        f"{counts['flash_attention']} (mma), scan {counts['rglru_scan']} (tma); "
+        + wave_line(got, out, card))
+    ex = out["executor"]
+    ops.reset_launch_counts()
+    wave_step_check(ex, [300, 250], 320, cfg.vocab_size, torch, card,
+                    "RecurrentGemma-9B bf16 wave")
+    # the eager executor's 3 prefills and the graph side's eager one and its
+    # capture's replay, a replay: 12 flash and 26 scan each
+    counts = ops.launch_counts()
+    if (counts["flash_attention"], counts["rglru_scan"]) != (6 * 12, 6 * 26):
+        raise AssertionError(f"{what}: the step check launched {counts}")
+
+
+def phase_graphs_waves_galaxy(torch, card, wave):
+    """Phase 37 (e): phase 15's GPT2-L fp16 wave serve again on its
+    executor with ``graphs=True``: tokens and stats bitwise phase 15's,
+    launches exact by ``galaxy_expect`` (576 ``tiled_gemm_valid`` a decode
+    step, true under replay, and ``ragged_flash_attention`` 36 x 4 a
+    wave), all on the fast paths; one wave decode capture a wave batch
+    size."""
+    from repro_torch.kernels import ops
+
+    what = "GPT2-L fp16 Galaxy waves, graphs on"
+    ops.reset_launch_counts()
+    got = wave_serve_graphs(torch, wave, what, model="gpt2-l", capacities=(3, 2, 2, 1),
+                            requests=4, prompt_len=(37, 300), max_new=16, max_batch=4,
+                            scheduler="wave", device="cuda", dtype="float16", seed=0)
+    st, counts = got["stats"], ops.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(galaxy_expect(st))
+    if counts != expect or counts["ragged_flash_attention"] != 36 * 4 * st["prefill_waves"]:
+        raise AssertionError(f"{what}: launches {counts} != {expect}")
+    check_galaxy_paths(ops, what)
+    log("graphs", f"{what}: 4 requests' tokens and stats bitwise equal to phase 15's; "
+        f"launches {', '.join(f'{n} {counts[n]}' for n in GALAXY_KERNELS)} as galaxy_expect "
+        f"says ({st['prefill_waves']} waves, {st['decode_steps']} decode steps of 576), on "
+        f"the fast paths; " + wave_line(got, wave, card))
+
+
+def phase_graphs_waves_xlstm(torch, card, out):
+    """Phase 37 (f): phase 24's xlstm-350m traffic served again on its
+    executor with ``graphs=True``: tokens and stats bitwise phase 24's, no
+    kernel launched, one wave decode capture for each wave (4 rows, 2
+    rows)."""
+    from repro_torch.kernels import ops
+
+    what = "xlstm-350m bf16 waves, graphs on"
+    ops.reset_launch_counts()
+    got = wave_serve_graphs(torch, out, what, model="xlstm-350m", executor_kind="zoo",
+                            prompt_lens=[256] * 4 + [300] * 2, max_new=16, max_batch=4,
+                            device="cuda", dtype="bfloat16", seed=0)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{what}: launches {ops.launch_counts()}")
+    if got["graph_stats"]["target"]["wave_decode"]["captures"] != 2:
+        raise AssertionError(f"{what}: {got['graph_stats']['target']['wave_decode']}")
+    log("graphs", f"{what}: 6 requests' tokens and stats bitwise equal to phase 24's; "
+        + wave_line(got, out, card))
+
+
 def main() -> int:
     import torch
 
@@ -4840,7 +5036,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         fp16 = phase_spec_serve(torch, rec, card)
         local_tokens["spec"] = {r.uid: r.output for r in fp16["spec"]}
-        phase_wave_serve(torch, rec, card, fp16)
+        wave = phase_wave_serve(torch, rec, card, fp16)
         torch.cuda.empty_cache()
         phase_schedules(torch, rec, card)
         torch.cuda.empty_cache()
@@ -4848,7 +5044,8 @@ def main() -> int:
     check_logged_calls(calls, rec, torch, card)
     rec["flash_attention"].d["launches"] += qwen_launches
     phase_graphs_spec(torch, card, fp16)
-    del fp16
+    phase_graphs_waves_galaxy(torch, card, wave)
+    del fp16, wave
     torch.cuda.empty_cache()
 
     phase_zoo_kernels(rec, torch)
@@ -4860,6 +5057,7 @@ def main() -> int:
     zoo_one = {"tokens": {r.uid: r.output for r in out["requests"]}, "bf16_err": bf16_err,
                "prompts": {r.uid: r.prompt for r in out["requests"]},
                "tokens_per_s": out["tokens_per_s"], "ttft_p50_s": out["ttft_p50_s"]}
+    phase_graphs_waves_zoo(torch, card, out)
     del out  # RecurrentGemma's 16 GiB go before StableLM is drawn
     torch.cuda.empty_cache()
 
@@ -4888,7 +5086,9 @@ def main() -> int:
     check_moe_served_token(out, torch)
     del out
     torch.cuda.empty_cache()
-    phase_xlstm_serve(torch, card)
+    out = phase_xlstm_serve(torch, card)
+    phase_graphs_waves_xlstm(torch, card, out)
+    del out
     torch.cuda.empty_cache()
 
     phase_train_kernels(torch, card)

@@ -433,6 +433,16 @@ def make_kv_cache(batch: int, cache_len: int, num_layers: int, plan: ExecPlan, *
     return [{"k": shards(), "v": shards()} for _ in range(num_layers)]
 
 
+def reset_kv_cache(cache: List[Dict[str, List[torch.Tensor]]]) -> None:
+    """Zero a :func:`make_kv_cache` tree in place: bitwise a fresh one,
+    with every tensor where it was (a wave cache reused by the next wave:
+    a stale non-finite V entry would turn masked attention into NaN)."""
+    for layer in cache:
+        for shards in layer.values():
+            for t in shards:
+                t.zero_()
+
+
 def hmp_prefill(layers: Sequence, x, ring: Ring, cache: List[Dict], *,
                 plan: ExecPlan, overlap: bool = False, seq: Optional[int] = None,
                 block_row=None, offset=None):

@@ -383,13 +383,22 @@ def _device_layout(pos_bytes: bytes, device: str, block_q: int,
             torch.as_tensor(kinds, device=device))
 
 
+@functools.lru_cache(maxsize=64)
+def _cpu_positions(pos_bytes: bytes) -> torch.Tensor:
+    """One layout's positions as a CPU tensor, made once (a step that reads
+    them builds nothing from host data after its first call, as the
+    kernel's cached device layout)."""
+    return torch.from_numpy(np.frombuffer(pos_bytes, dtype=np.int64).copy())
+
+
 def ragged_flash_attention_plain(q, k, v, *, positions, valid_heads=None):
     """Plain PyTorch version of :func:`ragged_flash_attention`, fp32
     softmax with the same masking: pad keys are zeroed before use, a row
-    with no visible key (a pad query) outputs 0, pad heads output 0."""
+    with no visible key (a pad query) outputs 0, pad heads output 0.
+    ``positions`` may also be a tensor."""
     b, h, s, hd = q.shape
     g = h // k.shape[1]
-    pos = torch.as_tensor(np.asarray(positions), device=q.device)
+    pos = torch.as_tensor(positions, device=q.device)
     valid = pos >= 0
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     kf = torch.where(valid[:, None], k.float(), zero).repeat_interleave(g, dim=1)
@@ -423,8 +432,8 @@ def ragged_flash_attention(q, k, v, *, positions, valid_heads=None):
     if np.asarray(positions).shape != (s,):
         raise ValueError(f"positions must have {s} rows")
     if q.device.type == "cpu":
-        return ragged_flash_attention_plain(q, k, v, positions=positions,
-                                            valid_heads=valid_heads)
+        pos = _cpu_positions(np.ascontiguousarray(positions, dtype=np.int64).tobytes())
+        return ragged_flash_attention_plain(q, k, v, positions=pos, valid_heads=valid_heads)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_flash_attention kernel for {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:

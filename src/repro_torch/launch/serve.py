@@ -111,16 +111,22 @@ holds of them.
 
 ``--cuda-graphs`` replays each paged decode step of the served model (and
 of the draft) and each of its prefill chunks (prefix-hit suffixes, chunks
-of ``--prefill-chunk``, speculative verify chunks) as captured CUDA
-graphs, one a step shape (``serving/graphs.py``, the reference's jitted
-decode step and per-chunk-shape prefill; off by default): the decode
-step is captured on its first call, a chunk shape on its second (its
-first runs eagerly) and replayed at any offset after; the same tokens as
-without it.  The serve line adds ``graph_stats`` (captures, replays,
-capture ms, the graph pools' bytes, for ``decode`` and ``chunk``) for
-the served model and the draft.  Only one process on the card
-is captured: ``--cuda-graphs`` is refused with ``--ranks`` above 1 and
-with ``--device cpu``.
+of ``--prefill-chunk``, speculative verify chunks), and in waves
+(``--scheduler wave``, or RecurrentGemma and xLSTM) each wave prefill and
+wave decode step, as captured CUDA graphs, one a step shape
+(``serving/graphs.py``, the reference's jitted decode step,
+per-chunk-shape prefill and per-wave-shape prefill and decode; off by
+default): a decode step is captured on its first call, a chunk or wave
+prefill shape on its second (its first runs eagerly) and replayed after,
+a chunk at any offset, a wave decode step at any position; the same
+tokens as without it.  The executor then holds one wave cache a wave
+batch size, reset in place for each wave, which its wave graphs read.
+The serve line (and ``--report``) adds ``graph_stats`` (captures,
+replays, capture ms, the graph pools' bytes, for ``decode``, ``chunk``,
+``wave_decode`` and ``wave_prefill``, and the held wave caches and their
+bytes) for the served model and the draft.  Only one process on the card
+is captured: ``--cuda-graphs`` is refused with ``--ranks`` above 1 (the
+zoo in waves across ranks among them) and with ``--device cpu``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given, and refuses to start
 when CUDA is absent and the CPU was not asked for.
@@ -380,9 +386,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     Galaxy ring) serves this rank's shards; every rank calls ``serve``
     with the same arguments, and only the rank of the draft's device
     builds ``draft_model``.  ``graphs`` sets the executor's and the
-    draft's ``graphs`` (a taken executor's too): each paged decode step
-    and each prefill chunk replays a captured CUDA graph of its shape;
-    ``"graph_stats"`` holds the run's
+    draft's ``graphs`` (a taken executor's too): each paged decode step,
+    prefill chunk, wave prefill and wave decode step replays a captured
+    CUDA graph of its shape; ``"graph_stats"`` holds the run's
     (``{"target": ..., "draft": ...}``, None where off)."""
     dev = resolve_device(device)
     if graphs and (ring is not None or dev.type != "cuda"):
@@ -694,11 +700,13 @@ def main(argv=None):
     ap.add_argument("--report", default=None, metavar="DIR",
                     help="each rank writes DIR/rank<r>.json: served tokens, kernel "
                          "launches and paths, engine stats, ring hops; weights, peak "
-                         "memory, staged collectives and (zoo) distinct kernel calls")
+                         "memory, staged collectives, (zoo) distinct kernel calls and "
+                         "graph stats (the four step kinds, the held wave caches' bytes)")
     ap.add_argument("--cuda-graphs", action="store_true",
-                    help="replay each paged decode step and prefill chunk (the served "
-                         "model's and the draft's) as a captured CUDA graph of its "
-                         "shape; one process on the card")
+                    help="replay each paged decode step and prefill chunk, and each "
+                         "wave prefill and wave decode step (the served model's and the "
+                         "draft's), as a captured CUDA graph of its shape; one process "
+                         "on the card")
     rank_procs.add_rank_args(ap)
     args = ap.parse_args(argv)
     if args.cuda_graphs and args.ranks > 1:

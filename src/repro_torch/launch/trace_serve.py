@@ -13,9 +13,11 @@
       --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 Builds the same executor as ``launch.serve`` (random weights from
-``--seed``; ``--cuda-graphs`` as there: the decode steps and prefill
-chunks replayed as captured CUDA graphs, which every serve captures anew
-on its new pool) and serves the same requests three times: once to build and
+``--seed``; ``--cuda-graphs`` as there: the decode steps, prefill
+chunks and wave steps replayed as captured CUDA graphs; every serve
+captures the paged steps anew on its new pool, and the wave steps anew
+on the held wave caches, which ``serve`` lets go when it sets
+``graphs``) and serves the same requests three times: once to build and
 warm the kernels, once unprofiled for the wall time, and once under the
 profiler for the device time by kernel.  Prints the wall times, the
 device-busy time and its share of each wall time, the kernels that took
@@ -109,8 +111,8 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=10,
                     help="kernels and operators to list, by device time")
     ap.add_argument("--cuda-graphs", action="store_true",
-                    help="as launch.serve's: decode steps and prefill chunks replayed as "
-                         "captured CUDA graphs; on the card")
+                    help="as launch.serve's: decode steps, prefill chunks and wave "
+                         "steps replayed as captured CUDA graphs; on the card")
     add_scheduling_args(ap)
     args = ap.parse_args(argv)
     if args.cuda_graphs and args.device == "cpu":

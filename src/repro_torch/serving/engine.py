@@ -84,8 +84,8 @@ from repro_torch.models.transformer import apply_model
 from repro_torch.obs.drift import DriftMonitor
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import RequestTracks, Tracer
-from repro_torch.serving.graphs import StepGraph, shape_of
-from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves
+from repro_torch.serving.graphs import GraphedSteps, shape_of, wave_index, wave_rows
+from repro_torch.serving.kvcache import cache_page_size, make_cache, map_cache_leaves, reset_cache
 from repro_torch.serving.kvpool import PagedKVPool
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import SamplerConfig, sample, sample_positions
@@ -119,7 +119,7 @@ def paged_capable(cfg: ModelConfig) -> bool:
     return all(k == "attn" for k in kinds) and cfg.window == 0
 
 
-class TransformerExecutor:
+class TransformerExecutor(GraphedSteps):
     """The model zoo (``models/transformer.py``) on one device, or under the
     HMP sharding rules on a mesh of ranks, behind the wave protocol and,
     for full-causal attention stacks, the paged one.
@@ -155,15 +155,19 @@ class TransformerExecutor:
     (``sharding.take_pages``, ``take_pairs``, ``put_pairs``): no
     collective beyond the model's own.
 
-    graphs: replay ``decode_paged`` (gather, the one-token model, scatter)
-            and ``prefill_chunk`` (the whole row's gather, the chunk at its
-            device-held offset, scatter) as captured CUDA graphs, one a
-            shape (``serving/graphs.py:StepGraph``, the reference's jitted
-            paged decode and per-chunk-shape prefill); the same steps run
-            eagerly without it.  Settable; setting it starts new graphs and
-            ``graph_stats``.  Raises ``ValueError`` off the card and under
-            ``rules`` (``DTensor`` dispatches on the host and the mesh's
-            collectives stage through it: neither can be captured).
+    graphs: replay ``decode_paged`` (gather, the one-token model, scatter),
+            ``prefill_chunk`` (the whole row's gather, the chunk at its
+            device-held offset, scatter) and the wave ``prefill`` and
+            ``decode`` (rows and write positions on the device) as captured
+            CUDA graphs, one a shape (``serving/graphs.py:StepGraph``, the
+            reference's jitted paged decode, per-chunk-shape prefill and
+            per-wave-shape prefill and decode), with ``make_cache`` handing
+            out the wave cache held for its batch size, reset in place; the
+            same steps run eagerly without it.  Settable; setting it starts
+            new graphs and ``graph_stats`` and lets the held caches go.
+            Raises ``ValueError`` off the card and under ``rules``
+            (``DTensor`` dispatches on the host and the mesh's collectives
+            stage through it: neither can be captured).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, backend: str = "kernel",
@@ -192,26 +196,11 @@ class TransformerExecutor:
             self.ring = ProcessRing(dist.get_rank(), dist.get_world_size())
         self.graphs = graphs
 
-    @property
-    def graphs(self) -> bool:
-        return self._graph is not None
-
-    @graphs.setter
-    def graphs(self, on: bool) -> None:
-        self._graph = None
-        if on:
-            if self.rules is not None:
-                raise ValueError("graphs=True runs one process without sharding rules: "
-                                 "DTensor dispatch and the mesh's host-staged "
-                                 "collectives cannot be captured")
-            self._graph = StepGraph(self.device)
-
-    @property
-    def graph_stats(self) -> Optional[Dict]:
-        """The captured steps' ``StepGraph.stats``, ``{"decode": ...,
-        "chunk": ...}`` (None without graphs)."""
-        return None if self._graph is None else {k: dict(v)
-                                                 for k, v in self._graph.stats.items()}
+    def _graphs_refused(self) -> Optional[str]:
+        if self.rules is not None:
+            return ("graphs=True runs one process without sharding rules: DTensor "
+                    "dispatch and the mesh's host-staged collectives cannot be captured")
+        return None
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -242,26 +231,55 @@ class TransformerExecutor:
 
     # --- wave protocol -------------------------------------------------------
     def make_cache(self, batch: int, max_len: int):
-        return make_cache(self.cfg, batch, max_len, device=self.device, rules=self.rules)
+        """The wave cache; with graphs on, the one held for ``batch``, reset
+        in place (bitwise a fresh one): the caller's earlier wave's cache
+        is this one."""
+        return self._wave_cache(batch, max_len, lambda: make_cache(
+            self.cfg, batch, max_len, device=self.device, rules=self.rules), reset_cache)
 
     def prefill(self, tokens, cache, lengths=None):
         """Prefill a batch of prompts into ``cache``.  Returns the logits of
         each row's last real prompt token, (B, V), and the cache.
         ``lengths`` (B,) names each row's real length when prompts were
-        right-padded to a shared length; None takes the last column."""
+        right-padded to a shared length; None takes the last column.  On
+        one process the step (:meth:`_wave_prefill_step`, the rows on the
+        device) runs eagerly or through its graph; under the rules the
+        last column stays a host int."""
+        if self.mesh is None:
+            return self._step("wave_prefill", self._wave_prefill_step, cache, tokens,
+                              wave_rows(tokens, lengths)), cache
         tokens = self._tensor(tokens)
         rows = tokens.shape[1] - 1 if lengths is None else self._tensor(lengths) - 1
         return self._model(tokens=tokens, mode="prefill", cache=cache, rows=rows)
 
+    def _wave_prefill_step(self, cache, tokens, rows) -> torch.Tensor:
+        """The step that ``prefill`` runs or captures on one process:
+        tokens (B, S) and the row of each one's logits, (B,), on the
+        device."""
+        logits, _ = self._model(tokens=tokens, mode="prefill", cache=cache, rows=rows)
+        return logits
+
     def decode(self, tokens, cache, index):
         """One decode step of the batch: tokens (B, 1); index a host int
-        (lockstep) or (B,) per-row write positions.
-        Returns (logits (B, V), cache)."""
+        (lockstep) or (B,) per-row write positions.  Returns (logits (B,
+        V), cache).  On one process the lockstep index is broadcast to
+        every row here and the step (:meth:`_wave_decode_step`) runs
+        eagerly or through its graph; under the rules it stays a host
+        int."""
+        if self.mesh is None:
+            return self._step("wave_decode", self._wave_decode_step, cache, tokens,
+                              wave_index(tokens, index)), cache
         if not isinstance(index, int):
             index = self._tensor(index)
         logits, cache = self._model(tokens=self._tensor(tokens), mode="decode", cache=cache,
                                     cache_index=index)
         return logits[:, -1], cache
+
+    def _wave_decode_step(self, cache, tokens, index) -> torch.Tensor:
+        """The step that ``decode`` runs or captures on one process: tokens
+        (B, 1) and each row's write position, (B,), on the device."""
+        logits, _ = self._model(tokens=tokens, mode="decode", cache=cache, cache_index=index)
+        return logits[:, -1]
 
     # --- paged protocol ------------------------------------------------------
     def make_pool(self, num_pages: int, page_size: int):
@@ -329,12 +347,9 @@ class TransformerExecutor:
         if offset < 0 or offset + s > w * ps:
             raise ValueError(f"positions [{offset}, {offset + s}) exceed the block row "
                              f"({w} pages x {ps})")
-        if self._graph is not None:
-            return self._graph.run(self._chunk_step, pool, tokens, block_row, offset,
-                                   kind="chunk"), pool
         if self.mesh is None:
-            return self._chunk_step(pool, self._tensor(tokens), self._tensor(block_row),
-                                    self._tensor(offset)), pool
+            return self._step("chunk", self._chunk_step, pool, tokens, block_row,
+                              offset), pool
         row = self._tensor(block_row)
         dense = self.gather_pages(pool, row[: -(-(offset + s) // ps)][None])
         logits, dense = self._model(tokens=self._tensor(tokens), mode="prefill", cache=dense,
@@ -363,11 +378,8 @@ class TransformerExecutor:
         scatter each new K/V entry back into its page.  Rows of idle slots
         carry the null page and position 0.  Returns ``(logits (B, V),
         pool)``; the pool is updated in place."""
-        if self._graph is not None:
-            return self._graph.run(self._decode_step, pool, tokens, positions, block_table,
-                                   kind="decode"), pool
-        return self._decode_step(pool, self._tensor(tokens), self._tensor(positions),
-                                 self._tensor(block_table)), pool
+        return self._step("decode", self._decode_step, pool, tokens, positions,
+                          block_table), pool
 
     def _decode_step(self, pool, tokens, positions, bt) -> torch.Tensor:
         """The step that ``decode_paged`` runs or captures, on device

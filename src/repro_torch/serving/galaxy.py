@@ -26,15 +26,19 @@ tiles and non-dividing lengths run exactly.  K/V land at absolute
 positions, and each decode step overwrites its own cache entry before
 attending, so bucket-padding positions are never read.
 
-``graphs=True`` replays ``decode_paged`` and ``prefill_chunk`` as
-captured CUDA graphs, one per step shape (``serving/graphs.py:StepGraph``,
-the reference's jitted decode step and per-chunk-shape prefill, whose
-offset stays a traced scalar): the chunk step reads its offset from
-device memory, so one graph serves every offset.  The same step functions
-run eagerly with ``graphs=False``, so the two modes compute the same
-thing.  Only a ``LocalRing`` on the card can be captured: a
-``ProcessRing``'s hops synchronize on the host, and it runs the same
-steps eagerly.
+``graphs=True`` replays ``decode_paged``, ``prefill_chunk`` and the wave
+protocol's ``prefill`` and ``decode`` as captured CUDA graphs, one per
+step shape (``serving/graphs.py:StepGraph``, the reference's jitted decode
+step, per-chunk-shape prefill, whose offset stays a traced scalar, and
+per-wave-shape prefill and decode): the chunk step reads its offset from
+device memory, so one graph serves every offset, and the wave decode step
+its write positions, so one graph serves every step of a wave.  With
+graphs on, ``make_cache`` returns the wave cache the executor holds for
+that batch size, reset in place, so a wave graph outlives its wave.  The
+same step functions run eagerly with ``graphs=False``, so the two modes
+compute the same thing.  Only a ``LocalRing`` on the card can be
+captured: a ``ProcessRing``'s hops synchronize on the host, and it runs
+the same steps eagerly.
 """
 from __future__ import annotations
 
@@ -46,10 +50,10 @@ import torch
 from repro_torch.core import hmp
 from repro_torch.core.execplan import ExecPlan
 from repro_torch.core.ring import ProcessRing, Ring
-from repro_torch.serving.graphs import StepGraph, shape_of
+from repro_torch.serving.graphs import GraphedSteps, shape_of, wave_index, wave_rows
 
 
-class GalaxyHMPExecutor:
+class GalaxyHMPExecutor(GraphedSteps):
     """Wave and paged executor protocols over HMP layers.
 
     layers: stack of layer params in *reference* layout; padded and split
@@ -60,10 +64,11 @@ class GalaxyHMPExecutor:
     plan:   compute backend and ring transport come from the plan
             (``ExecPlan.with_backend`` / ``with_transport``); prefill always
             runs the overlapped ring.
-    graphs: replay ``decode_paged`` and ``prefill_chunk`` as captured
-            CUDA graphs (settable; setting it starts new graphs and
-            ``graph_stats``).  Raises ``ValueError`` off the card and on a
-            ``ProcessRing``.
+    graphs: replay ``decode_paged``, ``prefill_chunk``, ``prefill`` and
+            ``decode`` as captured CUDA graphs, and hold one wave cache a
+            batch size (settable; setting it starts new graphs and
+            ``graph_stats`` and lets the held caches go).  Raises
+            ``ValueError`` off the card and on a ``ProcessRing``.
     """
 
     def __init__(self, layers: Sequence[Dict], embed: torch.Tensor,
@@ -78,25 +83,11 @@ class GalaxyHMPExecutor:
         self.device = embed.device
         self.graphs = graphs
 
-    @property
-    def graphs(self) -> bool:
-        return self._graph is not None
-
-    @graphs.setter
-    def graphs(self, on: bool) -> None:
-        self._graph = None
-        if on:
-            if isinstance(self.ring, ProcessRing):
-                raise ValueError("graphs=True needs a LocalRing: a ProcessRing's hops "
-                                 "synchronize on the host and cannot be captured")
-            self._graph = StepGraph(self.device)
-
-    @property
-    def graph_stats(self) -> Optional[Dict]:
-        """The captured steps' ``StepGraph.stats``, ``{"decode": ...,
-        "chunk": ...}`` (None without graphs)."""
-        return None if self._graph is None else {k: dict(v)
-                                                 for k, v in self._graph.stats.items()}
+    def _graphs_refused(self) -> Optional[str]:
+        if isinstance(self.ring, ProcessRing):
+            return ("graphs=True needs a LocalRing: a ProcessRing's hops synchronize on "
+                    "the host and cannot be captured")
+        return None
 
     @property
     def prompt_pad_multiple(self) -> int:
@@ -145,34 +136,41 @@ class GalaxyHMPExecutor:
     def make_cache(self, batch: int, max_len: int) -> List[Dict]:
         """Dense per-wave cache.  Rows are absolute positions (a ragged
         prefill writes only its valid rows), so it holds the longest
-        bucketed prompt, not the plan's padded ragged extent."""
+        bucketed prompt, not the plan's padded ragged extent.  With graphs
+        on, the cache held for ``batch``, zeroed in place (bitwise a fresh
+        one): the caller's earlier wave's cache is this one."""
         grain = self.plan.seq_grain
-        return hmp.make_kv_cache(batch, -(-max_len // grain) * grain, len(self.layers),
-                                 self.plan, device=self.device, dtype=self.embed.dtype,
-                                 devices=self.ring.devices)
+        cache_len = -(-max_len // grain) * grain
+        return self._wave_cache(batch, cache_len, lambda: hmp.make_kv_cache(
+            batch, cache_len, len(self.layers), self.plan, device=self.device,
+            dtype=self.embed.dtype, devices=self.ring.devices), hmp.reset_kv_cache)
 
     def prefill(self, tokens, cache, lengths=None):
         """Prefill a wave (B, S), prompts right-padded to S.  Returns the
         logits of each row's last real token, (B, V): row ``lengths[b] -
-        1``, or the last column without ``lengths``; and the cache."""
-        tokens = self._tensor(tokens)
-        b, s = tokens.shape
+        1``, or the last column without ``lengths``; and the cache.  The
+        step (:meth:`_wave_prefill_step`) runs eagerly or through its
+        graph."""
+        rows = wave_rows(tokens, lengths)
+        return self._step("wave_prefill", self._wave_prefill_step, cache, tokens,
+                          rows), cache
+
+    def _wave_prefill_step(self, cache, tokens, rows) -> torch.Tensor:
+        """The step that ``prefill`` runs or captures: tokens (B, S) and
+        the row of each one's logits, (B,), on the device."""
         layout, x = self._embed(tokens)
-        y, cache = hmp.hmp_prefill(self.layers, x, self.ring, cache, plan=self.plan,
-                                   overlap=True, seq=s)
+        y, _ = hmp.hmp_prefill(self.layers, x, self.ring, cache, plan=self.plan, overlap=True,
+                               seq=tokens.shape[1])
         y = layout.gather(y)
-        rows = (torch.full((b,), s - 1, device=self.device) if lengths is None
-                else self._tensor(lengths) - 1)
-        return y[torch.arange(b, device=self.device), rows] @ self.embed.T, cache
+        return y[torch.arange(tokens.shape[0], device=self.device), rows] @ self.embed.T
 
     def decode(self, tokens, cache, index):
         """One lockstep decode step of the wave: tokens (B, 1); index a host
-        int or (B,) per-row write positions.  Returns (logits (B, V),
-        cache)."""
-        x = self._lookup(self._tensor(tokens))  # (B, 1, d)
-        y, cache = hmp.hmp_decode(self.layers, x, self.ring, cache,
-                                  self._tensor(index), plan=self.plan)
-        return y[:, -1] @ self.embed.T, cache
+        int (broadcast here to every row) or (B,) per-row write positions.
+        Returns (logits (B, V), cache).  The step (:meth:`_decode_step`
+        without a block table) runs eagerly or through its graph."""
+        return self._step("wave_decode", self._decode_step, cache, tokens,
+                          wave_index(tokens, index)), cache
 
     # --- paged protocol ----------------------------------------------------
     @property
@@ -217,11 +215,7 @@ class GalaxyHMPExecutor:
         if offset < 0 or offset + s > w * page:
             raise ValueError(f"positions [{offset}, {offset + s}) exceed the block row "
                              f"({w} pages x {page})")
-        if self._graph is not None:
-            return self._graph.run(self._chunk_step, pool, tokens, block_row, offset,
-                                   kind="chunk"), pool
-        return self._chunk_step(pool, self._tensor(tokens), self._tensor(block_row),
-                                self._tensor(offset)), pool
+        return self._step("chunk", self._chunk_step, pool, tokens, block_row, offset), pool
 
     def _chunk_step(self, pool, tokens, block_row, offset) -> torch.Tensor:
         """The step that ``prefill_chunk`` runs or captures: tokens (1, S),
@@ -237,15 +231,13 @@ class GalaxyHMPExecutor:
         """One decode step of the slot batch: tokens (S, 1), block_table
         (S, W), positions (S,).  Returns (logits (S, V), pool); the pool
         is updated in place."""
-        if self._graph is not None:
-            return self._graph.run(self._decode_step, pool, tokens, positions, block_table,
-                                   kind="decode"), pool
-        return self._decode_step(pool, self._tensor(tokens), self._tensor(positions),
-                                 self._tensor(block_table)), pool
+        return self._step("decode", self._decode_step, pool, tokens, positions,
+                          block_table), pool
 
-    def _decode_step(self, pool, tokens, positions, block_table) -> torch.Tensor:
+    def _decode_step(self, pool, tokens, positions, block_table=None) -> torch.Tensor:
         """The step that ``decode_paged`` runs or captures, on device
-        tensors; no value is read on the host."""
+        tensors, and without ``block_table`` the step of ``decode`` on the
+        wave cache; no value is read on the host."""
         x = self._lookup(tokens)  # (S, 1, d)
         y, _ = hmp.hmp_decode(self.layers, x, self.ring, pool, positions, plan=self.plan,
                               block_table=block_table)

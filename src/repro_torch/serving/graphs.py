@@ -1,18 +1,20 @@
 """One captured program per step shape: the port of the reference's
-per-shape ``jax.jit`` of ``decode_paged`` and ``prefill_chunk``.
+per-shape ``jax.jit`` of ``decode_paged``, ``prefill_chunk`` and the wave
+protocol's ``prefill`` and ``decode``.
 
-The reference compiles the paged decode step once per shape, and the
-chunked prefill once per chunk shape with the chunk's offset a traced
-scalar, and runs those programs; the port issues each of a step's ops from
-Python (576 ``tiled_gemm_valid`` launches and the torch ops around them in
-a GPT2-L Galaxy decode step, 2304 in a chunk of any size), and the card
-waits on the host between them.  :class:`StepGraph` captures a step as one
+The reference compiles the paged decode step once per shape, the chunked
+prefill once per chunk shape with the chunk's offset a traced scalar, and
+the wave prefill and decode once per wave shape, and runs those programs;
+the port issues each of a step's ops from Python (576 ``tiled_gemm_valid``
+launches and the torch ops around them in a GPT2-L Galaxy decode step,
+2304 in a chunk or a wave prefill), and the card waits on the host
+between them.  :class:`StepGraph` captures a step as one
 ``torch.cuda.CUDAGraph`` per input shape and replays it.  The block
 table's width is fixed for a run (``serving/kvpool.py``: ``(num_slots,
 pages_per_slot)``), so a serve captures one decode graph and one graph per
-chunk row count.
+chunk row count; a wave serve one decode graph per wave batch size.
 
-Two kinds of step, each a function of the pool and int64 inputs of fixed
+Four kinds of step, each a function of a cache and int64 inputs of fixed
 shapes:
 
 * ``"decode"``: ``step(pool, tokens (S, 1), positions (S,), block_table
@@ -24,6 +26,17 @@ shapes:
   piece or a one-off verify length costs nothing extra; the full chunks
   and the verify chunk's k + 1 rows repeat.  The offset is an input like
   the tokens, read on the device, so one graph serves every offset.
+* ``"wave_decode"``: ``step(cache, tokens (B, 1), index (B,))``, captured
+  on the first call of a shape, as ``"decode"``: every step of a wave
+  after its first replays.
+* ``"wave_prefill"``: ``step(cache, tokens (B, S), rows (B,))``, captured
+  on the second call of a shape, as ``"chunk"`` (the reference's key
+  ``(b, s, lengths is not None)``; here ``rows`` is always an input).
+
+The paged kinds read the engine's pool; the wave kinds read a wave cache
+that :meth:`StepGraph.wave_cache` holds, one per wave batch size, reset in
+place for each wave (the buffers the reference's jitted programs reuse),
+so a graph bound to it outlives the wave.
 
 What a captured step may not do, and what keeps it so:
 
@@ -37,10 +50,12 @@ What a captured step may not do, and what keeps it so:
   warm-up), which builds the kernels (``kernels/build.py:load``) and grows
   the split-K workspace (``kernels/tiled_gemm.py:_workspace``) before the
   capture; both raise if asked to during one;
-* outlive what it reads: every graph is bound to the pool's storage and
-  its input buffer.  A new pool (the engine makes one a run) drops all the
-  graphs, and each graph holds the split-K workspaces it captured, so a
-  later eager launch that grows them cannot free them under it.
+* outlive what it reads: every graph is bound to the storage of the cache
+  it reads and to its input buffer.  A new pool (the engine makes one a
+  run) drops the old pool's graphs; a held wave cache's graphs go when the
+  cache does (another ``max_len`` for its batch size, or a new
+  ``StepGraph``); and each graph holds the split-K workspaces it captured,
+  so a later eager launch that grows them cannot free them under it.
 
 The graphs of one kind share one memory pool: they run one at a time on
 one stream, and a replay's output is copied out before the next replay
@@ -67,8 +82,11 @@ from repro_torch.kernels import tiled_gemm as _gemm
 Step = Callable[..., torch.Tensor]
 
 #: eager calls of a shape before its capture: a decode step captures on its
-#: first call (after the warm-up run in the same call), a chunk on its second
-KINDS = {"decode": 0, "chunk": 1}
+#: first call (after the warm-up run in the same call), a chunk or a wave
+#: prefill on its second
+KINDS = {"decode": 0, "chunk": 1, "wave_decode": 0, "wave_prefill": 1}
+#: the kinds that read the engine's paged pool; the others a held wave cache
+PAGED = ("decode", "chunk")
 
 
 class CudaRuntime:
@@ -151,6 +169,24 @@ def shape_of(t) -> Tuple[int, ...]:
     return tuple(t.shape) if isinstance(t, torch.Tensor) else np.shape(t)
 
 
+def wave_rows(tokens, lengths) -> np.ndarray:
+    """The row of each wave prompt's logits, (B,) int64: ``lengths - 1``,
+    or without ``lengths`` the last column, S - 1, broadcast on the host."""
+    b, s = shape_of(tokens)
+    if lengths is None:
+        return np.full((b,), s - 1, np.int64)
+    return (lengths if isinstance(lengths, torch.Tensor)
+            else np.asarray(lengths, np.int64)) - 1
+
+
+def wave_index(tokens, index):
+    """A wave decode step's write positions, (B,): a lockstep index
+    broadcast to every row on the host, per-row ones as given."""
+    if shape_of(index) != ():
+        return index
+    return np.full((shape_of(tokens)[0],), int(index), np.int64)
+
+
 @dataclasses.dataclass
 class _Entry:
     """One input shape of one kind: its buffers and, once captured, its
@@ -166,42 +202,85 @@ class _Entry:
     keep: tuple = ()  # the split-K workspaces the graph launches on
 
 
+def storage(tree) -> Tuple:
+    """Where a cache tree lives: each leaf's address and shape.  A graph
+    reads exactly these."""
+    return tuple((t.data_ptr(), tuple(t.shape)) for t in leaves(tree))
+
+
 def _fresh_stats() -> Dict[str, Dict]:
-    return {kind: {"shapes": 0, "captures": 0, "replays": 0, "capture_ms": 0.0,
-                   "pool_bytes": 0, "allocated_bytes": 0} for kind in KINDS}
+    stats = {kind: {"shapes": 0, "captures": 0, "replays": 0, "capture_ms": 0.0,
+                    "pool_bytes": 0, "allocated_bytes": 0} for kind in KINDS}
+    stats["wave_caches"] = {"caches": 0, "bytes": 0}
+    return stats
 
 
 class StepGraph:
-    """The captured steps of one executor, one graph per (kind, input
-    shapes), all bound to one pool's storage.
+    """The captured steps of one executor, one graph per (cache, kind,
+    input shapes), each bound to the storage of the cache it reads.
 
-    ``run(step, pool, *inputs, kind=)`` copies the int64 inputs into the
+    ``run(step, cache, *inputs, kind=)`` copies the int64 inputs into the
     shape's device buffer (host inputs through pinned host memory and one
-    asynchronous copy, device inputs on the card), then runs ``step(pool,
+    asynchronous copy, device inputs on the card), then runs ``step(cache,
     *views)`` eagerly on a side stream (the warm-up), captures it, or
     replays its graph, as ``KINDS`` says for the kind.  A replay returns a
     copy of the graph's logits buffer (the next replay may overwrite it,
-    and the caller may still hold these logits).
+    and the caller may still hold these logits).  The paged kinds take the
+    engine's pool (a new one drops the old one's graphs); the wave kinds a
+    cache from :meth:`wave_cache` (:meth:`binds` says which caches a kind
+    may run on).
 
-    ``stats[kind]``: ``shapes`` (input shapes met, counted again after a
-    new pool), ``captures``, ``replays``, ``capture_ms`` (host wall time
-    of the captures), ``pool_bytes`` (device memory the kind's shared
+    ``stats[kind]``: ``shapes`` (input shapes met on a cache, counted again
+    on a new one), ``captures``, ``replays``, ``capture_ms`` (host wall
+    time of the captures), ``pool_bytes`` (device memory the kind's shared
     graph pool holds) and ``allocated_bytes`` (``memory_allocated`` after
     each capture less before, summed: what stays allocated for the graphs,
-    their output buffers).
+    their output buffers); ``stats["wave_caches"]``: the held wave caches
+    and their bytes.
     """
 
     def __init__(self, device, *, runtime: Optional[CudaRuntime] = None):
         self._rt = CudaRuntime() if runtime is None else runtime
         self.device = self._rt.check(torch.device(device))
         self._stream = self._rt.stream(self.device)
-        self._storage = None
-        self._drop()
+        self._entries: Dict[Tuple, _Entry] = {}  # by (storage, kind, input shapes)
+        self._pools: Dict[str, object] = {}
+        self._paged = None  # the storage of the paged pool in use
+        self._held: Dict[int, Tuple[int, object, Tuple]] = {}  # batch -> (max_len, cache, storage)
         self.stats = _fresh_stats()
 
-    def _drop(self) -> None:
-        self._entries: Dict[Tuple, _Entry] = {}
-        self._pools: Dict[str, object] = {}
+    def _release(self, where) -> None:
+        """Drop every graph bound to storage ``where``."""
+        for key in [k for k in self._entries if k[0] == where]:
+            del self._entries[key]
+
+    def wave_cache(self, batch: int, max_len: int, make: Callable[[], object],
+                   reset: Callable[[object], None]):
+        """The wave cache held for ``batch`` rows of ``max_len`` positions,
+        reset in place (``reset(cache)``), or ``make()``'s new one where
+        none is held at that size; a cache of another ``max_len`` for the
+        batch is let go with its graphs.  One cache a batch size."""
+        held = self._held.get(batch)
+        if held is not None and held[0] == max_len:
+            reset(held[1])
+            return held[1]
+        if held is not None:
+            self._release(held[2])
+        cache = make()
+        self._held[batch] = (max_len, cache, storage(cache))
+        self.stats["wave_caches"] = {
+            "caches": len(self._held),
+            "bytes": sum(t.numel() * t.element_size()
+                         for _, c, _ in self._held.values() for t in leaves(c))}
+        return cache
+
+    def binds(self, kind: str, cache) -> bool:
+        """Whether ``kind``'s graphs may run on ``cache``: any pool for the
+        paged kinds, a held wave cache for the wave kinds."""
+        return kind in PAGED or self._holds(storage(cache))
+
+    def _holds(self, where) -> bool:
+        return any(where == s for _, _, s in self._held.values())
 
     def _entry(self, shapes: Sequence[Tuple[int, ...]]) -> _Entry:
         sizes = [math.prod(s) for s in shapes]
@@ -241,12 +320,15 @@ class StepGraph:
     def run(self, step: Step, pool, *inputs, kind: str = "decode") -> torch.Tensor:
         if kind not in KINDS:
             raise ValueError(f"unknown step kind {kind!r}; one of {sorted(KINDS)}")
-        storage = tuple(t.data_ptr() for t in leaves(pool))
-        if storage != self._storage:
-            self._drop()  # a new pool: every graph read the old one
-            self._storage = storage
+        where = storage(pool)
+        if kind in PAGED and where != self._paged:
+            self._release(self._paged)  # a new pool: the old one's graphs read it
+            self._paged = where
+        elif kind not in PAGED and not self._holds(where):
+            raise ValueError(f"a {kind} graph runs on a wave cache this StepGraph holds "
+                             "(wave_cache)")
         shapes = tuple(shape_of(t) for t in inputs)
-        key = (kind, shapes)
+        key = (where, kind, shapes)
         e = self._entries.get(key)
         stats = self.stats[kind]
         if e is None:
@@ -287,3 +369,51 @@ class StepGraph:
         stats["captures"] += 1
         stats["pool_bytes"] = held
         stats["allocated_bytes"] += self._rt.allocated(self.device) - allocated
+
+
+class GraphedSteps:
+    """An executor's side of :class:`StepGraph`: the settable ``graphs``
+    (setting it starts a new ``StepGraph``, new ``graph_stats`` and no held
+    wave cache), ``graph_stats``, :meth:`_step` and :meth:`_wave_cache`.
+    The executor sets ``device`` and defines ``_tensor`` (an input as an
+    int64 tensor on its device) and ``_graphs_refused`` (why it cannot be
+    captured, or None)."""
+
+    _graph: Optional[StepGraph] = None
+
+    @property
+    def graphs(self) -> bool:
+        return self._graph is not None
+
+    @graphs.setter
+    def graphs(self, on: bool) -> None:
+        self._graph = None
+        if on:
+            why = self._graphs_refused()
+            if why is not None:
+                raise ValueError(why)
+            self._graph = StepGraph(self.device)
+
+    @property
+    def graph_stats(self) -> Optional[Dict]:
+        """The captured steps' ``StepGraph.stats``: ``decode``, ``chunk``,
+        ``wave_decode``, ``wave_prefill`` and ``wave_caches`` (None without
+        graphs)."""
+        return None if self._graph is None else {k: dict(v)
+                                                 for k, v in self._graph.stats.items()}
+
+    def _step(self, kind: str, step: Step, cache, *inputs) -> torch.Tensor:
+        """``step(cache, *inputs)``: through the graph of its shape where
+        graphs are on and bind ``cache``, else eagerly on the inputs moved
+        to the device.  Both run the same step."""
+        if self._graph is not None and self._graph.binds(kind, cache):
+            return self._graph.run(step, cache, *inputs, kind=kind)
+        return step(cache, *(self._tensor(t) for t in inputs))
+
+    def _wave_cache(self, batch: int, max_len: int, make: Callable[[], object],
+                    reset: Callable[[object], None]):
+        """``make()`` without graphs; with them the held cache of
+        ``StepGraph.wave_cache``, reset in place."""
+        if self._graph is None:
+            return make()
+        return self._graph.wave_cache(batch, max_len, make, reset)

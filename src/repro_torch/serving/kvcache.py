@@ -116,6 +116,19 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device=None,
         return build()
 
 
+def reset_cache(tree: Dict) -> None:
+    """Fill every leaf of a :func:`make_cache` tree in place with its
+    initial value (``_INIT_SPECIAL``'s, else zero): bitwise a fresh cache,
+    with every tensor where it was (a wave cache reused by the next wave:
+    the RG-LRU prefill starts from ``h``, and a stale non-finite V entry
+    would turn masked attention into NaN)."""
+    for blocks in tree.values():
+        for key, leaves in blocks.items():
+            kind = key.split("_", 1)[1]
+            for name, t in leaves.items():
+                t.fill_(_INIT_SPECIAL.get((kind, name), 0.0))
+
+
 def cache_page_size(pool: Dict) -> int:
     """Positions per page of a pool built by ``make_cache(cfg, num_pages,
     page_size)``: grouped leaves are (G, P, page, kv, hd), tail leaves (P,

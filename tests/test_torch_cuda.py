@@ -1259,3 +1259,111 @@ def test_zoo_chunk_graphs_replay_the_eager_step(cuda):
     graphed = _serve_chunks(ex, True, cfg.vocab_size)
     assert graphed[:3] == eager[:3] and graphed[3]["chunk"]["replays"] > 0
     _chunks_replay_equal_eager(ex, cfg.vocab_size, 5, torch.bfloat16)
+
+
+# --- the captured wave steps (serving/graphs.py, kinds "wave_prefill", "wave_decode") ------
+
+def _wave_executor(kind, cuda):
+    """A small executor of each wave-served family on the card: reduced
+    RecurrentGemma (the windowed flash kernel and the scan kernel in its
+    prefill) or xLSTM in bf16, or the uneven plan's 2-layer fp16 Galaxy
+    executor on the kernel backend; and its vocabulary."""
+    if kind == "galaxy":
+        from repro_torch.core import hmp
+        from repro_torch.core.execplan import ExecPlan
+        from repro_torch.core.ring import LocalRing
+        from repro_torch.serving.galaxy import GalaxyHMPExecutor
+
+        plan = ExecPlan(heads=(6, 4, 4, 2), columns=(24, 16, 16, 8), head_dim=2, d_model=32,
+                        seq_shares=(3.0, 2.0, 2.0, 1.0), compute_backend="kernel")
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        layers = hmp.init_stack_params(2, 32, 16, 64, generator=gen, device=cuda,
+                                       dtype=torch.float16)
+        embed = (torch.randn(300, 32, generator=gen, device=cuda) * 0.5).half()
+        return GalaxyHMPExecutor(layers, embed, plan, LocalRing(4)), 300
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import TransformerExecutor
+
+    cfg = dataclasses.replace(reduced(get_config(kind)), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return TransformerExecutor(init_params(cfg, generator=gen, device=cuda), cfg), \
+        cfg.vocab_size
+
+
+def _serve_waves(ex, vocab, runs=1):
+    """Five requests in waves of 3 and 2 rows (prompts of 12 and 8 tokens,
+    ``max_batch`` 3), ``runs`` times on the executor as it stands: the
+    last run's tokens, launches, paths and decode steps, and the graphs'
+    stats."""
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    for _ in range(runs):
+        eng = ServingEngine(ex, max_batch=3, max_len=24, scheduler="wave")
+        for i in range(5):
+            n = 12 if i < 3 else 8
+            eng.submit(Request(uid=i, prompt=[1 + (7 * i + 3 * j) % (vocab - 1)
+                                              for j in range(n)], max_new_tokens=5))
+        ops.reset_launch_counts()
+        tokens = {r.uid: r.output for r in eng.run()}
+    return (tokens, ops.launch_counts(), ops.path_counts(), eng.stats["decode_steps"],
+            ex.graph_stats)
+
+
+@pytest.mark.parametrize("kind", ["recurrentgemma-9b", "xlstm-350m", "galaxy"])
+def test_wave_graphs_serve_the_eager_tokens(cuda, kind):
+    """Waves with graphs give the eager serve's tokens, launches and paths:
+    one ``wave_decode`` capture a wave batch size, every other step
+    replayed; a second serve on the held caches captures the wave
+    prefills (their second call) and no decode step again."""
+    ex, vocab = _wave_executor(kind, cuda)
+    ex.graphs = False
+    eager = _serve_waves(ex, vocab)
+    ex.graphs = True
+    first = _serve_waves(ex, vocab)
+    assert first[:4] == eager[:4] and eager[4] is None
+    dec, pre = first[4]["wave_decode"], first[4]["wave_prefill"]
+    assert (dec["captures"], dec["replays"]) == (2, first[3] - 2)
+    assert (pre["captures"], pre["shapes"]) == (0, 2)
+    second = _serve_waves(ex, vocab)
+    assert second[:4] == eager[:4]
+    dec, pre = second[4]["wave_decode"], second[4]["wave_prefill"]
+    assert (dec["captures"], dec["replays"]) == (2, 2 * first[3] - 2)
+    assert (pre["captures"], pre["replays"]) == (2, 2)
+    assert second[4]["wave_caches"]["caches"] == 2
+    ex.graphs = False
+
+
+@pytest.mark.parametrize("kind", ["recurrentgemma-9b", "galaxy"])
+def test_wave_steps_replay_the_eager_step(cuda, kind):
+    """A wave prefill shape three times (eager, captured, replayed) and
+    decode steps at per-row positions other than the captured ones, each
+    beside the eager step on a fresh cache: logits and every cache leaf
+    bitwise equal."""
+    import copy
+
+    import numpy as np
+
+    ex, vocab = _wave_executor(kind, cuda)
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    gen = np.random.default_rng(3)
+    lengths = np.array([12, 9])
+    for _ in range(3):
+        tokens = gen.integers(1, vocab, (2, 12))
+        cache, twin = ex.make_cache(2, 24), eager.make_cache(2, 24)
+        got, _ = ex.prefill(tokens, cache, lengths=lengths)
+        want, _ = eager.prefill(tokens, twin, lengths=lengths)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(cache), leaves(twin)))
+    for step in (0, 1, 3, 2):
+        tok = gen.integers(1, vocab, (2, 1))
+        got, _ = ex.decode(tok, cache, lengths + step)
+        want, _ = eager.decode(tok, twin, lengths + step)
+        assert torch.equal(got, want), step
+        assert all(torch.equal(a, b) for a, b in zip(leaves(cache), leaves(twin))), step
+    stats = ex.graph_stats
+    assert (stats["wave_prefill"]["captures"], stats["wave_prefill"]["replays"]) == (1, 2)
+    assert (stats["wave_decode"]["captures"], stats["wave_decode"]["replays"]) == (1, 3)
+    ex.graphs = False

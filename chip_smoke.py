@@ -431,8 +431,22 @@ after the logged Galaxy phases):
              launches exact by ``galaxy_expect`` (576 GEMMs a replayed
              decode step, 36 x 4 ragged attention a wave), all on the fast
              paths.  (f) phase 24's xlstm-350m waves again with graphs:
-             tokens and stats bitwise, no kernel launched.  Not a claim of
-             speed: graphs stay off by default.
+             tokens and stats bitwise, no kernel launched.  The one-shot
+             prefill: (g) on each executor's held pool at the served
+             geometry (random pages), a padded prompt (GPT2-L 288 rows,
+             StableLM 256) at two real lengths of its bucket, eager, then
+             captured at the other length and replayed, then replayed at
+             the first: logits and pages bitwise the eager step's, one
+             capture, exact launches; its wall eager against replay.  (h)
+             graphs that outlive a run: phase 5's traffic served three
+             times on one executor with graphs (``launch.serve`` keeps a
+             taken executor's graphs and held pool), each bitwise phase
+             5's tokens, stats and launches, the second serve capturing no
+             decode step and replaying every one-shot prefill, the third
+             capturing nothing; (a)'s spec serve a second time on the same
+             target and draft, bitwise phase 14's, every call on a shape
+             the first serve met replayed.  Not a claim of speed: graphs
+             stay off by default.
 
 Every serve and timing line ends with the card's name and power limit.
 Where the serve time goes (``torch.profiler``) is measured apart, by
@@ -4489,16 +4503,16 @@ def graph_step_check(ex, pool, vocab, torch, card, what):
     from repro_torch.serving.graphs import leaves
 
     n, w, page = pool.num_slots, pool.pages_per_slot, pool.page_size
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    storage = ex.make_pool(pool.num_pages, page)  # the held pool: graphs on
     g = torch.Generator(device="cuda").manual_seed(37)
-    storage = ex.make_pool(pool.num_pages, page)
     for leaf in leaves(storage):
         leaf.normal_(generator=g)
     table = np.arange(1, 1 + n * w).reshape(n, w)
     pos = (np.array([0.95, 0.7, 0.45, 0.2])[np.arange(n) % 4] * w * page).astype(np.int64)
     tok = np.random.default_rng(37).integers(0, vocab, (n, 1))
-    eager = copy.copy(ex)
-    eager.graphs = False
-    ex.graphs = True
     ex.decode_paged(tok, storage, table, pos)  # the warm-up step, then the capture
     twin = _clone_tree(storage)
     got, _ = ex.decode_paged(tok, storage, table, pos)
@@ -4537,35 +4551,61 @@ def _clone_tree(tree):
     return tree.clone()
 
 
+def run_graph_line(gs):
+    """One serve's own graph stats (``launch.serve``'s ``graph_stats`` of a
+    side), kind by kind: captures, replays and capture ms."""
+    return ", ".join(f"{k} {gs[k]['captures']}/{gs[k]['replays']} ({gs[k]['capture_ms']:.1f} ms)"
+                     for k in ("decode", "prefill", "chunk") if gs[k]["captures"]
+                     or gs[k]["replays"])
+
+
 def phase_graphs_galaxy(torch, card, out):
     """Phase 37, Galaxy: phase 5's traffic served again on phase 5's
-    executor with ``graphs=True``: tokens bitwise equal to phase 5's,
-    phase 5's exact launch counts (576 ``tiled_gemm_valid`` a decode step,
-    all on ``mma``), one capture; then ``graph_step_check``."""
+    executor with ``graphs=True``, and (h) twice more on the same executor,
+    which keeps its graphs and held pool: each serve's tokens bitwise equal
+    to phase 5's, phase 5's exact launch counts (576 ``tiled_gemm_valid`` a
+    decode step, 2304 a one-shot prefill, all on ``mma``); the first serve
+    one decode capture, the second none (every decode step and one-shot
+    prefill replayed), the third no capture at all.  Then
+    ``graph_step_check`` and (g) ``graph_prefill_check``."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launch_serve
 
     what = "GPT2-L fp16 Galaxy, graphs on"
     n_req, max_new = 8, 16
-    ops.reset_launch_counts()
-    got = launch_serve.serve("gpt2-l", (3, 2, 2, 1), requests=n_req, prompt_len=(37, 300),
-                             max_new=max_new, max_batch=4, device="cuda", dtype="float16",
-                             seed=0, executor=out["executor"], graphs=True)
-    torch.cuda.synchronize()
-    counts, steps = ops.launch_counts(), got["stats"]["decode_steps"]
     eager = {r.uid: r.output for r in out["requests"]}
-    if {r.uid: r.output for r in got["requests"]} != eager:
-        raise AssertionError(f"{what}: served tokens differ from phase 5's eager serve")
-    expect = dict.fromkeys(counts, 0)
-    expect.update({"tiled_gemm_valid": n_req * 2304 + steps * 576,
-                   "ragged_flash_attention": n_req * 144, "fused_connective": n_req * 72})
-    if counts != expect or steps != out["stats"]["decode_steps"]:
-        raise AssertionError(f"{what}: launches {counts} in {steps} decode steps; want "
-                             f"{expect} in {out['stats']['decode_steps']}")
-    check_galaxy_paths(ops, what)
-    stats = got["graph_stats"]["target"]["decode"]
-    if (stats["captures"], stats["replays"]) != (1, steps - 1):
-        raise AssertionError(f"{what}: graph stats {stats} over {steps} decode steps")
+    runs = []
+    for run in range(3):
+        ops.reset_launch_counts()
+        got = launch_serve.serve("gpt2-l", (3, 2, 2, 1), requests=n_req, prompt_len=(37, 300),
+                                 max_new=max_new, max_batch=4, device="cuda",
+                                 dtype="float16", seed=0, executor=out["executor"],
+                                 graphs=True)
+        torch.cuda.synchronize()
+        counts, steps = ops.launch_counts(), got["stats"]["decode_steps"]
+        if {r.uid: r.output for r in got["requests"]} != eager:
+            raise AssertionError(f"{what}, serve {run + 1}: served tokens differ from phase "
+                                 "5's eager serve")
+        expect = dict.fromkeys(counts, 0)
+        expect.update({"tiled_gemm_valid": n_req * 2304 + steps * 576,
+                       "ragged_flash_attention": n_req * 144, "fused_connective": n_req * 72})
+        if counts != expect or got["stats"] != out["stats"]:
+            raise AssertionError(f"{what}, serve {run + 1}: launches {counts}, stats "
+                                 f"{got['stats']}; want {expect}, {out['stats']}")
+        check_galaxy_paths(ops, what)
+        gs = got["graph_stats"]["target"]
+        runs.append((got, gs))
+        dec, pre = gs["decode"], gs["prefill"]
+        want_dec = (1, steps - 1) if run == 0 else (0, steps)
+        if (dec["captures"], dec["replays"]) != want_dec:
+            raise AssertionError(f"{what}, serve {run + 1}: decode graph stats {dec} over "
+                                 f"{steps} decode steps")
+        if run and (pre["shapes"] or pre["replays"] != n_req):
+            raise AssertionError(f"{what}, serve {run + 1}: one-shot prefill graph stats "
+                                 f"{pre} over {n_req} prefills")
+    if any(runs[2][1][k]["captures"] for k in ("decode", "prefill", "chunk")):
+        raise AssertionError(f"{what}: the third serve captured: {runs[2][1]}")
+    got, stats = runs[0][0], runs[0][1]["decode"]
     log("graphs", f"{what}: {n_req} requests' tokens bitwise equal to phase 5's; "
         f"tiled_gemm_valid {counts['tiled_gemm_valid']} launches = {n_req} x 2304 + {steps} "
         f"x 576, all mma; 1 capture ({stats['capture_ms']:.1f} ms, pool "
@@ -4573,6 +4613,14 @@ def phase_graphs_galaxy(torch, card, out):
         f"tokens in {got['seconds']:.2f} s: {got['tokens_per_s']:.1f} tok/s, TTFT p50 "
         f"{1e3 * got['ttft_p50_s']:.1f} ms (phase 5's eager serve {out['tokens_per_s']:.1f} "
         f"tok/s; not a claim: one serve each) ({card})")
+    pre = runs[0][1]["prefill"]
+    log("graphs", f"(h) {what}, three serves on one executor, each bitwise phase 5's tokens, "
+        f"stats and launches: captures/replays (capture ms) by kind: "
+        + "; ".join(f"serve {i + 1}: {run_graph_line(gs)}, {g['tokens_per_s']:.1f} tok/s, "
+                    f"TTFT p50 {1e3 * g['ttft_p50_s']:.1f} ms" for i, (g, gs) in enumerate(runs))
+        + f"; {pre['shapes']} padded prompt lengths, prefill graph pool "
+        f"{runs[2][1]['prefill']['pool_bytes']} B, held pool "
+        f"{runs[2][1]['paged_pool']['bytes']} B (not a claim: one serve each) ({card})")
     ops.reset_launch_counts()
     ex = out["executor"]
     graph_step_check(ex, got["pool"], ex.embed.shape[0], torch, card, "GPT2-L fp16 decode step")
@@ -4584,6 +4632,15 @@ def phase_graphs_galaxy(torch, card, out):
     if counts != want or ops.path_counts()["tiled_gemm_valid"]["fma"]:
         raise AssertionError(f"{what}: the step check launched {counts} GEMMs, want {want} "
                              "on mma")
+    ops.reset_launch_counts()
+    graph_prefill_check(ex, got["pool"], 288, (283, 275), ex.embed.shape[0], torch, card,
+                        "GPT2-L fp16 one-shot prefill")
+    counts, calls = ops.launch_counts(), 8 + 5 * GRAPH_CHUNKS
+    want = {"tiled_gemm_valid": 2304 * calls, "ragged_flash_attention": 144 * calls,
+            "fused_connective": 72 * calls}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what}: the prefill check launched {counts}, want {want}")
+    check_galaxy_paths(ops, what)
 
 
 def phase_graphs_dense(torch, card, out):
@@ -4632,6 +4689,13 @@ def phase_graphs_dense(torch, card, out):
     for rows, offsets in ((256, (1024, 1157)), (5, (1029, 1500))):
         graph_chunk_check(ex, got["pool"], rows, offsets, ex.cfg.vocab_size, torch, card,
                           f"StableLM-12B bf16 {rows}-row chunk")
+    ops.reset_launch_counts()
+    graph_prefill_check(ex, got["pool"], 256, (250, 241), ex.cfg.vocab_size, torch, card,
+                        "StableLM-12B bf16 one-shot prefill")
+    counts, want = ops.launch_counts(), 40 * (8 + 5 * GRAPH_CHUNKS)
+    if counts["flash_attention"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"{what}: the prefill check launched {counts}, want {want} flash")
+    check_flash_paths(ops, counts, what)
 
 
 def check_chunk_graph_stats(chunk, calls, what):
@@ -4646,9 +4710,10 @@ GRAPH_CHUNKS = 3  # timed chunks a block; blocks eager, replay, replay, eager
 
 
 def graph_chunk_check(ex, pool, rows, offsets, vocab, torch, card, what):
-    """One ``rows``-row chunk of ``ex`` at the served geometry (``pool``:
-    the serve's ``PagedKVPool``; pages drawn at random, the block row pages
-    1..W) at the two ``offsets``, beside the eager step on a twin pool: the
+    """One ``rows``-row chunk of ``ex`` on its held pool of one slot at the
+    served block row (``pool``: the serve's ``PagedKVPool``, W of its
+    pages a slot; pages drawn at random, the block row pages 1..W) at the
+    two ``offsets``, beside the eager step on a twin pool: the
     first call eager (the shape's warm-up), the second captured at the
     second offset and replayed, the third replayed at the first; logits and
     pages bitwise equal each time, one capture.  Then the chunk's wall
@@ -4664,16 +4729,16 @@ def graph_chunk_check(ex, pool, rows, offsets, vocab, torch, card, what):
     w, page = pool.pages_per_slot, pool.page_size
     if max(offsets) + rows > w * page:
         raise AssertionError(f"{what}: offsets {offsets} past the block row ({w} x {page})")
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    storage = ex.make_pool(1 + w, page)  # the held pool: graphs on
     g = torch.Generator(device="cuda").manual_seed(38)
-    storage = ex.make_pool(1 + w, page)
     for leaf in leaves(storage):
         leaf.normal_(generator=g)
     twin = _clone_tree(storage)
     row = np.arange(1, 1 + w)
     tok = np.random.default_rng(38).integers(0, vocab, (1, rows))
-    eager = copy.copy(ex)
-    eager.graphs = False
-    ex.graphs = True
     for off in (offsets[0], offsets[1], offsets[0]):
         got, _ = ex.prefill_chunk(tok, storage, row, offset=off, length=off + rows)
         want, _ = eager.prefill_chunk(tok, twin, row, offset=off, length=off + rows)
@@ -4706,6 +4771,67 @@ def graph_chunk_check(ex, pool, rows, offsets, vocab, torch, card, what):
     return {"eager_ms": eager_ms, "replay_ms": replay_ms, "replay_device_ms": device_ms,
             "busy_ms": busy_ms, "capture_ms": stats["capture_ms"],
             "pool_bytes": stats["pool_bytes"]}
+
+
+def graph_prefill_check(ex, pool, rows, lengths, vocab, torch, card, what):
+    """(g) One prompt of ``rows`` tokens (a padded length) through the
+    one-shot ``prefill_paged`` of ``ex`` on its held pool at the served
+    geometry (``pool``: the serve's ``PagedKVPool``; pages drawn at random,
+    the block row pages 1..W) at the two real ``lengths`` of that padded
+    length, beside the eager step on a twin pool: the first call eager
+    (the shape's warm-up), the second captured at the second length and
+    replayed, the third replayed at the first; logits and pages bitwise
+    equal each time, one capture.  Then the prefill's wall time, host
+    inputs to synced logits, eager against replay in one call (blocks
+    eager, replay, replay, eager, the median of ``GRAPH_CHUNKS`` prefills
+    each, the lengths alternating), the replay's device time and the idle
+    share (``eager_vs_replay``)."""
+    import numpy as np
+
+    from repro_torch.serving.graphs import leaves
+
+    w, page = pool.pages_per_slot, pool.page_size
+    if rows > w * page or not all(rows - 16 < n <= rows for n in lengths):
+        raise AssertionError(f"{what}: {rows} rows at lengths {lengths}: not one padded "
+                             f"length within the block row ({w} x {page})")
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    storage = ex.make_pool(pool.num_pages, page)  # the held pool: graphs on
+    g = torch.Generator(device="cuda").manual_seed(40)
+    for leaf in leaves(storage):
+        leaf.normal_(generator=g)
+    twin = _clone_tree(storage)
+    row = np.arange(1, 1 + w)
+    tok = np.random.default_rng(40).integers(0, vocab, (1, rows))
+    for n in (lengths[0], lengths[1], lengths[0]):
+        got, _ = ex.prefill_paged(tok, storage, row, length=n)
+        want, _ = eager.prefill_paged(tok, twin, row, length=n)
+        if not torch.equal(got, want) or not all(
+                torch.equal(a, b) for a, b in zip(leaves(storage), leaves(twin))):
+            raise AssertionError(f"{what}: the prefill at length {n} differs from the eager "
+                                 f"step: logits max diff "
+                                 f"{(got.float() - want.float()).abs().max().item()}")
+    stats = ex.graph_stats["prefill"]
+    if (stats["captures"], stats["replays"]) != (1, 2):
+        raise AssertionError(f"{what}: prefill graph stats {stats}")
+
+    eager_ms, replay_ms, device_ms, busy_ms, idle = eager_vs_replay(
+        lambda i: eager.prefill_paged(tok, twin, row, length=lengths[i % 2])[0],
+        lambda i: ex.prefill_paged(tok, storage, row, length=lengths[i % 2])[0],
+        GRAPH_CHUNKS, torch)
+    stats = ex.graph_stats["prefill"]
+    log("graphs", f"(g) {what}: one capture serves lengths {list(lengths)} of a {rows}-token "
+        f"prompt, each replay's logits and pages bitwise equal to the eager step's (block row "
+        f"{w} pages of {page}); prefill wall ms eager {eager_ms[0]:.3f} / replay "
+        f"{replay_ms[0]:.3f} / replay {replay_ms[1]:.3f} / eager {eager_ms[1]:.3f} (median of "
+        f"{GRAPH_CHUNKS} each, host inputs to synced logits), replay device {device_ms:.3f} ms "
+        f"a prefill back to back; kernel time of one prefill in the profiler's trace eager "
+        f"{_ms(busy_ms['eager'])} / replay {_ms(busy_ms['replay'])} ms, so the card idles "
+        f"{idle['eager']} / {idle['replay']} of the prefill's wall; capture "
+        f"{stats['capture_ms']:.1f} ms, graph pool {stats['pool_bytes']} B, allocated after "
+        f"it {stats['allocated_bytes']} B ({card})")
+    ex.graphs = False
 
 
 def phase_graphs_spec(torch, card, fp16):
@@ -4753,6 +4879,40 @@ def phase_graphs_spec(torch, card, fp16):
         f"{got['new_tokens']} new tokens in {got['seconds']:.2f} s: "
         f"{got['tokens_per_s']:.1f} tok/s, TTFT p50 {1e3 * got['ttft_p50_s']:.1f} ms (not a "
         f"claim: one serve) ({card})")
+    first = graphs
+    # (h) the same traffic again on the same target and draft, which keep
+    # their graphs and held pools: every call on a shape the first serve
+    # met replays, so no shape is new and no decode step is captured
+    ops.reset_launch_counts()
+    again = launch_serve.serve("gpt2-l", (3, 2, 2, 1), executor=ex, dtype="float16",
+                               draft_executor=draft, spec_k=4, graphs=True, **fp16["kw"])
+    torch.cuda.synchronize()
+    if {r.uid: r.output for r in again["requests"]} != {r.uid: r.output
+                                                        for r in fp16["spec"]}:
+        raise AssertionError(f"(h) {what}: the second serve's tokens differ from phase 14's")
+    if again["stats"] != fp16["spec_stats"]:
+        raise AssertionError(f"(h) {what}: the second serve's stats {again['stats']}")
+    counts = ops.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(galaxy_expect(st, draft=again["spec"]))
+    if counts != expect:
+        raise AssertionError(f"(h) {what}: the second serve's launches {counts} != {expect}")
+    check_galaxy_paths(ops, what)
+    second = again["graph_stats"]
+    calls = {("target", "prefill"): st["prefill_oneshots"], ("target", "chunk"): st["spec_steps"],
+             ("draft", "prefill"): again["spec"].prefills, ("draft", "decode"): again["spec"].steps}
+    for (side, kind), n in calls.items():
+        gs = second[side][kind]
+        if gs["shapes"] or gs["replays"] != n or (kind == "decode" and gs["captures"]):
+            raise AssertionError(f"(h) {what}: the second serve's {side} {kind} graphs {gs} "
+                                 f"over {n} calls")
+    log("graphs", f"(h) {what}, twice on one target and draft, each bitwise phase 14's tokens, "
+        f"stats and launches: captures/replays (capture ms) by kind: first serve target "
+        f"{run_graph_line(first['target'])}, draft {run_graph_line(first['draft'])}; second "
+        f"serve target {run_graph_line(second['target'])}, draft "
+        f"{run_graph_line(second['draft'])}; {again['tokens_per_s']:.1f} tok/s, TTFT p50 "
+        f"{1e3 * again['ttft_p50_s']:.1f} ms (the first {got['tokens_per_s']:.1f} tok/s; not a "
+        f"claim: one serve each) ({card})")
     ops.reset_launch_counts()
     for rows, offsets in ((5, (200, 301)), (128, (128, 181))):
         graph_chunk_check(ex, got["pool"], rows, offsets, ex.embed.shape[0], torch, card,

@@ -110,21 +110,27 @@ and, on the continuous scheduler, its pool's pages and the bytes it
 holds of them.
 
 ``--cuda-graphs`` replays each paged decode step of the served model (and
-of the draft) and each of its prefill chunks (prefix-hit suffixes, chunks
+of the draft), each one-shot prefill (a prompt that fits one chunk, and
+every draft prefill) and each prefill chunk (prefix-hit suffixes, chunks
 of ``--prefill-chunk``, speculative verify chunks), and in waves
 (``--scheduler wave``, or RecurrentGemma and xLSTM) each wave prefill and
 wave decode step, as captured CUDA graphs, one a step shape
 (``serving/graphs.py``, the reference's jitted decode step,
-per-chunk-shape prefill and per-wave-shape prefill and decode; off by
-default): a decode step is captured on its first call, a chunk or wave
-prefill shape on its second (its first runs eagerly) and replayed after,
-a chunk at any offset, a wave decode step at any position; the same
-tokens as without it.  The executor then holds one wave cache a wave
-batch size, reset in place for each wave, which its wave graphs read.
-The serve line (and ``--report``) adds ``graph_stats`` (captures,
-replays, capture ms, the graph pools' bytes, for ``decode``, ``chunk``,
-``wave_decode`` and ``wave_prefill``, and the held wave caches and their
-bytes) for the served model and the draft.  Only one process on the card
+per-padded-length one-shot prefill, per-chunk-shape prefill and
+per-wave-shape prefill and decode; off by default): a decode step is
+captured on its first call, a one-shot prefill, chunk or wave prefill
+shape on its second (its first runs eagerly) and replayed after, a
+one-shot prefill at any length that pads to its shape, a chunk at any
+offset, a wave decode step at any position; the same tokens as without
+it.  The executor then holds one paged pool, zeroed in place for each
+run, and one wave cache a wave batch size, reset in place for each wave,
+which its graphs read, so a ``serve(executor=...)`` call after the first
+replays what the earlier ones captured.  The serve line (and
+``--report``) adds the run's own ``graph_stats`` (shapes first met,
+captures, replays and capture ms of this run, and the graph pools'
+bytes, for ``decode``, ``prefill``, ``chunk``, ``wave_decode`` and
+``wave_prefill``; the held pool's and wave caches' bytes) for the served
+model and the draft.  Only one process on the card
 is captured: ``--cuda-graphs`` is refused with ``--ranks`` above 1 (the
 zoo in waves across ranks among them) and with ``--device cpu``.
 
@@ -167,6 +173,7 @@ from repro_torch.obs import DriftMonitor, Tracer
 from repro_torch.serving.engine import (Request, ServingEngine, TransformerExecutor,
                                         paged_capable)
 from repro_torch.serving.galaxy import GalaxyHMPExecutor
+from repro_torch.serving.graphs import stats_since
 from repro_torch.serving.kvcache import make_cache
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.spec import place_draft
@@ -386,10 +393,16 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
     Galaxy ring) serves this rank's shards; every rank calls ``serve``
     with the same arguments, and only the rank of the draft's device
     builds ``draft_model``.  ``graphs`` sets the executor's and the
-    draft's ``graphs`` (a taken executor's too): each paged decode step,
-    prefill chunk, wave prefill and wave decode step replays a captured
-    CUDA graph of its shape; ``"graph_stats"`` holds the run's
-    (``{"target": ..., "draft": ...}``, None where off)."""
+    draft's ``graphs`` (a taken executor's too) where it differs: each
+    paged decode step, one-shot prefill, prefill chunk, wave prefill and
+    wave decode step replays a captured CUDA graph of its shape.  An
+    executor taken with graphs already on keeps them, with its held pool
+    and wave caches, so a second serve on it replays what the first
+    captured.  ``"graph_stats"`` holds this run's own
+    (``{"target": ..., "draft": ...}``, None where off: the shapes first
+    met, captures, replays and capture ms of this run, the graph pools'
+    and held caches' bytes as they stand after it; both sides' are the
+    one executor's where it drafts for itself)."""
     dev = resolve_device(device)
     if graphs and (ring is not None or dev.type != "cuda"):
         where = "across ranks" if ring is not None else f"on {dev.type}"
@@ -443,9 +456,10 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         else:
             executor = build_zoo_executor(cfg, device=dev, dtype=dtype, seed=seed,
                                           ranks=1 if ring is None else ring.num_devices)
-    executor.graphs = graphs
-    if draft_executor is not None:
-        draft_executor.graphs = graphs
+    for ex in (executor, draft_executor):
+        if ex is not None and ex.graphs != graphs:
+            ex.graphs = graphs  # a new StepGraph: set only where it changes
+    before = (executor.graph_stats, getattr(draft_executor, "graph_stats", None))
     max_prompt = prompt_len[1] if prompt_lens is None else max(prompt_lens)
     if shared_prefix is None:
         shared_prefix = max_prompt // 2 if prefix_cache else 0
@@ -491,9 +505,9 @@ def serve(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "draft_executor": draft_executor,
         "draft_device": draft_device,
         "spec": engine.spec,
-        "graph_stats": {"target": executor.graph_stats,
+        "graph_stats": {"target": stats_since(before[0], executor.graph_stats),
                         "draft": None if draft_executor is None
-                        else draft_executor.graph_stats},
+                        else stats_since(before[1], draft_executor.graph_stats)},
     }
 
 
@@ -701,12 +715,13 @@ def main(argv=None):
                     help="each rank writes DIR/rank<r>.json: served tokens, kernel "
                          "launches and paths, engine stats, ring hops; weights, peak "
                          "memory, staged collectives, (zoo) distinct kernel calls and "
-                         "graph stats (the four step kinds, the held wave caches' bytes)")
+                         "graph stats (the five step kinds, the held pool's and wave "
+                         "caches' bytes)")
     ap.add_argument("--cuda-graphs", action="store_true",
-                    help="replay each paged decode step and prefill chunk, and each "
-                         "wave prefill and wave decode step (the served model's and the "
-                         "draft's), as a captured CUDA graph of its shape; one process "
-                         "on the card")
+                    help="replay each paged decode step, one-shot prefill and prefill "
+                         "chunk, and each wave prefill and wave decode step (the served "
+                         "model's and the draft's), as a captured CUDA graph of its "
+                         "shape; one process on the card")
     rank_procs.add_rank_args(ap)
     args = ap.parse_args(argv)
     if args.cuda_graphs and args.ranks > 1:

@@ -13,13 +13,14 @@
       --shared-prefix 1024 --prefix-cache on --prefill-chunk 256 --max-new 16
 
 Builds the same executor as ``launch.serve`` (random weights from
-``--seed``; ``--cuda-graphs`` as there: the decode steps, prefill
-chunks and wave steps replayed as captured CUDA graphs; every serve
-captures the paged steps anew on its new pool, and the wave steps anew
-on the held wave caches, which ``serve`` lets go when it sets
-``graphs``) and serves the same requests three times: once to build and
-warm the kernels, once unprofiled for the wall time, and once under the
-profiler for the device time by kernel.  Prints the wall times, the
+``--seed``; ``--cuda-graphs`` as there: the decode steps, one-shot
+prefills, prefill chunks and wave steps replayed as captured CUDA
+graphs, bound to the pool and wave caches the executor holds, so they
+outlive each serve) and serves the same requests three times on it: once
+to build and warm the kernels (and capture), once unprofiled for the wall
+time, and once under the profiler for the device time by kernel; with
+``--cuda-graphs`` the last two replay what the earlier serves captured,
+and the graph stats of both are printed.  Prints the wall times, the
 device-busy time and its share of each wall time, the kernels that took
 the most device time, and the PyTorch operators whose own launches took
 the most (an operator's self device time, so an ``aten::einsum`` counts
@@ -54,8 +55,9 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
           dtype: Optional[str] = None, seed: int = 1, reduce: bool = False,
           graphs: bool = False, **scheduling) -> Dict:
     """Serve warm, then unprofiled, then profiled; return the wall times,
-    device-busy ms, the profiler's device-side events and the unprofiled
-    run's engine stats and graph stats.  ``scheduling`` takes ``serve``'s
+    device-busy ms, the profiler's device-side events, the unprofiled
+    run's engine stats and the graph stats of the unprofiled and the
+    profiled runs (each run's own).  ``scheduling`` takes ``serve``'s
     scheduler, page-size, prefix-cache, prefill-chunk, shared-prefix,
     temperature and draft arguments; ``graphs`` is ``serve``'s."""
     from torch.profiler import ProfilerActivity, profile
@@ -85,6 +87,7 @@ def trace(model: str = "gpt2-l", capacities: Sequence[float] = (3, 2, 2, 1), *,
         "ops": sorted(ops, key=lambda e: -e.self_device_time_total),
         "stats": plain["stats"],
         "graph_stats": plain["graph_stats"],
+        "profiled_graph_stats": traced["graph_stats"],
         "ttft_p50_ms": 1e3 * plain["ttft_p50_s"],
     }
 
@@ -111,8 +114,9 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=10,
                     help="kernels and operators to list, by device time")
     ap.add_argument("--cuda-graphs", action="store_true",
-                    help="as launch.serve's: decode steps, prefill chunks and wave "
-                         "steps replayed as captured CUDA graphs; on the card")
+                    help="as launch.serve's: decode steps, one-shot prefills, prefill "
+                         "chunks and wave steps replayed as captured CUDA graphs, held "
+                         "across the three serves; on the card")
     add_scheduling_args(ap)
     args = ap.parse_args(argv)
     if args.cuda_graphs and args.device == "cpu":
@@ -128,6 +132,7 @@ def main(argv=None):
     print(f"unprofiled run: TTFT p50 {out['ttft_p50_ms']:.1f} ms; stats {out['stats']}")
     if args.cuda_graphs:
         print(f"unprofiled run's graphs: {out['graph_stats']}")
+        print(f"profiled run's graphs: {out['profiled_graph_stats']}")
     kernels, busy = out["kernels"], out["busy_ms"]
     n_req = len(args.prompt_lens) if args.prompt_lens else args.requests
     head = (f"{n_req} requests x {args.max_new} tokens: wall "

@@ -156,15 +156,20 @@ class TransformerExecutor(GraphedSteps):
     collective beyond the model's own.
 
     graphs: replay ``decode_paged`` (gather, the one-token model, scatter),
-            ``prefill_chunk`` (the whole row's gather, the chunk at its
-            device-held offset, scatter) and the wave ``prefill`` and
-            ``decode`` (rows and write positions on the device) as captured
-            CUDA graphs, one a shape (``serving/graphs.py:StepGraph``, the
-            reference's jitted paged decode, per-chunk-shape prefill and
-            per-wave-shape prefill and decode), with ``make_cache`` handing
-            out the wave cache held for its batch size, reset in place; the
-            same steps run eagerly without it.  Settable; setting it starts
-            new graphs and ``graph_stats`` and lets the held caches go.
+            ``prefill_paged`` (the prompt at its padded length, the logits
+            row on the device, scatter), ``prefill_chunk`` (the whole row's
+            gather, the chunk at its device-held offset, scatter) and the
+            wave ``prefill`` and ``decode`` (rows and write positions on the
+            device) as captured CUDA graphs, one a shape
+            (``serving/graphs.py:StepGraph``, the reference's jitted paged
+            decode, per-padded-length and per-chunk-shape prefill and
+            per-wave-shape prefill and decode), with ``make_pool`` handing
+            out the pool held for its geometry and user (the target's or
+            a draft's), zeroed in place, and
+            ``make_cache`` the wave cache held for its batch size, reset in
+            place; the same steps run eagerly without it.  Settable;
+            setting it starts new graphs and ``graph_stats`` and lets the
+            held pool and caches go.
             Raises ``ValueError`` off the card and under ``rules``
             (``DTensor`` dispatches on the host and the mesh's collectives
             stage through it: neither can be captured).
@@ -282,10 +287,16 @@ class TransformerExecutor(GraphedSteps):
         return logits[:, -1]
 
     # --- paged protocol ------------------------------------------------------
-    def make_pool(self, num_pages: int, page_size: int):
+    def make_pool(self, num_pages: int, page_size: int, *, user: str = "target"):
         """Pool storage: the cache tree with (batch, seq) read as (page,
-        in-page slot); every leaf is (G?, P, page_size, kv, hd)."""
-        return make_cache(self.cfg, num_pages, page_size, device=self.device, rules=self.rules)
+        in-page slot); every leaf is (G?, P, page_size, kv, hd).  With
+        graphs on, the pool held for ``user`` (the engine's ``"target"``
+        or a speculative ``"draft"``) at this geometry, zeroed in place
+        (bitwise a fresh one), so the graphs bound to it outlive the
+        engine run."""
+        return self._paged_pool(num_pages, page_size, lambda: make_cache(
+            self.cfg, num_pages, page_size, device=self.device, rules=self.rules), reset_cache,
+            user)
 
     @staticmethod
     def gather_pages(pool, block_table):
@@ -310,20 +321,36 @@ class TransformerExecutor(GraphedSteps):
 
         tokens: (1, S_pad); length: real prompt length (logits are taken at
         ``length - 1``); block_row: (W,) physical pages of this request.
-        Returns ``(logits (1, V), pool)``.
+        Returns ``(logits (1, V), pool)``.  On one process the step
+        (:meth:`_prefill_paged_step`, the row on the device) runs eagerly
+        or through its graph; under the rules the row stays a host int.
         """
-        tokens = self._tensor(tokens)
-        b, s = tokens.shape
+        b, s = shape_of(tokens)
         if b != 1:
             raise ValueError("paged prefill is per-request: batch must be 1")
+        length = int(length)
+        if not 0 < length <= s:
+            raise ValueError(f"length {length} outside the {s} prompt positions")
+        if self.mesh is None:
+            return self._step("prefill", self._prefill_paged_step, pool, tokens, block_row,
+                              np.array([length - 1])), pool
+        return self._prefill_paged_step(pool, self._tensor(tokens), self._tensor(block_row),
+                                        length - 1), pool
+
+    def _prefill_paged_step(self, pool, tokens, block_row, row) -> torch.Tensor:
+        """The step that ``prefill_paged`` runs or captures on one process:
+        tokens (1, S), block_row (W,) and the row of the logits, (1,), all
+        on the device; no value is read on the host, so one program serves
+        every length that pads to S (the reference's traced ``length``).
+        The dense (1, S) cache lives only inside the step (from the graph's
+        pool under a capture).  Under the rules ``row`` is a host int."""
+        s = tokens.shape[1]
         dense = make_cache(self.cfg, 1, s, device=self.device, rules=self.rules)
-        logits, dense = self._model(tokens=tokens, mode="prefill", cache=dense,
-                                    rows=int(length) - 1)
+        logits, dense = self._model(tokens=tokens, mode="prefill", cache=dense, rows=row)
         ps = cache_page_size(pool)
         pos = torch.arange(s, device=self.device)
-        phys = self._tensor(block_row)[pos // ps]
-        self._scatter(pool, dense, phys, pos % ps, torch.zeros_like(pos), pos)
-        return logits, pool
+        self._scatter(pool, dense, block_row[pos // ps], pos % ps, torch.zeros_like(pos), pos)
+        return logits
 
     def prefill_chunk(self, tokens, pool, block_row, *, offset: int, length: int):
         """One chunked-prefill step (batch 1): gather the slot's pages into

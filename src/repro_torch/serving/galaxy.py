@@ -26,15 +26,21 @@ tiles and non-dividing lengths run exactly.  K/V land at absolute
 positions, and each decode step overwrites its own cache entry before
 attending, so bucket-padding positions are never read.
 
-``graphs=True`` replays ``decode_paged``, ``prefill_chunk`` and the wave
-protocol's ``prefill`` and ``decode`` as captured CUDA graphs, one per
-step shape (``serving/graphs.py:StepGraph``, the reference's jitted decode
-step, per-chunk-shape prefill, whose offset stays a traced scalar, and
-per-wave-shape prefill and decode): the chunk step reads its offset from
-device memory, so one graph serves every offset, and the wave decode step
-its write positions, so one graph serves every step of a wave.  With
-graphs on, ``make_cache`` returns the wave cache the executor holds for
-that batch size, reset in place, so a wave graph outlives its wave.  The
+``graphs=True`` replays ``decode_paged``, ``prefill_paged``,
+``prefill_chunk`` and the wave protocol's ``prefill`` and ``decode`` as
+captured CUDA graphs, one per step shape (``serving/graphs.py:StepGraph``,
+the reference's jitted decode step, per-padded-length one-shot prefill,
+whose length stays a traced scalar, per-chunk-shape prefill, whose offset
+does, and per-wave-shape prefill and decode): the one-shot prefill reads
+its logits row from device memory, so one graph serves every length that
+pads to its shape, the chunk step its offset, so one graph serves every
+offset, and the wave decode step its write positions, so one graph
+serves every step of a wave.  With graphs on, ``make_pool`` returns the
+pool the executor holds for that geometry and user (the engine's target
+pool or a speculative draft's), zeroed in place, and
+``make_cache`` the wave cache it holds for that batch size, reset in
+place, so a paged graph outlives its engine run and a wave graph its
+wave.  The
 same step functions run eagerly with ``graphs=False``, so the two modes
 compute the same thing.  Only a ``LocalRing`` on the card can be
 captured: a ``ProcessRing``'s hops synchronize on the host, and it runs
@@ -64,11 +70,12 @@ class GalaxyHMPExecutor(GraphedSteps):
     plan:   compute backend and ring transport come from the plan
             (``ExecPlan.with_backend`` / ``with_transport``); prefill always
             runs the overlapped ring.
-    graphs: replay ``decode_paged``, ``prefill_chunk``, ``prefill`` and
-            ``decode`` as captured CUDA graphs, and hold one wave cache a
-            batch size (settable; setting it starts new graphs and
-            ``graph_stats`` and lets the held caches go).  Raises
-            ``ValueError`` off the card and on a ``ProcessRing``.
+    graphs: replay ``decode_paged``, ``prefill_paged``, ``prefill_chunk``,
+            ``prefill`` and ``decode`` as captured CUDA graphs, and hold one
+            paged pool and one wave cache a batch size (settable; setting
+            it starts new graphs and ``graph_stats`` and lets the held pool
+            and caches go).  Raises ``ValueError`` off the card and on a
+            ``ProcessRing``.
     """
 
     def __init__(self, layers: Sequence[Dict], embed: torch.Tensor,
@@ -177,25 +184,42 @@ class GalaxyHMPExecutor(GraphedSteps):
     def supports_paged(self) -> bool:
         return True
 
-    def make_pool(self, num_pages: int, page_size: int) -> List[Dict]:
-        return hmp.make_kv_cache(
+    def make_pool(self, num_pages: int, page_size: int, *,
+                  user: str = "target") -> List[Dict]:
+        """The paged pool; with graphs on, the one held for ``user`` (the
+        engine's ``"target"`` or a speculative ``"draft"``) at this
+        geometry, zeroed in place (bitwise a fresh one: the decode's
+        pad-head reads go to the null page's zero entries), so the graphs
+        bound to it outlive the engine run."""
+        return self._paged_pool(num_pages, page_size, lambda: hmp.make_kv_cache(
             num_pages, page_size, len(self.layers), self.plan,
             device=self.device, dtype=self.embed.dtype, devices=self.ring.devices,
-        )
+        ), hmp.reset_kv_cache, user)
 
     def prefill_paged(self, tokens, pool, block_row, length: int):
         """Prefill one request (batch 1, tokens bucket-padded by the engine)
         writing its K/V straight into its pool pages.  Returns the logits
-        of the last real prompt token, (1, V), and the pool."""
-        tokens = self._tensor(tokens)
-        s = tokens.shape[1]
+        of the last real prompt token, (1, V), and the pool.  The row
+        ``length - 1`` is checked here, on the host; the step
+        (:meth:`_prefill_paged_step`) runs eagerly or through its graph."""
+        b, s = shape_of(tokens)
+        if b != 1:
+            raise ValueError("paged prefill is per-request: batch must be 1")
+        length = int(length)
+        if not 0 < length <= s:
+            raise ValueError(f"length {length} outside the {s} prompt positions")
+        return self._step("prefill", self._prefill_paged_step, pool, tokens, block_row,
+                          np.array([length - 1])), pool
+
+    def _prefill_paged_step(self, pool, tokens, block_row, row) -> torch.Tensor:
+        """The step that ``prefill_paged`` runs or captures: tokens (1, S),
+        block_row (W,) and the row of the logits, (1,), all on the device;
+        no value is read on the host, so one program serves every length
+        that pads to S (the reference's traced ``length``)."""
         layout, x = self._embed(tokens)
-        y, pool = hmp.hmp_prefill(
-            self.layers, x, self.ring, pool, plan=self.plan,
-            overlap=True, seq=s, block_row=self._tensor(block_row),
-        )
-        y = layout.gather(y)
-        return y[:, length - 1] @ self.embed.T, pool
+        y, _ = hmp.hmp_prefill(self.layers, x, self.ring, pool, plan=self.plan, overlap=True,
+                               seq=tokens.shape[1], block_row=block_row)
+        return layout.gather(y)[0, row] @ self.embed.T
 
     def prefill_chunk(self, tokens, pool, block_row, *, offset: int, length: int):
         """One chunked-prefill step (batch 1): the chunk at absolute

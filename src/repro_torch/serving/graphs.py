@@ -1,25 +1,34 @@
 """One captured program per step shape: the port of the reference's
-per-shape ``jax.jit`` of ``decode_paged``, ``prefill_chunk`` and the wave
-protocol's ``prefill`` and ``decode``.
+per-shape ``jax.jit`` of ``decode_paged``, ``prefill_paged``,
+``prefill_chunk`` and the wave protocol's ``prefill`` and ``decode``.
 
-The reference compiles the paged decode step once per shape, the chunked
-prefill once per chunk shape with the chunk's offset a traced scalar, and
-the wave prefill and decode once per wave shape, and runs those programs;
-the port issues each of a step's ops from Python (576 ``tiled_gemm_valid``
-launches and the torch ops around them in a GPT2-L Galaxy decode step,
-2304 in a chunk or a wave prefill), and the card waits on the host
-between them.  :class:`StepGraph` captures a step as one
-``torch.cuda.CUDAGraph`` per input shape and replays it.  The block
-table's width is fixed for a run (``serving/kvpool.py``: ``(num_slots,
-pages_per_slot)``), so a serve captures one decode graph and one graph per
+The reference compiles the paged decode step once per shape, the one-shot
+paged prefill once per padded length with the prompt's length a traced
+scalar, the chunked prefill once per chunk shape with the chunk's offset a
+traced scalar, and the wave prefill and decode once per wave shape, and
+runs those programs; its compiled programs live on the executor and
+outlive every engine run.  The port issues each of a step's ops from
+Python (576 ``tiled_gemm_valid`` launches and the torch ops around them
+in a GPT2-L Galaxy decode step, 2304 in a prefill, a chunk or a wave
+prefill), and the card waits on the host between them.  :class:`StepGraph`
+captures a step as one ``torch.cuda.CUDAGraph`` per input shape and
+replays it.  The block table's width is fixed for a run
+(``serving/kvpool.py``: ``(num_slots, pages_per_slot)``), so a serve
+captures one decode graph, one graph per padded prompt length and one per
 chunk row count; a wave serve one decode graph per wave batch size.
 
-Four kinds of step, each a function of a cache and int64 inputs of fixed
+Five kinds of step, each a function of a cache and int64 inputs of fixed
 shapes:
 
 * ``"decode"``: ``step(pool, tokens (S, 1), positions (S,), block_table
   (S, W))``.  Captured on the first call of a shape: every step of a serve
   has the slots' shape.
+* ``"prefill"``: ``step(pool, tokens (1, S), block_row (W,), row (1,))``,
+  the one-shot paged prefill of a prompt bucket-padded to S: ``row`` is
+  its last real token's, ``length - 1``, read on the device, so one graph
+  serves every length that pads to S.  Captured on a shape's second call,
+  as ``"chunk"``: a padded length met once costs nothing extra, and one
+  met in an earlier run of the same pool replays.
 * ``"chunk"``: ``step(pool, tokens (1, S), block_row (W,), offset ())``.
   The first call of a shape runs eagerly and is the warm-up; the second
   captures and replays; later calls replay.  A chunk's last, partial
@@ -33,10 +42,17 @@ shapes:
   on the second call of a shape, as ``"chunk"`` (the reference's key
   ``(b, s, lengths is not None)``; here ``rows`` is always an input).
 
-The paged kinds read the engine's pool; the wave kinds read a wave cache
-that :meth:`StepGraph.wave_cache` holds, one per wave batch size, reset in
-place for each wave (the buffers the reference's jitted programs reuse),
-so a graph bound to it outlives the wave.
+The paged kinds read a pool that :meth:`StepGraph.paged_pool` holds, one
+for each of its users (the engine's target pool, a speculative draft's),
+zeroed in place for each run; the wave kinds read a wave cache that
+:meth:`StepGraph.wave_cache` holds, one per wave batch size, reset in
+place for each wave.  Those are the buffers the reference's jitted
+programs reuse, so a graph bound to one outlives the engine run or the
+wave, as the reference's compiled programs do.  A graph runs only on a
+cache its ``StepGraph`` holds; the executor runs a step on any other
+eagerly.  A held pool has one user at a time: an executor with graphs
+serves one engine run at a time, and one that drafts for itself holds a
+pool for each side.
 
 What a captured step may not do, and what keeps it so:
 
@@ -51,11 +67,11 @@ What a captured step may not do, and what keeps it so:
   the split-K workspace (``kernels/tiled_gemm.py:_workspace``) before the
   capture; both raise if asked to during one;
 * outlive what it reads: every graph is bound to the storage of the cache
-  it reads and to its input buffer.  A new pool (the engine makes one a
-  run) drops the old pool's graphs; a held wave cache's graphs go when the
-  cache does (another ``max_len`` for its batch size, or a new
-  ``StepGraph``); and each graph holds the split-K workspaces it captured,
-  so a later eager launch that grows them cannot free them under it.
+  it reads and to its input buffer.  A held pool's or wave cache's graphs
+  go when it does (a pool of another geometry for its user, another
+  ``max_len`` for a wave batch size, or a new ``StepGraph``); and each
+  graph holds the split-K workspaces it captured, so a later eager launch
+  that grows them cannot free them under it.
 
 The graphs of one kind share one memory pool: they run one at a time on
 one stream, and a replay's output is copied out before the next replay
@@ -82,11 +98,13 @@ from repro_torch.kernels import tiled_gemm as _gemm
 Step = Callable[..., torch.Tensor]
 
 #: eager calls of a shape before its capture: a decode step captures on its
-#: first call (after the warm-up run in the same call), a chunk or a wave
-#: prefill on its second
-KINDS = {"decode": 0, "chunk": 1, "wave_decode": 0, "wave_prefill": 1}
+#: first call (after the warm-up run in the same call), a one-shot prefill,
+#: a chunk or a wave prefill on its second
+KINDS = {"decode": 0, "prefill": 1, "chunk": 1, "wave_decode": 0, "wave_prefill": 1}
 #: the kinds that read the engine's paged pool; the others a held wave cache
-PAGED = ("decode", "chunk")
+PAGED = ("decode", "prefill", "chunk")
+#: the stats of a kind that add up over calls; the others are levels
+COUNTED = ("shapes", "captures", "replays", "capture_ms", "allocated_bytes")
 
 
 class CudaRuntime:
@@ -212,12 +230,27 @@ def _fresh_stats() -> Dict[str, Dict]:
     stats = {kind: {"shapes": 0, "captures": 0, "replays": 0, "capture_ms": 0.0,
                     "pool_bytes": 0, "allocated_bytes": 0} for kind in KINDS}
     stats["wave_caches"] = {"caches": 0, "bytes": 0}
+    stats["paged_pool"] = {"pools": 0, "bytes": 0}
     return stats
+
+
+def stats_since(before: Optional[Dict], after: Optional[Dict]) -> Optional[Dict]:
+    """``graph_stats`` ``after`` less ``before`` where they add up over
+    calls (``COUNTED``: what happened in between, one engine run's own);
+    the levels (pool bytes, the held caches and pool) as ``after`` has
+    them.  ``after`` itself where ``before`` is None."""
+    if after is None or before is None:
+        return after
+    return {kind: {k: v - before[kind][k] if kind in KINDS and k in COUNTED else v
+                   for k, v in st.items()} for kind, st in after.items()}
 
 
 class StepGraph:
     """The captured steps of one executor, one graph per (cache, kind,
-    input shapes), each bound to the storage of the cache it reads.
+    input shapes), each bound to the storage of the cache it reads, and
+    the caches those graphs outlive runs on: one paged pool a user
+    (:meth:`paged_pool`) and one wave cache a batch size
+    (:meth:`wave_cache`).
 
     ``run(step, cache, *inputs, kind=)`` copies the int64 inputs into the
     shape's device buffer (host inputs through pinned host memory and one
@@ -225,10 +258,9 @@ class StepGraph:
     *views)`` eagerly on a side stream (the warm-up), captures it, or
     replays its graph, as ``KINDS`` says for the kind.  A replay returns a
     copy of the graph's logits buffer (the next replay may overwrite it,
-    and the caller may still hold these logits).  The paged kinds take the
-    engine's pool (a new one drops the old one's graphs); the wave kinds a
-    cache from :meth:`wave_cache` (:meth:`binds` says which caches a kind
-    may run on).
+    and the caller may still hold these logits).  The paged kinds take a
+    pool from :meth:`paged_pool`, the wave kinds a cache from
+    :meth:`wave_cache`; ``run`` refuses any other (:meth:`binds`).
 
     ``stats[kind]``: ``shapes`` (input shapes met on a cache, counted again
     on a new one), ``captures``, ``replays``, ``capture_ms`` (host wall
@@ -236,7 +268,9 @@ class StepGraph:
     graph pool holds) and ``allocated_bytes`` (``memory_allocated`` after
     each capture less before, summed: what stays allocated for the graphs,
     their output buffers); ``stats["wave_caches"]``: the held wave caches
-    and their bytes.
+    and their bytes; ``stats["paged_pool"]``: the held pools (one a user)
+    and their bytes.  The counts add up over the ``StepGraph``'s life
+    (:func:`stats_since` takes one run's).
     """
 
     def __init__(self, device, *, runtime: Optional[CudaRuntime] = None):
@@ -245,8 +279,8 @@ class StepGraph:
         self._stream = self._rt.stream(self.device)
         self._entries: Dict[Tuple, _Entry] = {}  # by (storage, kind, input shapes)
         self._pools: Dict[str, object] = {}
-        self._paged = None  # the storage of the paged pool in use
-        self._held: Dict[int, Tuple[int, object, Tuple]] = {}  # batch -> (max_len, cache, storage)
+        # ("wave", batch) or ("paged", user) -> (size, cache, storage)
+        self._held: Dict[object, Tuple[object, object, Tuple]] = {}
         self.stats = _fresh_stats()
 
     def _release(self, where) -> None:
@@ -260,26 +294,38 @@ class StepGraph:
         reset in place (``reset(cache)``), or ``make()``'s new one where
         none is held at that size; a cache of another ``max_len`` for the
         batch is let go with its graphs.  One cache a batch size."""
-        held = self._held.get(batch)
-        if held is not None and held[0] == max_len:
+        return self._hold(("wave", batch), max_len, make, reset)
+
+    def paged_pool(self, num_pages: int, page_size: int, make: Callable[[], object],
+                   reset: Callable[[object], None], user: str = "target"):
+        """The paged pool held for ``user`` at this geometry, zeroed in
+        place (``reset(pool)``), or ``make()``'s new one; the user's pool
+        of another geometry is let go with its graphs.  One pool a user
+        (the engine's ``"target"``, a speculative ``"draft"``): its graphs
+        outlive the engine run that made it, and no two users share it."""
+        return self._hold(("paged", user), (num_pages, page_size), make, reset)
+
+    def _hold(self, slot, size, make, reset):
+        held = self._held.get(slot)
+        if held is not None and held[0] == size:
             reset(held[1])
             return held[1]
         if held is not None:
             self._release(held[2])
         cache = make()
-        self._held[batch] = (max_len, cache, storage(cache))
-        self.stats["wave_caches"] = {
-            "caches": len(self._held),
-            "bytes": sum(t.numel() * t.element_size()
-                         for _, c, _ in self._held.values() for t in leaves(c))}
+        self._held[slot] = (size, cache, storage(cache))
+        for name, held_as, count in (("wave_caches", "wave", "caches"),
+                                     ("paged_pool", "paged", "pools")):
+            caches = [c for k, (_, c, _) in self._held.items() if k[0] == held_as]
+            self.stats[name] = {count: len(caches),
+                                "bytes": sum(t.numel() * t.element_size()
+                                             for c in caches for t in leaves(c))}
         return cache
 
-    def binds(self, kind: str, cache) -> bool:
-        """Whether ``kind``'s graphs may run on ``cache``: any pool for the
-        paged kinds, a held wave cache for the wave kinds."""
-        return kind in PAGED or self._holds(storage(cache))
-
-    def _holds(self, where) -> bool:
+    def binds(self, cache) -> bool:
+        """Whether graphs may run on ``cache``: a pool or wave cache this
+        ``StepGraph`` holds."""
+        where = storage(cache)
         return any(where == s for _, _, s in self._held.values())
 
     def _entry(self, shapes: Sequence[Tuple[int, ...]]) -> _Entry:
@@ -320,15 +366,11 @@ class StepGraph:
     def run(self, step: Step, pool, *inputs, kind: str = "decode") -> torch.Tensor:
         if kind not in KINDS:
             raise ValueError(f"unknown step kind {kind!r}; one of {sorted(KINDS)}")
-        where = storage(pool)
-        if kind in PAGED and where != self._paged:
-            self._release(self._paged)  # a new pool: the old one's graphs read it
-            self._paged = where
-        elif kind not in PAGED and not self._holds(where):
-            raise ValueError(f"a {kind} graph runs on a wave cache this StepGraph holds "
-                             "(wave_cache)")
+        if not self.binds(pool):
+            held = "pool (paged_pool)" if kind in PAGED else "wave cache (wave_cache)"
+            raise ValueError(f"a {kind} graph runs on a {held} this StepGraph holds")
         shapes = tuple(shape_of(t) for t in inputs)
-        key = (where, kind, shapes)
+        key = (storage(pool), kind, shapes)
         e = self._entries.get(key)
         stats = self.stats[kind]
         if e is None:
@@ -374,7 +416,8 @@ class StepGraph:
 class GraphedSteps:
     """An executor's side of :class:`StepGraph`: the settable ``graphs``
     (setting it starts a new ``StepGraph``, new ``graph_stats`` and no held
-    wave cache), ``graph_stats``, :meth:`_step` and :meth:`_wave_cache`.
+    pool or wave cache), ``graph_stats``, :meth:`_step`, :meth:`_wave_cache`
+    and :meth:`_paged_pool`.
     The executor sets ``device`` and defines ``_tensor`` (an input as an
     int64 tensor on its device) and ``_graphs_refused`` (why it cannot be
     captured, or None)."""
@@ -396,9 +439,9 @@ class GraphedSteps:
 
     @property
     def graph_stats(self) -> Optional[Dict]:
-        """The captured steps' ``StepGraph.stats``: ``decode``, ``chunk``,
-        ``wave_decode``, ``wave_prefill`` and ``wave_caches`` (None without
-        graphs)."""
+        """The captured steps' ``StepGraph.stats``: ``decode``, ``prefill``,
+        ``chunk``, ``wave_decode``, ``wave_prefill``, ``wave_caches`` and
+        ``paged_pool``, over the graphs' life (None without graphs)."""
         return None if self._graph is None else {k: dict(v)
                                                  for k, v in self._graph.stats.items()}
 
@@ -406,7 +449,7 @@ class GraphedSteps:
         """``step(cache, *inputs)``: through the graph of its shape where
         graphs are on and bind ``cache``, else eagerly on the inputs moved
         to the device.  Both run the same step."""
-        if self._graph is not None and self._graph.binds(kind, cache):
+        if self._graph is not None and self._graph.binds(cache):
             return self._graph.run(step, cache, *inputs, kind=kind)
         return step(cache, *(self._tensor(t) for t in inputs))
 
@@ -417,3 +460,11 @@ class GraphedSteps:
         if self._graph is None:
             return make()
         return self._graph.wave_cache(batch, max_len, make, reset)
+
+    def _paged_pool(self, num_pages: int, page_size: int, make: Callable[[], object],
+                    reset: Callable[[object], None], user: str):
+        """``make()`` without graphs; with them ``user``'s held pool of
+        ``StepGraph.paged_pool``, zeroed in place."""
+        if self._graph is None:
+            return make()
+        return self._graph.paged_pool(num_pages, page_size, make, reset, user)

@@ -47,9 +47,11 @@ rank (:func:`agree_proposals`).  Every rank then verifies them on its own
 shards, and the verify chunk's per-row ids are agreed as the sampled ids
 are, so acceptance, emission and the pool move in step on all ranks.
 
-A draft executor built with ``graphs=True`` replays its paged decode
-step, the proposals' one-token steps, as its own captured CUDA graph
-(``serving/graphs.py``); the verify chunk runs eagerly.
+A draft executor with ``graphs`` on replays its one-shot prefills and the
+proposals' one-token decode steps as its own captured CUDA graphs
+(``serving/graphs.py``), on a pool it holds apart from the target's, also
+where the draft is the target's own executor; the verify chunk is the
+target's chunk graph.
 
 With a tracer, a round is a ``spec_round`` span holding a
 ``draft_propose`` span and one ``spec_verify`` span per slot, and a
@@ -107,7 +109,9 @@ class SpeculativeDecoder:
         self.num_slots = num_slots
         total = 1 + num_slots * pages_per_slot
         self.pool = PagedKVPool(total, page_size, num_slots, pages_per_slot)
-        self.storage = executor.make_pool(total, page_size)
+        # with graphs on, a pool held apart from the target's, also where
+        # the draft is the target's own executor
+        self.storage = executor.make_pool(total, page_size, user="draft")
         # next position the draft will write, per slot (-1 = idle)
         self._pos = np.full(num_slots, -1, np.int64)
         self.prefills = 0

@@ -23,7 +23,8 @@ What the CPU can hold of a captured chunk:
   capture, each with the eager step's logits and pages;
 * ``StepGraph``'s bookkeeping for chunks: a shape's first call eager, its
   second captured and replayed, several shapes live at once, all dropped
-  on a new pool, launch counts per shape;
+  with the held pool for a pool of another geometry, a pool not held
+  refused, launch counts per shape;
 * ``flash_attention_plain`` with ``kv_len`` equals the call on the keys
   sliced to ``kv_len``;
 * ``trace_serve --cuda-graphs`` refused with ``--device cpu``.
@@ -66,7 +67,8 @@ from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import TransformerExecutor  # noqa: E402
 from repro_torch.serving.galaxy import GalaxyHMPExecutor  # noqa: E402
-from torch_helpers import NoHostReads, numpy_params  # noqa: E402
+from torch_helpers import (  # noqa: E402
+    CountingRuntime, NoHostReads, StandInRuntime, numpy_params)
 
 TOL = dict(atol=1e-4, rtol=0)
 PAGE = 8
@@ -218,68 +220,6 @@ def test_moe_chunk_step_reads_nothing_on_the_host(arch):
 
 # --- one capture, two offsets -----------------------------------------------------------
 
-class _ReplayGraph:
-    """Stands in for a captured graph: a replay runs the captured closure
-    again, on the graph's buffers, into its output buffer."""
-
-    def __init__(self, fn, out):
-        self.fn, self.out, self.replays = fn, out, 0
-
-    def replay(self):
-        self.out.copy_(self.fn())
-        self.replays += 1
-
-
-class _Event:
-    def record(self):
-        pass
-
-    def synchronize(self):
-        pass
-
-
-class _Runtime:
-    """``CudaRuntime`` on the CPU: ``replaying`` graphs re-run the closure,
-    counting ones only count."""
-
-    def __init__(self, replaying=True):
-        self.replaying, self.graphs = replaying, []
-
-    def check(self, device):
-        return device
-
-    def host(self, shape):
-        return torch.empty(shape, dtype=torch.int64)
-
-    def event(self):
-        return _Event()
-
-    def stream(self, device):
-        return None
-
-    def pool(self):
-        return object()
-
-    def warm(self, stream, fn):
-        return fn()
-
-    def capture(self, stream, fn, pool):
-        out = fn()
-        self.graphs.append(_ReplayGraph(fn, out) if self.replaying else _CountingGraph())
-        return self.graphs[-1], out, 4096
-
-    def allocated(self, device):
-        return 0
-
-
-class _CountingGraph:
-    def __init__(self):
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-
-
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -306,7 +246,7 @@ def test_one_capture_serves_every_offset(executor):
         ex, _ = _zoo_pair("qwen1.5-0.5b")
         vocab = ex.cfg.vocab_size
     eager = copy.copy(ex)
-    rt = _Runtime()
+    rt = StandInRuntime()
     ex._graph = graphs.StepGraph("cpu", runtime=rt)
     pool = ex.make_pool(7, PAGE)
     gen = torch.Generator().manual_seed(9)
@@ -339,9 +279,11 @@ def test_chunk_graphs_capture_on_the_second_call_per_shape():
         return (tokens + offset + block_row.sum()).float()
 
     ops.reset_launch_counts()
-    rt = _Runtime(replaying=False)
+    rt = CountingRuntime()
     sg = graphs.StepGraph("cpu", runtime=rt)
-    pool = {"k": torch.zeros(2)}
+    make = lambda: {"k": torch.zeros(2)}  # noqa: E731
+    zero = lambda p: p["k"].zero_()  # noqa: E731
+    pool = sg.paged_pool(7, PAGE, make, zero)
     row = np.array([3, 4])
     stats = sg.stats["chunk"]
     five, two = np.arange(5)[None], np.arange(2)[None]
@@ -365,13 +307,15 @@ def test_chunk_graphs_capture_on_the_second_call_per_shape():
     assert ops.path_counts()["tiled_gemm_valid"]["mma"] == 21
     assert sg.stats["decode"]["captures"] == 0
 
-    other = {"k": torch.zeros(2)}  # a new pool drops every graph
+    with pytest.raises(ValueError, match="holds"):  # a pool it does not hold
+        sg.run(step, make(), five, row, 0, kind="chunk")
+    other = sg.paged_pool(9, PAGE, make, zero)  # another geometry drops every graph
     sg.run(step, other, five, row, 0, kind="chunk")
     assert stats["captures"] == 2 and len(rt.graphs) == 2  # eager again: a first call
     sg.run(step, other, five, row, 0, kind="chunk")
     assert stats["captures"] == 3 and [g.replays for g in rt.graphs] == [2, 2, 1]
     with pytest.raises(ValueError, match="step kind"):
-        sg.run(step, other, five, row, 0, kind="prefill")
+        sg.run(step, other, five, row, 0, kind="verify")
     ops.reset_launch_counts()
 
 

@@ -47,7 +47,7 @@ from repro_torch.kernels.tiled_gemm import (  # noqa: E402
     tiled_gemm_valid,
     tiled_gemm_valid_plain,
 )
-from repro_torch.serving.graphs import leaves  # noqa: E402
+from repro_torch.serving.graphs import leaves, stats_since  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1020,11 +1020,13 @@ def _clone_tree(tree):
 
 def _serve_graphs(ex, graphs, vocab):
     """Five requests through the continuous scheduler (3 slots, pages of
-    8), with ``ex.graphs`` set as asked: tokens, launches, paths, decode
-    steps and the graph's stats."""
+    8), with ``ex.graphs`` set as asked (kept where it already is, with
+    the graphs and the held pool): tokens, launches, paths, decode steps
+    and the graph's stats."""
     from repro_torch.serving.engine import Request, ServingEngine
 
-    ex.graphs = graphs
+    if ex.graphs != graphs:
+        ex.graphs = graphs
     eng = ServingEngine(ex, max_batch=3, max_len=48, scheduler="continuous", page_size=8)
     for i in range(5):
         eng.submit(Request(uid=i, prompt=[1 + (7 * i + 3 * j) % (vocab - 1)
@@ -1036,14 +1038,18 @@ def _serve_graphs(ex, graphs, vocab):
             ex.graph_stats)
 
 
-def _replay_equals_eager(ex, pool, tok, table, pos):
-    """One decode step replayed and run eagerly on copies of one pool:
-    logits and pages bitwise equal."""
+def _replay_equals_eager(ex, gen, tok, table, pos):
+    """One decode step replayed and run eagerly on copies of one pool (the
+    held pool, 13 pages of 8 drawn from ``gen``): logits and pages bitwise
+    equal."""
     import copy
 
     eager = copy.copy(ex)
     eager.graphs = False
     ex.graphs = True
+    pool = ex.make_pool(13, 8)
+    for leaf in leaves(pool):
+        leaf.normal_(generator=gen)
     ex.decode_paged(tok, pool, table, pos)  # warm-up and capture on `pool`
     twin = _clone_tree(pool)
     got, _ = ex.decode_paged(tok, pool, table, pos)
@@ -1078,12 +1084,9 @@ def test_galaxy_graphs_replay_the_eager_step(cuda):
     assert stats["captures"] == 1 and stats["replays"] == graphed[3] - 1
     assert graphed[2]["tiled_gemm_valid"]["fma"] == 0
 
-    pool = ex.make_pool(13, 8)
-    for leaf in leaves(pool):
-        leaf.normal_(generator=gen)
     table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], device=cuda)
     ops.reset_launch_counts()
-    _replay_equals_eager(ex, pool, torch.tensor([[5], [9], [0]], device=cuda), table,
+    _replay_equals_eager(ex, gen, torch.tensor([[5], [9], [0]], device=cuda), table,
                          torch.tensor([30, 11, 0], device=cuda))
     # warm-up, replay and the eager step: 32 launches each
     assert ops.launch_counts()["tiled_gemm_valid"] == 3 * 32
@@ -1106,11 +1109,8 @@ def test_zoo_graphs_replay_the_eager_step(cuda):
     stats = graphed[4]["decode"]
     assert stats["captures"] == 1 and stats["replays"] == graphed[3] - 1
 
-    pool = ex.make_pool(13, 8)
-    for leaf in leaves(pool):
-        leaf.normal_(generator=gen)
     table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [0, 0, 0, 0]], device=cuda)
-    _replay_equals_eager(ex, pool, torch.tensor([[5], [9], [0]], device=cuda), table,
+    _replay_equals_eager(ex, gen, torch.tensor([[5], [9], [0]], device=cuda), table,
                          torch.tensor([30, 11, 0], device=cuda))
 
 
@@ -1182,14 +1182,14 @@ def _chunks_replay_equal_eager(ex, vocab, width, dtype):
     offsets other than the one they were captured at."""
     import copy
 
-    gen = torch.Generator(device=ex.device).manual_seed(1)
-    pool = ex.make_pool(1 + width, 8)
-    for leaf in leaves(pool):
-        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=ex.device).to(dtype))
-    twin = _clone_tree(pool)
     eager = copy.copy(ex)
     eager.graphs = False
     ex.graphs = True
+    gen = torch.Generator(device=ex.device).manual_seed(1)
+    pool = ex.make_pool(1 + width, 8)  # the held pool: graphs on
+    for leaf in leaves(pool):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=ex.device).to(dtype))
+    twin = _clone_tree(pool)
     row = torch.arange(1, 1 + width, device=ex.device)
     for s, off in ((5, 3), (8, 0), (5, 17), (8, 8), (5, 9), (8, 21), (5, 30), (8, 1)):
         tok = torch.randint(0, vocab, (1, s), generator=gen, device=ex.device)
@@ -1366,4 +1366,61 @@ def test_wave_steps_replay_the_eager_step(cuda, kind):
     stats = ex.graph_stats
     assert (stats["wave_prefill"]["captures"], stats["wave_prefill"]["replays"]) == (1, 2)
     assert (stats["wave_decode"]["captures"], stats["wave_decode"]["replays"]) == (1, 3)
+    ex.graphs = False
+
+
+# --- the captured one-shot prefill (serving/graphs.py, kind "prefill") ----------------------
+
+@pytest.mark.parametrize("kind", ["galaxy", "stablelm-12b"])
+def test_prefill_graphs_replay_the_eager_step(cuda, kind):
+    """A prompt padded to 16 on the held pool (random pages), at real
+    lengths 13 (eager: the warm-up), 9 (captured, then replayed) and 11
+    (replayed), each beside the eager step on a twin pool: logits and every
+    page bitwise equal, the same launches each call; then a second engine
+    run on the executor replays its one-shot prefills and captures
+    nothing new."""
+    import copy
+
+    if kind == "galaxy":
+        ex, vocab = _wave_executor("galaxy", cuda)
+        dtype = torch.float16
+    else:
+        from repro_torch.models.params import init_params
+        from repro_torch.serving.engine import TransformerExecutor
+
+        cfg = dataclasses.replace(reduced(get_config(kind)), num_kv_heads=2,
+                                  dtype="bfloat16", param_dtype="bfloat16")
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        ex = TransformerExecutor(init_params(cfg, generator=gen, device=cuda), cfg)
+        vocab, dtype = cfg.vocab_size, torch.bfloat16
+    eager = copy.copy(ex)
+    eager.graphs = False
+    ex.graphs = True
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    pool = ex.make_pool(7, 8)
+    for leaf in leaves(pool):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=cuda).to(dtype))
+    twin = _clone_tree(pool)
+    row = torch.tensor([5, 2, 3], device=cuda)
+    tokens = torch.randint(1, vocab, (1, 16), generator=gen, device=cuda)
+    for n in (13, 9, 11):
+        ops.reset_launch_counts()
+        got, _ = ex.prefill_paged(tokens, pool, row, length=n)
+        launched = ops.launch_counts()
+        ops.reset_launch_counts()
+        want, _ = eager.prefill_paged(tokens, twin, row, length=n)
+        assert torch.equal(got, want), n
+        assert all(torch.equal(a, b) for a, b in zip(leaves(pool), leaves(twin))), n
+        assert launched == ops.launch_counts(), n
+    stats = ex.graph_stats["prefill"]
+    assert (stats["captures"], stats["replays"]) == (1, 2)
+    runs = []
+    for _ in range(3):
+        before = ex.graph_stats
+        out = _serve_graphs(ex, True, vocab)
+        runs.append((out[:4], stats_since(before, out[4])))
+    assert runs[1][0] == runs[2][0] == runs[0][0]
+    assert runs[1][1]["decode"]["captures"] == 0
+    assert all(runs[2][1][k]["captures"] == 0 for k in ("decode", "prefill")), runs[2][1]
+    assert runs[2][1]["prefill"]["replays"] == 5
     ex.graphs = False

@@ -17,8 +17,9 @@ What the CPU can hold of a CUDA graph:
   ``ProcessRing``; ``launch.serve --cuda-graphs`` refused with ``--ranks 2``
   and ``--device cpu`` before any serve;
 * ``StepGraph``'s bookkeeping through a stand-in runtime: one capture a
-  pool, a new pool or shape captures again, inputs land in the buffers
-  the graph reads, launch counts add the captured launches per replay;
+  held pool, a pool of another geometry or a new shape captures again, a
+  pool it does not hold is refused, inputs land in the buffers the graph
+  reads, launch counts add the captured launches per replay;
 * the capture guards: no workspace growth and no kernel build while a
   stream is capturing.
 
@@ -55,7 +56,7 @@ from repro_torch.models.sharding import Rules  # noqa: E402
 from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import TransformerExecutor  # noqa: E402
 from repro_torch.serving.galaxy import GalaxyHMPExecutor  # noqa: E402
-from torch_helpers import NoHostReads, numpy_params  # noqa: E402
+from torch_helpers import CountingRuntime, NoHostReads, numpy_params  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=0)
 
@@ -206,55 +207,6 @@ def test_serve_cli_refuses_cuda_graphs(argv, why, monkeypatch):
 
 # --- StepGraph's bookkeeping, through a stand-in runtime ------------------------------
 
-class _Graph:
-    """Stands in for ``torch.cuda.CUDAGraph``: a replay launches nothing
-    here, it only counts."""
-
-    def __init__(self):
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-
-
-class _Event:
-    def record(self):
-        pass
-
-    def synchronize(self):
-        pass
-
-
-class _Runtime:
-    def __init__(self):
-        self.graphs = []
-
-    def check(self, device):
-        return device
-
-    def host(self, shape):
-        return torch.empty(shape, dtype=torch.int64)
-
-    def event(self):
-        return _Event()
-
-    def stream(self, device):
-        return None
-
-    def pool(self):
-        return object()
-
-    def warm(self, stream, fn):
-        return fn()
-
-    def capture(self, stream, fn, pool):
-        self.graphs.append(_Graph())
-        return self.graphs[-1], fn(), 4096
-
-    def allocated(self, device):
-        return 0
-
-
 def test_step_graph_captures_once_a_pool_and_counts_replays():
     seen = []
 
@@ -267,9 +219,11 @@ def test_step_graph_captures_once_a_pool_and_counts_replays():
         return (tokens + positions[:, None] + block_table.sum(1, keepdim=True)).float()
 
     ops.reset_launch_counts()
-    rt = _Runtime()
+    rt = CountingRuntime()
     sg = graphs.StepGraph("cpu", runtime=rt)
-    pool = {"k": torch.zeros(2)}
+    make = lambda: {"k": torch.zeros(2)}  # noqa: E731
+    zero = lambda p: p["k"].zero_()  # noqa: E731
+    pool = sg.paged_pool(3, 8, make, zero)
     tok, pos, bt = np.array([[5], [7]]), np.array([3, 0]), np.array([[1, 2], [0, 0]])
     out = sg.run(step, pool, tok, pos, bt)  # warm-up (the real step), then capture
     assert out.tolist() == [[11.0], [7.0]]
@@ -288,7 +242,9 @@ def test_step_graph_captures_once_a_pool_and_counts_replays():
         got.fill_(-1)  # a copy of the buffer: the next replay's is untouched
     assert len(seen) == 2 and sg.run(step, pool, tok, pos, bt).tolist() == [[11.0], [7.0]]
 
-    other = {"k": torch.zeros(2)}  # a new pool captures again
+    with pytest.raises(ValueError, match="holds"):  # a pool it does not hold
+        sg.run(step, make(), tok, pos, bt)
+    other = sg.paged_pool(4, 8, make, zero)  # another geometry captures again
     sg.run(step, other, tok, pos, bt)
     assert stats["captures"] == 2 and len(rt.graphs) == 2
     sg.run(step, other, tok, pos, bt)

@@ -65,7 +65,7 @@ from repro_torch.serving import graphs  # noqa: E402
 from repro_torch.serving.engine import Request, ServingEngine, TransformerExecutor  # noqa: E402
 from repro_torch.serving.galaxy import GalaxyHMPExecutor  # noqa: E402
 from repro_torch.serving.kvcache import make_cache, reset_cache  # noqa: E402
-from torch_helpers import NoHostReads, numpy_params  # noqa: E402
+from torch_helpers import NoHostReads, StandInRuntime, numpy_params  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=0)
 LENGTHS = np.array([12, 9])  # a wave of two prompts right-padded to 12
@@ -236,7 +236,7 @@ def test_held_cache_resets_to_a_fresh_cache_in_place(executor):
         ex = copy.copy(ex)
         fresh = lambda: make_cache(ex.cfg, 2, 16)  # noqa: E731
     assert ex.make_cache(2, 16) is not ex.make_cache(2, 16)
-    ex._graph = graphs.StepGraph("cpu", runtime=_Runtime())
+    ex._graph = graphs.StepGraph("cpu", runtime=StandInRuntime())
     cache = ex.make_cache(2, 16)
     where = graphs.storage(cache)
     for t in graphs.leaves(cache):
@@ -260,62 +260,6 @@ def test_held_cache_resets_to_a_fresh_cache_in_place(executor):
 
 # --- StepGraph's bookkeeping for waves, through a stand-in runtime -----------------------
 
-class _ReplayGraph:
-    """Stands in for a captured graph: a replay runs the captured closure
-    again, on the graph's buffers, into its output buffer."""
-
-    def __init__(self, fn, out):
-        self.fn, self.out, self.replays = fn, out, 0
-
-    def replay(self):
-        new = self.fn()
-        self.out.resize_(new.shape).copy_(new)
-        self.replays += 1
-
-
-class _Event:
-    def record(self):
-        pass
-
-    def synchronize(self):
-        pass
-
-
-class _Runtime:
-    """``CudaRuntime`` on the CPU.  A capture runs nothing, as on the card
-    (a wave step updates its cache in place); its graph re-runs the
-    captured closure at each replay."""
-
-    def __init__(self):
-        self.graphs = []
-
-    def check(self, device):
-        return device
-
-    def host(self, shape):
-        return torch.empty(shape, dtype=torch.int64)
-
-    def event(self):
-        return _Event()
-
-    def stream(self, device):
-        return None
-
-    def pool(self):
-        return object()
-
-    def warm(self, stream, fn):
-        return fn()
-
-    def capture(self, stream, fn, pool):
-        out = torch.empty(0)
-        self.graphs.append(_ReplayGraph(fn, out))
-        return self.graphs[-1], out, 4096
-
-    def allocated(self, device):
-        return 0
-
-
 def test_wave_graphs_capture_per_kind_and_survive_alternating_waves():
     calls = []
 
@@ -326,7 +270,7 @@ def test_wave_graphs_capture_per_kind_and_survive_alternating_waves():
         return (tokens + extra[:, None]).float()
 
     ops.reset_launch_counts()
-    rt = _Runtime()
+    rt = StandInRuntime()
     sg = graphs.StepGraph("cpu", runtime=rt)
     make = {b: (lambda b=b: {"k": torch.zeros(b)}) for b in (4, 2)}
     zero = lambda c: c["k"].zero_()  # noqa: E731
@@ -343,10 +287,11 @@ def test_wave_graphs_capture_per_kind_and_survive_alternating_waves():
     assert (dec["captures"], dec["replays"], dec["shapes"]) == (2, 16, 2)
     assert (pre["captures"], pre["replays"], pre["shapes"]) == (2, 4, 2)
     assert ops.launch_counts()["tiled_gemm_valid"] == 6 * 4
-    pool = {"k": torch.zeros(3)}
+    pool = sg.paged_pool(3, 8, lambda: {"k": torch.zeros(3)}, zero)
     sg.run(step, pool, np.zeros((3, 1), np.int64), np.zeros(3, np.int64))
-    sg.run(step, {"k": torch.zeros(3)}, np.zeros((3, 1), np.int64), np.zeros(3, np.int64))
-    assert sg.stats["decode"]["captures"] == 2  # a new pool: its graphs went
+    pool = sg.paged_pool(5, 8, lambda: {"k": torch.zeros(3)}, zero)
+    sg.run(step, pool, np.zeros((3, 1), np.int64), np.zeros(3, np.int64))
+    assert sg.stats["decode"]["captures"] == 2  # another geometry: the pool's graphs went
     cache = sg.wave_cache(4, 16, make[4], zero)
     sg.run(step, cache, np.ones((4, 1), np.int64), np.arange(4), kind="wave_decode")
     assert dec["captures"] == 2 and dec["replays"] == 17  # the wave graphs stayed
@@ -372,7 +317,7 @@ def test_one_capture_serves_every_decode_index(executor):
         ex, _ = _zoo("recurrentgemma-9b")
         ex, vocab = copy.copy(ex), ex.cfg.vocab_size
     eager = copy.copy(ex)
-    rt = _Runtime()
+    rt = StandInRuntime()
     ex._graph = graphs.StepGraph("cpu", runtime=rt)
     tokens = np.random.default_rng(8).integers(1, vocab, (2, 12))
     for i in range(2):
@@ -410,7 +355,7 @@ def test_wave_serve_through_the_stand_in_gives_the_eager_tokens():
         return {r.uid: r.output for r in eng.run()}, eng.stats["decode_steps"]
 
     want, _ = serve()
-    ex._graph = graphs.StepGraph("cpu", runtime=_Runtime())
+    ex._graph = graphs.StepGraph("cpu", runtime=StandInRuntime())
     for rnd in range(2):
         got, steps = serve()
         assert got == want, rnd

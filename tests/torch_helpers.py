@@ -1,7 +1,8 @@
 """Shared inputs of the port's training and multimodal parity tests: the
 reference's parameter tree drawn with numpy, and one numpy batch, handed
-to both packages; and the dispatch mode that holds a captured step's
-code to reading nothing on the host."""
+to both packages; the dispatch mode that holds a captured step's code to
+reading nothing on the host; and a stand-in for the card's graph runtime
+whose replays re-run the captured step."""
 import jax
 import numpy as np
 import torch
@@ -73,3 +74,79 @@ class NoHostReads(TorchDispatchMode):
                    for i in args[1] if i is not None):
                 raise AssertionError(f"boolean-mask indexing in the step: {func}")
         return func(*args, **(kwargs or {}))
+
+
+class ReplayGraph:
+    """Stands in for a captured ``torch.cuda.CUDAGraph``: a replay runs the
+    captured closure again, on the graph's buffers, into its output
+    buffer."""
+
+    def __init__(self, fn, out):
+        self.fn, self.out, self.replays = fn, out, 0
+
+    def replay(self):
+        new = self.fn()
+        self.out.resize_(new.shape).copy_(new)
+        self.replays += 1
+
+
+class StandInRuntime:
+    """``serving/graphs.py:CudaRuntime`` on the CPU.  A capture runs
+    nothing, as on the card (a step updates its cache in place), and its
+    graph re-runs the captured closure at each replay."""
+
+    class _Event:
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+    def __init__(self):
+        self.graphs = []
+
+    def check(self, device):
+        return torch.device(device)
+
+    def host(self, shape):
+        return torch.empty(shape, dtype=torch.int64)
+
+    def event(self):
+        return self._Event()
+
+    def stream(self, device):
+        return None
+
+    def pool(self):
+        return object()
+
+    def warm(self, stream, fn):
+        return fn()
+
+    def capture(self, stream, fn, pool):
+        out = torch.empty(0)
+        self.graphs.append(ReplayGraph(fn, out))
+        return self.graphs[-1], out, 4096
+
+    def allocated(self, device):
+        return 0
+
+
+class CountingGraph:
+    """Stands in for a captured graph whose replay launches nothing here:
+    it only counts."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+class CountingRuntime(StandInRuntime):
+    """A :class:`StandInRuntime` whose capture runs the step once, for its
+    output buffer, and whose graphs only count their replays."""
+
+    def capture(self, stream, fn, pool):
+        self.graphs.append(CountingGraph())
+        return self.graphs[-1], fn(), 4096
